@@ -11,6 +11,7 @@ import jax
 def pytest_configure(config):
     config.addinivalue_line(
         "filterwarnings", "error:Explicitly requested dtype")
+    config.addinivalue_line("markers", "cuda: needs a CUDA card; skips without one")
 
 
 def pytest_sessionstart(session):

@@ -1,0 +1,97 @@
+"""Each CUDA kernel of the port against its plain PyTorch version, on the
+card. Every test is marked `cuda` and skips without a card (a CUDA kernel
+has no CPU mode; `tests/test_torch_kernels.py` holds the plain versions to
+the JAX package here).
+
+This file imports neither jax nor the JAX package, so it also runs on a
+machine that has only the port installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.bitset_jaccard import kernel as inter_kernel
+from repro_torch.kernels.bitset_jaccard import ref as inter_ref
+from repro_torch.kernels.seghist import kernel as hist_kernel
+from repro_torch.kernels.seghist import ref as hist_ref
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+
+
+def _bits(shape, seed):
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 32, size=shape, dtype=np.uint64)
+    words[..., 0, :] = 0xFFFFFFFF  # all-ones words
+    return torch.from_numpy(words.astype(np.uint32).view(np.int32))
+
+
+def _ids(E, S, seed):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, S, size=E).astype(np.int32)
+    ids[rng.random(E) < 0.2] = -1
+    return torch.from_numpy(ids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,W,valid", [(8, 8, 64), (16, 64, 37), (128, 256, 64),
+                                       (32, 5, 3), (17, 3, 64)])
+def test_cuda_intersections_match_plain(G, W, valid):
+    _need_card()
+    bits = _bits((64, G, W), seed=G + W).cuda()
+    n = inter_kernel.LAUNCHES
+    got = inter_kernel.bitset_intersections(bits, valid)
+    torch.cuda.synchronize()
+    assert inter_kernel.LAUNCHES == n + 1
+    assert torch.equal(got, inter_ref.bitset_intersections(bits, valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,S", [(1 << 17, 1 << 18), (1 << 20, 1 << 15),
+                                 (1000, 700), (5, 1)])
+def test_cuda_histogram_matches_plain(E, S):
+    _need_card()
+    ids = _ids(E, S, seed=E).cuda()
+    n = hist_kernel.LAUNCHES
+    got = hist_kernel.segment_histogram(ids, S)
+    torch.cuda.synchronize()
+    assert hist_kernel.LAUNCHES == n + 1
+    assert torch.equal(got, hist_ref.segment_histogram(ids, S))
+
+
+@pytest.mark.cuda
+def test_cuda_ops_match_host_path():
+    """The ops on the card return what the host path returns, with the
+    same padding contracts."""
+    _need_card()
+    from repro_torch.kernels.bitset_jaccard import ops as O1
+    from repro_torch.kernels.seghist import ops as O2
+
+    rng = np.random.default_rng(5)
+    bits = rng.integers(0, 1 << 32, size=(70, 16, 5), dtype=np.uint64)
+    bits = bits.astype(np.uint32)
+    np.testing.assert_array_equal(
+        O1.batched_pairwise_intersections(bits, device="cuda"),
+        O1.batched_pairwise_intersections(bits, device="cpu"))
+    state = rng.integers(0, 300, size=1000)
+    np.testing.assert_array_equal(
+        O2.membership_counts(state, 300, backend="batched", device="cuda"),
+        O2.membership_counts(state, 300, backend="numpy"))
+
+
+@pytest.mark.cuda
+def test_cuda_summarize_matches_host_oracle():
+    _need_card()
+    import repro_torch
+    from repro_torch.graphs import generators as GG
+
+    g = GG.caveman(200, 8, 0.05, seed=0)
+    on_card = repro_torch.summarize(g, T=5)
+    host = repro_torch.summarize(g, T=5, backend="numpy", device="cpu")
+    np.testing.assert_array_equal(on_card.parent, host.parent)
+    np.testing.assert_array_equal(on_card.edges, host.edges)
+    assert on_card.validate_lossless(g)

@@ -1,0 +1,139 @@
+"""The port stands alone: `src/repro_torch` and `chip_smoke.py` import
+neither jax nor the JAX package, entry points default to the CUDA card and
+refuse to fall back to the CPU, and the unported paths say so."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.graphs import generators as PG
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_files_exist():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for want in ("src/repro_torch/core/engine.py",
+                 "src/repro_torch/kernels/bitset_jaccard/kernel.py",
+                 "src/repro_torch/kernels/seghist/kernel.py", "chip_smoke.py"):
+        assert want in names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_reference_import(path):
+    bad = _imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{path} imports {sorted(bad)}"
+
+
+def test_summarize_runs_without_jax_or_reference_loaded():
+    code = (
+        "import sys\n"
+        "import repro_torch\n"
+        "from repro_torch.graphs import generators as G\n"
+        "g = G.caveman(6, 5, 0.1, seed=0)\n"
+        "s = repro_torch.summarize(g, T=2, device='cpu')\n"
+        "assert s.validate_lossless(g)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print('LOADED', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout
+
+
+def test_default_device_is_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = PG.caveman(4, 4, 0.0, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.summarize(g)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.SummarizerEngine(backend="numpy")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.summarize(g, device="cuda")
+
+
+def test_default_backend_is_batched():
+    engine = repro_torch.SummarizerEngine(device="cpu")
+    assert engine.backend == "batched"
+    assert engine.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("kwargs,exc,match", [
+    ({"backend": "resident"}, NotImplementedError, "slice C"),
+    ({"partitions": 2}, NotImplementedError, "slice E"),
+    ({"backend": "bogus"}, ValueError, "unknown backend"),
+    ({"partitions": 0}, ValueError, "partitions"),
+])
+def test_unported_and_invalid_options_raise(kwargs, exc, match):
+    with pytest.raises(exc, match=match):
+        repro_torch.SummarizerEngine(device="cpu", **kwargs)
+
+
+def test_engine_times_the_five_stages():
+    from repro_torch.core.engine import STAGE_ORDER
+
+    g = PG.caveman(8, 5, 0.05, seed=3)
+    engine = repro_torch.SummarizerEngine(T=3, device="cpu")
+    s = engine.run(g)
+    assert s.validate_lossless(g)
+    assert STAGE_ORDER == ("shingle", "group", "pack", "merge_round",
+                           "exchange")
+    for name in STAGE_ORDER + ("emit", "prune"):
+        assert engine.stats[name] >= 0.0, name
+    assert len(engine.stats["transfer_iters"]) == 3
+    assert engine.stats["merges"] > 0
+
+
+def _run_smoke(cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: chip_smoke.py would run in full")
+    out = _run_smoke(ROOT)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_fails_outside_a_checkout(tmp_path):
+    (tmp_path / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
+    out = _run_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_cpu_path_launches_no_kernel():
+    from repro_torch.kernels.bitset_jaccard import kernel as K1
+    from repro_torch.kernels.seghist import kernel as K2
+
+    before = (K1.LAUNCHES, K2.LAUNCHES)
+    g = PG.caveman(10, 6, 0.05, seed=1)
+    s = repro_torch.summarize(g, T=3, device="cpu")
+    assert s.validate_lossless(g)
+    assert (K1.LAUNCHES, K2.LAUNCHES) == before
+    assert np.all(s.edges[:, 0] <= s.edges[:, 1])
