@@ -8,27 +8,39 @@ Phases, each printing one JSON line with its seconds:
 
   device   the card's name and count, and its power limit from nvidia-smi
   build    the CUDA kernels built from `src/repro_torch/csrc` (nvcc, sm_90a)
-  kernels  each kernel against its plain PyTorch version on the card, at the
-           shapes the main path gives it: exact equality, CUDA-event times
-           of the kernel, the plain version and a one-call PyTorch yardstick
+  kernels  each kernel against its plain PyTorch version on the card, at
+           fixed shapes (the widest included): exact equality, CUDA-event
+           times of the kernel, the plain version and, where one exists, a
+           one-call PyTorch yardstick
   main     `summarize(caveman(20000, 11, 0.03), backend="batched")` — the
-           1.1M-edge graph at T=20 — lossless, with both kernels' launch
-           counts read from a run that started them at 0
+           1.1M-edge graph at T=20 — lossless, with the launch counts of
+           all four kernels read from a run that started them at 0
   parity   the host oracle `backend="numpy"` on the same graph, and both
            backends on `rmat(14, 8)`: parent and edges equal bit for bit
-  trace    the main path once more under `torch.profiler`: device busy
-           time by kernel and copy against the run's wall time
+  resident the same graph through `backend="resident"`, counts at 0 before
+           it: lossless and equal bit for bit to the batched summary, top-J
+           and fold launched, stage walls, the per-phase transfer ledger of
+           every iteration (steady-state `upload` 0 B after iteration 1),
+           peak device memory; then `rmat(14, 8)` resident equal to its
+           batched run (the wide group buckets)
+  trace    the batched and the resident paths once more each under
+           `torch.profiler`: device busy time by kernel, copy and torch op
+           against each run's wall time
 
-The line before the last is the per-kernel record; its times are the sums
-over every call the main path made (distinct shapes timed once each,
-weighted by their call counts). The last line is
+The line before the last is the per-kernel record; each kernel's launches
+come from its own path's counted run (batched for the intersections and
+the histogram, resident for top-J and the fold), its times are sums over
+every call that run made (distinct call shapes checked against the plain
+version, timed, and weighted by their call counts). The last line is
 ``{"ok": true, "device": {...}}``. Any failure raises: the script then
 exits non-zero without that line. Without a card, or outside a checkout,
 it exits non-zero at once.
 """
 from __future__ import annotations
 
+import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -50,6 +62,9 @@ POPC_LANES_PER_SM = 16
 INTER_SHAPES = [(64, g, w, 64) for g in (8, 16, 32, 64, 128)
                 for w in (8, 64, 256)] + [(64, 16, 8, 37)]
 HIST_SHAPES = [((1 << 17), (1 << 18)), ((1 << 20), (1 << 15))]
+# (B, G, Wp, J) and (B, G, Wp, P): small, main-path-like and the widest
+TOPJ_SHAPES = [(3, 2, 2, 1), (4096, 16, 2, 15), (64, 128, 256, 16)]
+FOLD_SHAPES = [(7, 32, 2, 16), (4096, 16, 2, 8), (64, 128, 256, 64)]
 
 
 def emit(phase: str, t0: float, **fields):
@@ -111,6 +126,120 @@ def inter_bound_s(B, G, W, valid, rates):
     by_ops = max(2 * pairs / rates["int32_ops_per_s"],
                  pairs / rates["popc_per_s"])
     return by_bytes, by_ops
+
+
+def topj_input(B, G, W, rng):
+    import numpy as np
+    import torch
+
+    alive = (rng.random((B, G)) < 0.85).astype(np.int8)
+    return inter_input(B, G, W, rng), torch.from_numpy(alive).cuda()
+
+
+def select_compares(c, J):
+    """A lower bound on the compares that pick the min(J, c) largest of c
+    distinct keys in order: every key but the largest loses at least once
+    (c − 1), and the answer is one of c!/(c − k)! ordered choices."""
+    k = min(J, c)
+    return max(c - 1, math.ceil(sum(math.log2(c - t) for t in range(k))), 0)
+
+
+@functools.lru_cache(maxsize=None)
+def select_table(G, J, device):
+    """`select_compares` for c = 0..G on ``device``, built once per shape
+    (an upload per call would sync the host with the card)."""
+    import torch
+
+    return torch.tensor([select_compares(c, J) for c in range(G + 1)],
+                        dtype=torch.int64, device=device)
+
+
+def topj_work(alive, J):
+    """What top-J needs of one call's data, as a device tensor ``[pairs,
+    keys, live groups, compares]`` (no host sync). Only alive columns get
+    a key and a key is symmetric in its row pair, so a group with a alive
+    rows needs the C(G, 2) − C(G − a, 2) row pairs with an alive member,
+    a·(G − 1) combined keys, and — if a > 0 — its bits and G degrees;
+    dead and self columns are ranked last in a fixed order, so each row
+    selects among its alive other columns only (`select_compares`)."""
+    import torch
+
+    G = alive.shape[1]
+    table = select_table(G, J, alive.device)
+    a = (alive > 0).sum(dim=1, dtype=torch.int64)
+    d = G - a
+    return torch.stack([
+        (G * (G - 1) // 2 - d * (d - 1) // 2).sum(), (a * (G - 1)).sum(),
+        (a > 0).sum(),
+        (a * table[(a - 1).clamp(min=0)] + d * table[a]).sum()])
+
+
+def topj_bound_s(B, G, W, J, calls, pairs, keys, live, compares, rates):
+    """``calls`` calls of one shape, the rest summed over them
+    (`topj_work`). Bytes: the live groups' bits, alive and the output
+    once each. Operations: each needed row pair and each live row's
+    degree is W word pairs of an AND and an ADD on the integer lanes and
+    a POPC on its own unit; each needed pair's key takes at least 8
+    integer operations (union, bit length, shifts, the divide counted as
+    one), each combined key 3 more, plus the selections' compares."""
+    by_bytes = (live * G * W * 4 + calls * (B * G + B * G * J * 4)) / rates[
+        "hbm_bytes_per_s"]
+    words = (pairs + live * G) * W
+    ints = 2 * words + 8 * pairs + 3 * keys + compares
+    return by_bytes, max(ints / rates["int32_ops_per_s"],
+                         words / rates["popc_per_s"])
+
+
+def fold_input(B, G, W, P, n_valid, rng):
+    """bits, alive and an instruction slab of ``n_valid`` pairs, dealt
+    round-robin over the groups (pair k: group k % B, slot k // B); each
+    group's pairs take disjoint rows, and columns that share 32-bit words
+    and include bit 31."""
+    import numpy as np
+    import torch
+
+    instr = np.zeros((B, P, 8), dtype=np.int32)
+    rows = np.argsort(rng.random((B, G)), axis=1)
+    cols = np.argsort(rng.random((B, W * 32)), axis=1)[:, : 2 * P]
+    cols[:, :4] = [31, 30, 63 if W > 1 else 29, 0]
+    k = np.arange(n_valid)
+    b, p = k % B, k // B
+    ca, cz = cols[b, 2 * p], cols[b, 2 * p + 1]
+    instr[b, p] = np.stack([rows[b, 2 * p], rows[b, 2 * p + 1], ca >> 5,
+                            ca & 31, cz >> 5, cz & 31, np.ones_like(ca),
+                            np.zeros_like(ca)], axis=1)
+    alive = torch.ones((B, G), dtype=torch.int8, device="cuda")
+    return inter_input(B, G, W, rng), alive, torch.from_numpy(instr).cuda()
+
+
+def fold_work(instr, G, W):
+    """What the fold needs of one call's data, as a device tensor
+    ``[valid pairs, touched words]`` (no host sync). A group's pairs touch
+    the words of their member columns in every row (d distinct words) and
+    the whole of their two rows each (r = 2·pairs rows), each word once
+    however many pairs share it: G·d + r·W − r·d ≤ G·W words per group."""
+    import torch
+
+    ok = instr[..., 6] > 0
+    seen = torch.zeros((instr.shape[0], W + 1), dtype=torch.bool,
+                       device=instr.device)
+    for col in (2, 4):  # wa, wz; padding rows land in the spare column W
+        seen.scatter_(1, torch.where(ok, instr[..., col].to(torch.int64), W),
+                      True)
+    d = seen[:, :W].sum(dim=1, dtype=torch.int64)
+    r = 2 * ok.sum(dim=1, dtype=torch.int64)
+    return torch.stack([r.sum() // 2, (G * d + r * W - r * d).sum()])
+
+
+def fold_bound_s(B, G, W, P, calls, n_valid, touched, rates):
+    """``calls`` calls of one shape, ``n_valid`` and ``touched`` summed
+    over them (`fold_work`). Each call's (B, P, 8) slab is read once; each
+    touched word is read and written once, and alive once per pair. Each
+    pair moves one bit in every row (about 6 integer operations) and ORs
+    two rows (2 per word)."""
+    by_bytes = (calls * B * P * 32 + 8 * touched + n_valid) / rates[
+        "hbm_bytes_per_s"]
+    return by_bytes, n_valid * (6 * G + 2 * W + 4) / rates["int32_ops_per_s"]
 
 
 def hist_input(E, S, rng):
@@ -176,6 +305,7 @@ def phase_build():
 def phase_kernels(rng, rates):
     import torch
 
+    from repro_torch.kernels.bitset_fold import kernel as K3, ref as R3
     from repro_torch.kernels.bitset_jaccard import kernel as K1, ref as R1
     from repro_torch.kernels.seghist import kernel as K2, ref as R2
 
@@ -220,22 +350,92 @@ def phase_kernels(rng, rates):
                 lambda: torch.bincount(valid_ids, minlength=S), 10),
             "bound_us": max(bb, bo) * 1e6,
             "bound_by": "bytes" if bb >= bo else "operations"})
+    for B, G, W, J in TOPJ_SHAPES:
+        x, alive = topj_input(B, G, W, rng)
+        err = topj_error(x, alive, J)
+        bb, bo = topj_bound_s(B, G, W, J, 1, *topj_work(alive, J).tolist(),
+                              rates)
+        rows.append({
+            "kernel": "jaccard_topj", "shape": [B, G, W, J],
+            "max_abs_err": err,
+            "kernel_ms": cuda_ms(lambda: K3.jaccard_topj(x, alive, J), 20),
+            "plain_ms": cuda_ms(lambda: R3.topj_all(x, alive, J), 2),
+            "library_ms": None, "bound_us": max(bb, bo) * 1e6,
+            "bound_by": "bytes" if bb >= bo else "operations"})
+    for B, G, W, P in FOLD_SHAPES:
+        n_valid = B * P - B // 2  # a few padding rows
+        x, alive, instr = fold_input(B, G, W, P, n_valid, rng)
+        err = fold_error(x, alive, instr)
+        _, touched = fold_work(instr, G, W).tolist()
+        bb, bo = fold_bound_s(B, G, W, P, 1, n_valid, touched, rates)
+        rows.append({
+            "kernel": "bitset_fold", "shape": [B, G, W, P],
+            "valid_pairs": n_valid, "max_abs_err": err,
+            "kernel_ms": cuda_ms(lambda: K3.bitset_fold(x, alive, instr), 20),
+            "plain_ms": cuda_ms(lambda: R3.fold_pairs(x, alive, instr), 2),
+            "library_ms": None, "bound_us": max(bb, bo) * 1e6,
+            "bound_by": "bytes" if bb >= bo else "operations"})
     emit("kernels", t0, results=rows)
 
 
+def topj_error(x, alive, J):
+    """max |kernel − plain| of `jaccard_topj`; raises unless 0."""
+    import torch
+
+    from repro_torch.kernels.bitset_fold import kernel as K3, ref as R3
+
+    got = K3.jaccard_topj(x, alive, J)
+    want = R3.topj_all(x, alive, J)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err:
+        raise AssertionError(f"jaccard_topj {tuple(x.shape)} J={J}: max "
+                             f"|kernel − plain| = {err}")
+    return err
+
+
+def fold_error(x, alive, instr):
+    """max |kernel − plain| of `bitset_fold` over bits and alive, each run
+    on its own copy; raises unless 0."""
+    import torch
+
+    from repro_torch.kernels.bitset_fold import kernel as K3, ref as R3
+
+    kb, ka = x.clone(), alive.clone()
+    pb, pa = x.clone(), alive.clone()
+    K3.bitset_fold(kb, ka, instr)
+    R3.fold_pairs(pb, pa, instr)
+    torch.cuda.synchronize()
+    err = max(int((kb.to(torch.int64) - pb.to(torch.int64)).abs().max()),
+              int((ka.to(torch.int64) - pa.to(torch.int64)).abs().max()))
+    if err:
+        raise AssertionError(f"bitset_fold {tuple(x.shape)}: max |kernel − "
+                             f"plain| = {err}")
+    return err
+
+
 class CallRecorder:
-    """Records the shapes (and the histogram's ids) of every kernel call the
-    main path makes, by wrapping the names the ops modules call. The
-    kernels' own launch counters are untouched by it."""
+    """Records the shapes (and the histogram's ids, and what top-J and the
+    fold need of their data: `topj_work`, `fold_work`) of every kernel
+    call a path makes, by wrapping the names the ops modules call. The
+    kernels' own launch counters are untouched by it, and it adds no host
+    sync: the work counts stay on the card until `close`."""
 
     def __init__(self):
+        from repro_torch.kernels.bitset_fold import ops as O3
         from repro_torch.kernels.bitset_jaccard import ops as O1
         from repro_torch.kernels.seghist import ops as O2
 
-        self.O1, self.O2 = O1, O2
+        self.O1, self.O2, self.O3 = O1, O2, O3
         self.inter = Counter()
         self.hist: list = []
-        self._orig = (O1.bitset_intersections, O2.segment_histogram)
+        self.topj = Counter()
+        self.topj_work: dict = {}  # (B, G, W, J) -> summed `topj_work`
+        self.fold: list = []  # ((B, G, W, P), valid pairs, touched words)
+        self._topj_work: list = []
+        self._fold_work: list = []
+        self._orig = (O1.bitset_intersections, O2.segment_histogram,
+                      O3.jaccard_topj, O3.bitset_fold)
 
         def inter(bits, valid, _f=self._orig[0]):
             self.inter[(*bits.shape, int(valid))] += 1
@@ -245,10 +445,51 @@ class CallRecorder:
             self.hist.append((ids.clone(), int(S)))
             return _f(ids, S)
 
+        def topj(bits, alive, J, _f=self._orig[2]):
+            self.topj[(*bits.shape, int(J))] += 1
+            self._topj_work.append(((*bits.shape, int(J)),
+                                    topj_work(alive, int(J))))
+            return _f(bits, alive, J)
+
+        def fold(bits, alive, instr, _f=self._orig[3]):
+            self.fold.append((*bits.shape, int(instr.shape[1])))
+            self._fold_work.append(fold_work(instr, *bits.shape[1:]))
+            return _f(bits, alive, instr)
+
         O1.bitset_intersections, O2.segment_histogram = inter, hist
+        O3.jaccard_topj, O3.bitset_fold = topj, fold
 
     def close(self):
-        self.O1.bitset_intersections, self.O2.segment_histogram = self._orig
+        import torch
+
+        (self.O1.bitset_intersections, self.O2.segment_histogram,
+         self.O3.jaccard_topj, self.O3.bitset_fold) = self._orig
+        work = (torch.stack(self._fold_work).tolist()
+                if self._fold_work else [])
+        self.fold = [(shape, n, t) for shape, (n, t) in zip(self.fold, work)]
+        for shape, w in self._topj_work:
+            acc = self.topj_work.setdefault(shape, [0, 0, 0, 0])
+            for k, v in enumerate(w.tolist()):
+                acc[k] += v
+
+
+def reset_launches():
+    from repro_torch.kernels.bitset_fold import kernel as K3
+    from repro_torch.kernels.bitset_jaccard import kernel as K1
+    from repro_torch.kernels.seghist import kernel as K2
+
+    K1.LAUNCHES = K2.LAUNCHES = K3.TOPJ_LAUNCHES = K3.FOLD_LAUNCHES = 0
+
+
+def read_launches():
+    from repro_torch.kernels.bitset_fold import kernel as K3
+    from repro_torch.kernels.bitset_jaccard import kernel as K1
+    from repro_torch.kernels.seghist import kernel as K2
+
+    return {"bitset_intersections": K1.LAUNCHES,
+            "segment_histogram": K2.LAUNCHES,
+            "jaccard_topj": K3.TOPJ_LAUNCHES,
+            "bitset_fold": K3.FOLD_LAUNCHES}
 
 
 def phase_main(graph):
@@ -256,15 +497,12 @@ def phase_main(graph):
 
     import repro_torch
     from repro_torch.core.transfer import GLOBAL as TRANSFER
-    from repro_torch.kernels.bitset_jaccard import kernel as K1
-    from repro_torch.kernels.seghist import kernel as K2
 
     t0 = time.perf_counter()
     recorder = CallRecorder()
     torch.cuda.reset_peak_memory_stats()
     TRANSFER.reset()
-    K1.LAUNCHES = 0
-    K2.LAUNCHES = 0
+    reset_launches()
     try:
         engine = repro_torch.SummarizerEngine(backend="batched", T=20,
                                               device="cuda")
@@ -274,15 +512,14 @@ def phase_main(graph):
         wall = time.perf_counter() - tw
     finally:
         recorder.close()
-    launches = {"bitset_intersections": K1.LAUNCHES,
-                "segment_histogram": K2.LAUNCHES}
+    launches = read_launches()
     transfer = TRANSFER.snapshot()
     lossless = summary.validate_lossless(graph)
     if not lossless:
         raise AssertionError("batched summary does not decompress to the "
                              "input graph")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("bitset_intersections", "segment_histogram"):
+        if launches[name] <= 0:
             raise AssertionError(f"the main path never launched {name}")
     emit("main", t0, graph={"n": graph.n, "m": graph.m}, T=20,
          wall_seconds=wall, lossless=lossless, merges=engine.stats["merges"],
@@ -335,11 +572,88 @@ def phase_parity(graph, batched):
     same(b2, h2, "rmat(14, 8) T=20", {"batched": b2_wall, "numpy": h2_wall})
     emit("parity", t0, checks=checks, rmat={"n": g2.n, "m": g2.m,
                                            "cost": b2.cost()})
+    return g2, b2
 
 
-def phase_trace(graph):
-    """One more batched run of the main path under `torch.profiler`: the
-    device's busy time by kernel and copy, against the run's wall time.
+def same_summary(a, b):
+    import numpy as np
+
+    return (np.array_equal(a.parent, b.parent)
+            and np.array_equal(a.edges, b.edges))
+
+
+def phase_resident(graph, batched, rmat, rmat_batched):
+    """The resident path on the main graph, counted and recorded like the
+    batched main path, then rmat(14, 8) resident against its batched run."""
+    import torch
+
+    import repro_torch
+    from repro_torch.core.transfer import GLOBAL as TRANSFER
+
+    t0 = time.perf_counter()
+    recorder = CallRecorder()
+    torch.cuda.reset_peak_memory_stats()
+    TRANSFER.reset()
+    reset_launches()
+    try:
+        engine = repro_torch.SummarizerEngine(backend="resident", T=20,
+                                              device="cuda")
+        tw = time.perf_counter()
+        summary = engine.run(graph)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tw
+    finally:
+        recorder.close()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if not summary.validate_lossless(graph):
+        raise AssertionError("resident summary does not decompress to the "
+                             "input graph")
+    if not same_summary(summary, batched):
+        raise AssertionError("resident and batched summaries differ on the "
+                             "main graph")
+    for name in ("jaccard_topj", "bitset_fold"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the resident path never launched {name}")
+    iters = engine.stats["transfer_iters"]
+    steady_upload = [d["phases"].get("upload", 0) for d in iters[1:]]
+    if any(steady_upload) or engine._run_ctx.bank is None:
+        raise AssertionError(f"steady-state upload is not 0 B (bank live: "
+                             f"{engine._run_ctx.bank is not None}): "
+                             f"{steady_upload}")
+    tw = time.perf_counter()
+    r2 = repro_torch.summarize(rmat, backend="resident", device="cuda")
+    torch.cuda.synchronize()
+    r2_wall = time.perf_counter() - tw
+    if not same_summary(r2, rmat_batched):
+        raise AssertionError("rmat(14, 8): resident and batched summaries "
+                             "differ")
+    emit("resident", t0, graph={"n": graph.n, "m": graph.m}, T=20,
+         wall_seconds=wall, lossless=True, equal_to_batched=True,
+         merges=engine.stats["merges"], cost=summary.cost(),
+         launches=launches, rounds=engine.stats["transfer"]["rounds"],
+         stage_seconds={k: engine.stats[k] for k in (
+             "shingle", "group", "pack", "merge_round", "exchange", "emit",
+             "prune")},
+         transfer={k: engine.stats["transfer"][k] for k in (
+             "bytes_h2d", "bytes_d2h", "rounds", "phases")},
+         transfer_phases_by_iteration=[d["phases"] for d in iters],
+         steady_upload_bytes=steady_upload,
+         max_memory_allocated=peak,
+         topj_calls_by_shape=sorted([[*k, n] for k, n in
+                                     recorder.topj.items()],
+                                    key=lambda r: -r[-1]),
+         fold_calls=len(recorder.fold),
+         fold_valid_pairs=sum(n for _, n, _ in recorder.fold),
+         fold_touched_words=sum(t for _, _, t in recorder.fold),
+         rmat={"n": rmat.n, "m": rmat.m, "wall_seconds": r2_wall,
+               "equal_to_batched": True, "cost": r2.cost()})
+    return launches, recorder
+
+
+def phase_trace(graph, backend, top=8):
+    """One more run of a path under `torch.profiler`: the device's busy
+    time by kernel, copy and torch op, against the run's wall time.
     Reported, not asserted: the wall of this run includes the profiler's
     own cost."""
     import torch
@@ -350,7 +664,7 @@ def phase_trace(graph):
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         tw = time.perf_counter()
-        repro_torch.summarize(graph, backend="batched", device="cuda")
+        repro_torch.summarize(graph, backend=backend, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - tw
     by_name = {}
@@ -361,24 +675,32 @@ def phase_trace(graph):
         if us:
             by_name[e.key] = {"device_us": us, "count": e.count}
     busy_us = sum(v["device_us"] for v in by_name.values())
-    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1]["device_us"])[:8])
-    emit("trace", t0, wall_seconds=wall, device_busy_us=busy_us,
+    ranked = dict(sorted(by_name.items(),
+                         key=lambda kv: -kv[1]["device_us"])[:top])
+    emit("trace", t0, backend=backend, wall_seconds=wall,
+         device_busy_us=busy_us,
          device_busy_share=busy_us * 1e-6 / wall if busy_us else None,
-         by_name=top)
+         kernel_launches=sum(v["count"] for v in by_name.values()),
+         by_name=ranked)
     return by_name
 
 
-def kernel_record(recorder, launches, rng, device_us, rates):
-    """The per-kernel contract line: times summed over the main path's
-    calls, each distinct call shape timed once and weighted by its count.
+def kernel_record(recorder, launches, res_recorder, res_launches, rng,
+                  device_us, rates):
+    """The per-kernel contract line: times summed over each path's calls,
+    each distinct call shape checked against the plain version, timed once
+    and weighted by its count. ``launches`` are each path's counted run
+    (batched: intersections, histogram; resident: top-J, fold).
     ``device_ms`` is the kernel's own device time over the traced rerun of
-    the main path (None where the profiler saw no device time)."""
+    its path (None where the profiler saw no device time)."""
     import torch
 
+    from repro_torch.kernels.bitset_fold import kernel as K3, ref as R3
     from repro_torch.kernels.bitset_jaccard import kernel as K1, ref as R1
     from repro_torch.kernels.seghist import kernel as K2, ref as R2
 
-    saved = (K1.LAUNCHES, K2.LAUNCHES)  # comparison launches do not count
+    # comparison launches do not count
+    saved = (K1.LAUNCHES, K2.LAUNCHES, K3.TOPJ_LAUNCHES, K3.FOLD_LAUNCHES)
     inter = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bb=0.0, bo=0.0, err=0)
     for (B, G, W, valid), n in recorder.inter.items():
         x = inter_input(B, G, W, rng)
@@ -407,23 +729,57 @@ def kernel_record(recorder, launches, rng, device_us, rates):
         bb, bo = hist_bound_s(ids, S, rates)
         hist["bb"] += bb
         hist["bo"] += bo
-    K1.LAUNCHES, K2.LAUNCHES = saved
+    topj = dict(ms=0.0, plain_ms=0.0, library_ms=None, bb=0.0, bo=0.0,
+                err=0)
+    for (B, G, W, J), n in res_recorder.topj.items():
+        x, alive = topj_input(B, G, W, rng)
+        topj["err"] = max(topj["err"], topj_error(x, alive, J))
+        topj["ms"] += n * cuda_ms(lambda: K3.jaccard_topj(x, alive, J), 5)
+        topj["plain_ms"] += n * cuda_ms(lambda: R3.topj_all(x, alive, J), 1)
+        bb, bo = topj_bound_s(B, G, W, J, n, *res_recorder.topj_work[
+            (B, G, W, J)], rates)
+        topj["bb"] += bb
+        topj["bo"] += bo
+    fold = dict(ms=0.0, plain_ms=0.0, library_ms=None, bb=0.0, bo=0.0,
+                err=0)
+    by_shape: dict = {}
+    for shape, n_valid, touched in res_recorder.fold:
+        by_shape.setdefault(shape, []).append(n_valid)
+        bb, bo = fold_bound_s(*shape, 1, n_valid, touched, rates)
+        fold["bb"] += bb
+        fold["bo"] += bo
+    for (B, G, W, P), valid in by_shape.items():
+        # timed at the shape's mean valid-pair count, weighted by its calls
+        x, alive, instr = fold_input(B, G, W, P,
+                                     round(sum(valid) / len(valid)), rng)
+        fold["err"] = max(fold["err"], fold_error(x, alive, instr))
+        fold["ms"] += len(valid) * cuda_ms(
+            lambda: K3.bitset_fold(x, alive, instr), 5)
+        fold["plain_ms"] += len(valid) * cuda_ms(
+            lambda: R3.fold_pairs(x, alive, instr), 1)
+    K1.LAUNCHES, K2.LAUNCHES, K3.TOPJ_LAUNCHES, K3.FOLD_LAUNCHES = saved
     for name, acc in (("bitset_intersections", inter),
                       ("segment_histogram", hist)):
         if acc["err"]:
             raise AssertionError(f"{name} differs from its plain version on "
                                  f"the main path's calls by {acc['err']}")
     out = []
-    for name, acc, src, replaces in (
-            ("bitset_intersections", inter,
+    for name, acc, n_launch, src, replaces in (
+            ("bitset_intersections", inter, launches,
              "src/repro_torch/csrc/bitset_intersections.cu",
              "src/repro/kernels/bitset_jaccard/kernel.py:85"),
-            ("segment_histogram", hist,
+            ("segment_histogram", hist, launches,
              "src/repro_torch/csrc/segment_histogram.cu",
-             "src/repro/kernels/seghist/kernel.py:39")):
+             "src/repro/kernels/seghist/kernel.py:39"),
+            ("jaccard_topj", topj, res_launches,
+             "src/repro_torch/csrc/jaccard_topj.cu",
+             "src/repro/kernels/bitset_fold/kernel.py:78"),
+            ("bitset_fold", fold, res_launches,
+             "src/repro_torch/csrc/bitset_fold.cu",
+             "src/repro/kernels/bitset_fold/kernel.py:129")):
         out.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": n_launch[name],
             "max_abs_err": acc["err"], "ms": acc["ms"],
             "plain_ms": acc["plain_ms"],
             "bound_ms": max(acc["bb"], acc["bo"]) * 1e3,
@@ -461,10 +817,14 @@ def main() -> int:
     graph = GG.caveman(20000, 11, 0.03, seed=0)
     emit("graph", t0, n=graph.n, m=graph.m)
     summary, launches, recorder = phase_main(graph)
-    phase_parity(graph, summary)
-    device_us = phase_trace(graph)
+    rmat, rmat_batched = phase_parity(graph, summary)
+    res_launches, res_recorder = phase_resident(graph, summary, rmat,
+                                                rmat_batched)
+    device_us = phase_trace(graph, "batched")
+    device_us.update(phase_trace(graph, "resident", top=16))
     t0 = time.perf_counter()
-    record = kernel_record(recorder, launches, rng, device_us, rates)
+    record = kernel_record(recorder, launches, res_recorder, res_launches,
+                           rng, device_us, rates)
     emit("record", t0, total_seconds=time.perf_counter() - t_all)
     print(smi, flush=True)
     print(json.dumps({"kernels": record}), flush=True)

@@ -17,10 +17,16 @@ Per-iteration randomness comes from `np.random.SeedSequence(seed).spawn(T)`
 
 Device work: ``backend="batched"`` ranks merge partners with the CUDA
 bitset-intersection kernel and counts emission-DP state membership with the
-CUDA segment-histogram kernel, both on ``device``. The engine resolves
+CUDA segment-histogram kernel, both on ``device``. ``backend="resident"``
+keeps each workspace chunk's whole merge-round state on ``device``
+(`core/resident.py`): ranking (the CUDA top-J kernel), exact Saving and θ̂
+acceptance run there, the fold runs there (the CUDA bitset-fold kernel and
+the count phases), the adjacency bank carries every root's row across
+iterations so chunks are extracted on the device, and root shingles are
+computed there; its emission counts on the host. The engine resolves
 ``device=None`` to the CUDA card and raises when there is none; a CPU
-device runs the kernels' plain versions. Partitions, meshes, checkpoints
-and the resident backend are not ported yet (ROADMAP slices C and E).
+device runs the kernels' plain versions. Partitions, meshes and
+checkpoints are not ported yet (ROADMAP slice E).
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import torch
 from repro_torch.core.merging import apply_plans, build_merge_work
 from repro_torch.core.minhash import candidate_groups, host_shingle_provider
 from repro_torch.core.pruning import prune
+from repro_torch.core.resident import ResidentBitmapArena, ResidentRunContext
 from repro_torch.core.slugger import SluggerState, _emit_encoding
 from repro_torch.core.transfer import GLOBAL as TRANSFER
 
@@ -77,21 +84,19 @@ class IterationContext:
 class SummarizerEngine:
     """Configured, reusable SLUGGER engine.
 
-    Parameters mirror `summarize()`. ``partitions`` must be 1 and ``backend`` one of ``"batched"``,
-    ``"numpy"`` or ``"loop"`` until ROADMAP slices E and C land.
+    Parameters mirror `summarize()`. ``partitions`` must be 1 until ROADMAP
+    slice E lands; ``backend`` is ``"batched"``, ``"resident"``,
+    ``"numpy"`` or ``"loop"``.
     """
 
     def __init__(self, partitions: int = 1, backend: str = "batched",
                  T: int = 20, seed: int = 0, max_group: int = 500,
                  top_j: int = 16, height_bound=None, prune_steps=(1, 2, 3),
                  device=None):
-        if backend == "resident":
-            raise NotImplementedError(
-                "backend='resident' is not ported yet (ROADMAP slice C)")
-        if backend not in ("numpy", "batched", "loop"):
+        if backend not in ("numpy", "batched", "resident", "loop"):
             raise ValueError(
-                f"unknown backend {backend!r}; use 'batched', 'numpy' or "
-                f"'loop'")
+                f"unknown backend {backend!r}; use 'batched', 'resident', "
+                f"'numpy' or 'loop'")
         if partitions < 1:
             raise ValueError("partitions must be >= 1")
         if partitions > 1:
@@ -108,11 +113,35 @@ class SummarizerEngine:
         self.device = resolve_device(device)
         self.stats: dict = {}
         self._shingle_provider = None
+        self._run_ctx = None
+
+    def _setup_dispatches(self, g):
+        """Every backend shingles with the unified u32 family; the resident
+        backend computes the shingles on the device from its run context
+        (edges uploaded once, root map advanced from the applied plans),
+        the others with the host twin — the same bits either way."""
+        self._run_ctx = None
+        if self.backend == "resident":
+            self._run_ctx = ResidentRunContext(g, device=self.device)
+            self._shingle_provider = self._run_ctx.for_roots
+        else:
+            self._shingle_provider = host_shingle_provider(g)
+
+    def _resident_arena(self, ws):
+        """A chunk's arena: extracted on the device from the adjacency bank
+        (``ws`` is then a shell), or uploaded from the host-built workspace
+        when the bank declined the graph."""
+        rc = self._run_ctx
+        if rc.bank is not None:
+            return ResidentBitmapArena.from_bank(rc.bank, ws, rc.res_map,
+                                                 top_j=self.top_j)
+        return ResidentBitmapArena.from_workspace(ws, top_j=self.top_j,
+                                                  device=self.device)
 
     # --------------------------------------------------------------- stages
     def stage_shingle(self, ctx: IterationContext):
-        """Bind this iteration's root map into the host u32 shingle
-        provider; the group stage owns the rehash loop."""
+        """Bind this iteration's root map into the u32 shingle provider;
+        the group stage owns the rehash loop."""
         ctx.shingle_fn = self._shingle_provider(ctx.state.root_of)
 
     def stage_group(self, ctx: IterationContext):
@@ -133,21 +162,36 @@ class SummarizerEngine:
         ctx.plans, ctx.thunks = [], []
         if not ctx.groups:
             return
+        resident = self._run_ctx is not None
         ctx.plans, ctx.thunks = build_merge_work(
             ctx.state, ctx.groups, ctx.theta, group_seeds=ctx.group_seeds,
             rng_of=lambda i: np.random.default_rng(ctx.group_children[i]),
             top_j=self.top_j, height_bound=self.height_bound,
-            backend=self.backend, device=self.device)
+            backend=self.backend, device=self.device,
+            resident_factory=self._resident_arena if resident else None,
+            shell_workspaces=resident and self._run_ctx.bank is not None)
 
     def stage_merge_round(self, ctx: IterationContext):
-        """Run the sweeps (ranking on the device for ``"batched"``)."""
+        """Run the sweeps (ranking on the device for ``"batched"``, whole
+        rounds on the device for ``"resident"``)."""
         for thunk in ctx.thunks:
             thunk()
 
     def stage_exchange(self, ctx: IterationContext):
         """Replay all recorded merge rounds against the global state in
-        canonical group order."""
-        ctx.merges = apply_plans(ctx.state, ctx.plans)
+        canonical group order. On the resident backend the applied
+        (A, Z, M) batches, with the minted rows' lengths ``row_len[M]``
+        (pristine exactly at the hook), also advance the run context's
+        root map and adjacency bank on the device."""
+        if self._run_ctx is None:
+            ctx.merges = apply_plans(ctx.state, ctx.plans)
+            return
+        state = ctx.state
+        batches: list = []
+        ctx.merges = apply_plans(
+            state, ctx.plans, on_batch=lambda A, Z, M: batches.append(
+                (A, Z, M, state.row_len[M].copy())))
+        self._run_ctx.advance(batches)
 
     # ------------------------------------------------------------------ run
     def merge_forest(self, g) -> SluggerState:
@@ -155,8 +199,8 @@ class SummarizerEngine:
         Per-stage wall seconds land in ``self.stats``, with the transfer
         ledger per iteration (``transfer_iters``) and in total."""
         state = SluggerState(g)
-        transfer0 = TRANSFER.snapshot()
-        self._shingle_provider = host_shingle_provider(g)
+        transfer0 = TRANSFER.snapshot()  # before setup: run-context init counts
+        self._setup_dispatches(g)
         self.stats = {name: 0.0 for name in STAGE_ORDER}
         self.stats["merges"] = 0
         self.stats["transfer_iters"] = []

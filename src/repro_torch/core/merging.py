@@ -10,10 +10,12 @@ Two engines, both recording their decisions into `MergePlan`s:
 * `BatchedGroupWorkspace.sweep` — the batched group-merge engine (DESIGN.md
   §3): groups are size-bucketed, their neighbor bitmaps packed into one
   ``(B, G, W)`` batch, and every round's candidate ranking comes from the
-  CURRENT bitmaps through `HostRankSource` — a chunked NumPy popcount
-  (``backend="numpy"``) or the CUDA intersection kernel
-  (``backend="batched"``). Ranking uses the quantized integer Jaccard key
-  (`rank_keys`) so both sources order candidates bit-identically; each
+  CURRENT bitmaps through a rank source — `HostRankSource`, a chunked
+  NumPy popcount (``backend="numpy"``) or the CUDA intersection kernel
+  (``backend="batched"``), or `ResidentRankSource`, whose device arena
+  (`core/resident.py`) ranks, scores and accepts on the card
+  (``backend="resident"``). Ranking uses the quantized integer Jaccard key
+  (`rank_keys`) so every source orders candidates bit-identically; each
   group then runs vectorized Algorithm-2 sweeps: every dirty row's top-J
   partners are scored by the exact Saving in one array op, and a
   conflict-free random subset of the proposed mergers is applied per round.
@@ -172,7 +174,7 @@ class MergePlan:
     def n_merges(self) -> int:
         return sum(a.size for a, _ in self.rounds)
 
-def apply_plans(state, plans: list) -> int:
+def apply_plans(state, plans: list, on_batch=None) -> int:
     """Exchange stage: replay recorded merge rounds in canonical order.
 
     Round r applies every group's r-th recorded round in plan-list order via
@@ -181,6 +183,11 @@ def apply_plans(state, plans: list) -> int:
     pointers and freshly minted parents flow back; the decisions themselves
     never re-read global state, so the replay is scheduling-independent.
     Returns the number of merges applied.
+
+    ``on_batch(A, Z, M)`` (optional) observes each applied round: the
+    global ids merged (A absorbs Z) and the minted parents M — the resident
+    run context replays exactly these on the device
+    (`core/resident.ResidentRunContext.advance`).
     """
     cur = [p.members0.copy() for p in plans]
     merges = 0
@@ -198,6 +205,8 @@ def apply_plans(state, plans: list) -> int:
         A = np.concatenate(As)
         Z = np.concatenate(Zs)
         M = state.merge_batch(A, Z)
+        if on_batch is not None:
+            on_batch(A, Z, M)
         off = 0
         for gi, a_rows in backrefs:
             cur[gi][a_rows] = M[off:off + a_rows.size]
@@ -450,6 +459,55 @@ class HostRankSource:
         order = np.argsort(-keys, axis=1, kind="stable")
         return order[:, :j_max]
 
+    def propose(self, ws, rb, rr, j_max, theta_p, height_bound):
+        """Each dirty row's best proposal from host-ranked candidates: the
+        exact rational argmax in ranked order (Saving_j > best ⟺
+        numer_j·denom_best < numer_best·denom_j, strict, so ties keep the
+        earlier-ranked candidate), then θ̂ acceptance. Each row sees at
+        most ``alive − 1`` candidates of its own group."""
+        part = self.ranked(ws, rb, rr, j_max)                      # (n, j)
+        numer, denom, valid = ws.saving_terms_rows(
+            rb, rr, part, height_bound=height_bound)
+        j_row = np.minimum(j_max, ws.alive.sum(axis=1)[rb] - 1)
+        valid &= ws.alive[rb[:, None], part] & (part != rr[:, None])
+        valid &= np.arange(j_max)[None, :] < j_row[:, None]
+        n_flat = rb.size
+        has = np.zeros(n_flat, dtype=bool)
+        n_b = np.ones(n_flat, dtype=np.int64)
+        d_b = np.ones(n_flat, dtype=np.int64)
+        best_z = np.zeros(n_flat, dtype=np.int64)
+        for j in range(j_max):
+            take = valid[:, j] & (
+                ~has | (numer[:, j] * d_b < n_b * denom[:, j]))
+            n_b = np.where(take, numer[:, j], n_b)
+            d_b = np.where(take, denom[:, j], d_b)
+            best_z = np.where(take, part[:, j], best_z)
+            has |= take
+        return has & theta_accept_host(n_b, d_b, theta_p), best_z
+
+    def on_merges(self, ws, b, a, z):
+        ws.fold_host(b, a, z)
+
+
+class ResidentRankSource:
+    """Fused device proposals from a resident arena (`core/resident.py`):
+    ranking, exact integer Saving and θ̂ acceptance run in one device round
+    over the arena's bitmaps AND count tensors, and the fold runs there
+    too, so the workspace's host tensors go stale (the sweep never reads
+    them again; only liveness and the plan stay on the host). Per round
+    ``(accept, partner)`` per dirty row comes down and the accepted pairs
+    go up. The arena ranks its own J = min(top_j, G − 1) columns, so
+    ``j_max`` is not needed here."""
+
+    def __init__(self, arena):
+        self.arena = arena
+
+    def propose(self, ws, rb, rr, j_max, theta_p, height_bound):
+        return self.arena.propose_rows(rb, theta_p, height_bound)
+
+    def on_merges(self, ws, b, a, z):
+        self.arena.fold_counts(b, a, z)
+
 
 class BatchedGroupWorkspace:
     """All groups of a size bucket as one set of padded tensors.
@@ -461,11 +519,17 @@ class BatchedGroupWorkspace:
     segments of the sorted (group, id) key stream. Merging applies a whole
     round of disjoint pairs at once: local tensors fold with fancy-indexed
     array ops and the global state applies `merge_batch` (DESIGN.md §3).
+
+    A ``shell`` workspace (the resident bank path) keeps ``R`` as the
+    logical column width but allocates the per-column tensors zero-wide:
+    the device arena extracts them from the adjacency bank.
     """
 
-    def __init__(self, state, B: int, G: int, R: int):
+    def __init__(self, state, B: int, G: int, R: int, shell: bool = False):
         self.state = state
         self.B, self.G, self.R = B, G, R
+        self.shell = shell
+        Rw = 0 if shell else R
         self.plans: list = []  # per-local-group MergePlan targets
         self.gseed = np.zeros(B, dtype=np.uint64)  # per-group priority seeds
         self.memcol = np.zeros((B, G), dtype=np.int64)
@@ -473,15 +537,15 @@ class BatchedGroupWorkspace:
         # CNT holds exact subedge counts in int32; the scalar per-row stats
         # are int64 so host cross-products in the Saving comparison stay
         # exact without widening casts.
-        self.CNT = np.zeros((B, G, R), dtype=np.int32)
-        self.col_gid = np.full((B, R), -1, dtype=np.int64)
-        self.colsize = np.zeros((B, R), dtype=np.int64)
+        self.CNT = np.zeros((B, G, Rw), dtype=np.int32)
+        self.col_gid = np.full((B, Rw), -1, dtype=np.int64)
+        self.colsize = np.zeros((B, Rw), dtype=np.int64)
         self.s = np.zeros((B, G), dtype=np.int64)
         self.selfc = np.zeros((B, G), dtype=np.int64)
         self.nd = np.zeros((B, G), dtype=np.int64)
         self.hgt = np.zeros((B, G), dtype=np.int64)
         self.alive = np.zeros((B, G), dtype=bool)
-        self.bits = np.zeros((B, G, max((R + 63) // 64, 1)),
+        self.bits = np.zeros((B, G, max((Rw + 63) // 64, 1)),
                              dtype=np.uint64)
         self.cost_row = np.zeros((B, G), dtype=np.int64)
 
@@ -495,6 +559,10 @@ class BatchedGroupWorkspace:
         self.nd[mb, mr] = st.ndesc[gids]
         self.hgt[mb, mr] = st.height[gids]
         self.alive[mb, mr] = True
+        if self.shell:
+            # the bank extraction builds CNT/bits/colsize/cost on the
+            # device; the bank's conservation bound subsumes the guards
+            return
         if ecnt.size and int(ecnt.max()) >= np.iinfo(np.int32).max:
             raise OverflowError(
                 f"subedge count {int(ecnt.max())} exceeds the int32 CNT "
@@ -527,7 +595,7 @@ class BatchedGroupWorkspace:
 
     @staticmethod
     def build_bucket(state, groups: list, G: int, plans: list,
-                     group_seeds) -> list:
+                     group_seeds, shell: bool = False) -> list:
         """One gather + keyed unique for ALL groups of a size bucket, then
         workspaces chunked so column universes within a chunk are within 2×
         of each other and the (B, G, R) tensors respect the memory budget —
@@ -581,7 +649,8 @@ class BatchedGroupWorkspace:
         col_pos = np.arange(uniq.size) - col_bounds[col_grp]
         out: list = []
         for ci, (bc, rc) in enumerate(chunks):
-            ws = BatchedGroupWorkspace(state, bc, G, max(int(rc), 1))
+            ws = BatchedGroupWorkspace(state, bc, G, max(int(rc), 1),
+                                       shell=shell)
             msel = mem_chunk == ci
             esel = ent_chunk == ci
             csel = col_chunk == ci
@@ -654,7 +723,25 @@ class BatchedGroupWorkspace:
 
     # -- batched merge application -----------------------------------------
     def apply_merges(self, b: np.ndarray, a: np.ndarray, z: np.ndarray):
-        """Fold row z into row a of group b for a round of disjoint pairs."""
+        """Record a round of disjoint pairs (row z into row a of group b)
+        and its liveness. The rank source folds the tensors (`on_merges`):
+        `fold_host` here, or the device arena of the resident backend —
+        a shell workspace has none to fold."""
+        if b.size == 0:
+            return
+        # one recorded round per group (b arrives sorted ascending); the
+        # global state applies it later in `apply_plans`
+        head = np.concatenate([[0], np.flatnonzero(b[1:] != b[:-1]) + 1,
+                               [b.size]])
+        for s0, e0 in zip(head[:-1], head[1:]):
+            self.plans[int(b[s0])].record(a[s0:e0], z[s0:e0])
+        self.members[b, a] = -1
+        self.members[b, z] = -1
+        self.alive[b, z] = False
+
+    def fold_host(self, b: np.ndarray, a: np.ndarray, z: np.ndarray):
+        """Fold row z into row a of group b in the host count tensors and
+        bitmaps, for a round of disjoint pairs."""
         if b.size == 0:
             return
         G = self.G
@@ -666,14 +753,6 @@ class BatchedGroupWorkspace:
         old_cz = _pair_cost(self.CNT[b, :, cz],
                             poss_pair_i(self.s[b], self.colsize[b, cz][:, None]))
         cab = self.CNT[b, a, cz].astype(np.int64)
-        # one recorded round per group (b arrives sorted ascending); the
-        # global state applies it later in `apply_plans`
-        head = np.concatenate([[0], np.flatnonzero(b[1:] != b[:-1]) + 1,
-                               [b.size]])
-        for s0, e0 in zip(head[:-1], head[1:]):
-            self.plans[int(b[s0])].record(a[s0:e0], z[s0:e0])
-        self.members[b, a] = -1
-        self.members[b, z] = -1
         self.col_gid[b, ca] = -1
         self.col_gid[b, cz] = -1
         # rows fold, then columns fold
@@ -688,7 +767,6 @@ class BatchedGroupWorkspace:
         self.nd[b, a] += self.nd[b, z] + 2
         self.hgt[b, a] = np.maximum(self.hgt[b, a], self.hgt[b, z]) + 1
         self.s[b, a] = s_new
-        self.alive[b, z] = False
         # bitmaps: fold column cz into ca for all rows, then OR rows.
         # Two pairs of the SAME group can fold columns living in the
         # same 64-bit word, so the word-level updates must be unbuffered
@@ -729,8 +807,9 @@ class BatchedGroupWorkspace:
         """Vectorized Algorithm-2 rounds over the whole batch.
 
         Per round: every DIRTY row's ranked top-J partners — by quantized
-        integer Jaccard key over the CURRENT bitmaps, via ``ranker`` (a
-        `HostRankSource`) — are scored
+        integer Jaccard key over the CURRENT bitmaps, via ``ranker``
+        (`HostRankSource` on the host bitmaps, or `ResidentRankSource`,
+        which proposes from its device arena) — are scored
         with the exact Saving in one array op; the proposals are thinned to
         a conflict-free set by randomized-priority matching (a proposal
         wins iff it holds the minimum priority at both endpoints — the
@@ -760,28 +839,8 @@ class BatchedGroupWorkspace:
             if j_max < 1:
                 break
             rb, rr = np.nonzero(dirty)
-            part = ranker.ranked(self, rb, rr, j_max)              # (n, j)
-            numer, denom, valid = self.saving_terms_rows(
-                rb, rr, part, height_bound=height_bound)
-            j_row = np.minimum(top_j, alive_cnt[rb] - 1)
-            valid &= self.alive[rb[:, None], part] & (part != rr[:, None])
-            valid &= np.arange(j_max)[None, :] < j_row[:, None]
-            # exact rational argmax in ranked order: Saving_j > best ⟺
-            # numer_j·denom_best < numer_best·denom_j (strict, so ties keep
-            # the earlier-ranked candidate)
-            n_flat = rb.size
-            has = np.zeros(n_flat, dtype=bool)
-            n_b = np.ones(n_flat, dtype=np.int64)
-            d_b = np.ones(n_flat, dtype=np.int64)
-            best_z = np.zeros(n_flat, dtype=np.int64)
-            for j in range(j_max):
-                take = valid[:, j] & (
-                    ~has | (numer[:, j] * d_b < n_b * denom[:, j]))
-                n_b = np.where(take, numer[:, j], n_b)
-                d_b = np.where(take, denom[:, j], d_b)
-                best_z = np.where(take, part[:, j], best_z)
-                has |= take
-            prop = has & theta_accept_host(n_b, d_b, theta_p)
+            prop, best_z = ranker.propose(self, rb, rr, j_max, theta_p,
+                                          height_bound)
             dirty[rb[~prop], rr[~prop]] = False
             if not prop.any():
                 break
@@ -798,6 +857,7 @@ class BatchedGroupWorkspace:
             acc = (winner[a_key] == p) & (winner[z_key] == p)
             ab, am, az = gb[acc], ar[acc], zr[acc]
             self.apply_merges(ab, am, az)
+            ranker.on_merges(self, ab, am, az)
             # survivors rejoin the queue, absorbed rows leave it; losers of
             # the matching stayed dirty and retry next round
             dirty[ab, az] = False
@@ -831,6 +891,8 @@ def build_merge_work(
     height_bound=None,
     backend: str = "numpy",
     device=None,
+    resident_factory=None,
+    shell_workspaces: bool = False,
 ):
     """Build record-mode workspaces for one iteration's candidate groups.
 
@@ -844,7 +906,12 @@ def build_merge_work(
     ``group_seeds`` are per-group uint64 priority seeds; ``rng_of(i)``
     supplies the queue-permutation generator for groups swept sequentially
     (``backend="loop"`` and oversized groups). ``device`` is where
-    ``backend="batched"`` ranks (a ``torch.device``).
+    ``backend="batched"`` ranks and ``backend="resident"`` keeps its arenas
+    (a ``torch.device``). ``resident_factory(ws)`` builds a chunk's
+    `ResidentBitmapArena` for ``backend="resident"``; ``shell_workspaces`` builds the batched chunks as shape-only shells —
+    same chunking and member layout, no per-column tensors — for a factory
+    that extracts them on the device from the adjacency bank. Oversized
+    groups keep their host `GroupWorkspace` sweep either way.
     """
     groups = [np.asarray(g, dtype=np.int64) for g in groups]
     group_seeds = np.asarray(group_seeds, dtype=np.uint64)
@@ -861,8 +928,14 @@ def build_merge_work(
                                          height_bound=height_bound)
 
     def _batch_thunk(ws):
-        return lambda: ws.sweep(theta, HostRankSource(dispatch), top_j=top_j,
-                                height_bound=height_bound)
+        def run():
+            # the ranker is built at RUN time: a resident arena's upload or
+            # extraction belongs to the merge_round stage, not to pack
+            ranker = (ResidentRankSource(resident_factory(ws))
+                      if backend == "resident" else HostRankSource(dispatch))
+            return ws.sweep(theta, ranker, top_j=top_j,
+                            height_bound=height_bound)
+        return run
 
     buckets: dict = {}
     for i, grp in enumerate(groups):
@@ -877,6 +950,6 @@ def build_merge_work(
         for ws in BatchedGroupWorkspace.build_bucket(
                 state, [groups[i] for i in idxs], G,
                 plans=[plans[i] for i in idxs],
-                group_seeds=group_seeds[idxs]):
+                group_seeds=group_seeds[idxs], shell=shell_workspaces):
             thunks.append(_batch_thunk(ws))
     return plans, thunks

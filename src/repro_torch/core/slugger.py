@@ -13,16 +13,19 @@ Pipeline, exactly as the paper's:
 Losslessness is structural: the emission DP re-encodes the *input* edges
 exactly, so any merge forest — however heuristic — yields an exact summary.
 
-Merging runs on one of three engines selected by ``backend=`` (DESIGN.md
-§3):
+Merging runs on one of four engines selected by ``backend=`` (DESIGN.md
+§3, §9):
   * ``"batched"`` — batched group-merge engine ranking partners with the
     CUDA bitset-intersection kernel over size-bucketed ``(B, G, W)`` bitmap
     batches, and counting the emission DP's state membership with the CUDA
     segment-histogram kernel (default)
+  * ``"resident"`` — the same engine with each chunk's whole merge-round
+    state resident on the card: the CUDA top-J ranking and bitset-fold
+    kernels, exact Saving and θ̂ on the device, the adjacency bank and the
+    root shingles carried there across iterations; host emission counts
   * ``"numpy"``  — the same engine with NumPy popcount ranking and host
-    histograms; bit-identical to ``"batched"``
+    histograms; bit-identical to ``"batched"`` and ``"resident"``
   * ``"loop"``   — the per-group sequential loop (semantics reference)
-``backend="resident"`` is not ported yet.
 """
 from __future__ import annotations
 

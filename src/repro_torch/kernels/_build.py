@@ -37,6 +37,8 @@ _I64 = ctypes.c_int64
 LAUNCHERS = {
     "bitset_intersections_launch": (_P, _P, _I64, _I64, _I64, _I64, _P),
     "segment_histogram_launch": (_P, _P, _I64, _I64, _P),
+    "jaccard_topj_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _P),
+    "bitset_fold_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _P),
 }
 
 _LOCK = threading.Lock()

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.bitset_fold import kernel as fold_kernel
+from repro_torch.kernels.bitset_fold import ref as fold_ref
 from repro_torch.kernels.bitset_jaccard import kernel as inter_kernel
 from repro_torch.kernels.bitset_jaccard import ref as inter_ref
 from repro_torch.kernels.seghist import kernel as hist_kernel
@@ -95,3 +97,71 @@ def test_cuda_summarize_matches_host_oracle():
     np.testing.assert_array_equal(on_card.parent, host.parent)
     np.testing.assert_array_equal(on_card.edges, host.edges)
     assert on_card.validate_lossless(g)
+
+
+def _fold_instr(B, G, W, P, seed):
+    """Disjoint row pairs per group; member columns share 32-bit words and
+    hit bit 31; about one row in eight is padding (valid = 0)."""
+    rng = np.random.default_rng(seed)
+    instr = np.zeros((B, P, 8), dtype=np.int32)
+    for b in range(B):
+        rows = rng.permutation(G)
+        cols = rng.permutation(W * 32)[: 2 * P]
+        cols[:4] = [31, 30, 63 if W > 1 else 29, 0]
+        for p in range(P):
+            ca, cz = int(cols[2 * p]), int(cols[2 * p + 1])
+            instr[b, p] = [rows[2 * p], rows[2 * p + 1], ca >> 5, ca & 31,
+                           cz >> 5, cz & 31, int(rng.random() < 0.875), 0]
+    return torch.from_numpy(instr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,G,W,J", [(3, 2, 3, 1), (64, 8, 2, 7),
+                                     (64, 16, 8, 15), (37, 32, 5, 16),
+                                     (64, 128, 256, 16), (5, 128, 4, 16)])
+def test_cuda_topj_matches_plain(B, G, W, J):
+    _need_card()
+    bits = _bits((B, G, W), seed=G + W).cuda()
+    rng = np.random.default_rng(G)
+    alive = torch.from_numpy((rng.random((B, G)) < 0.8).astype(np.int8))
+    alive = alive.cuda()
+    n = fold_kernel.TOPJ_LAUNCHES
+    got = fold_kernel.jaccard_topj(bits, alive, J)
+    torch.cuda.synchronize()
+    assert fold_kernel.TOPJ_LAUNCHES == n + 1
+    assert torch.equal(got, fold_ref.topj_all(bits, alive, J))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,G,W,P", [(4, 8, 2, 4), (64, 16, 8, 8),
+                                     (64, 128, 256, 64), (7, 32, 1, 16)])
+def test_cuda_fold_matches_plain(B, G, W, P):
+    _need_card()
+    bits = _bits((B, G, W), seed=B + W).cuda()
+    alive = torch.ones((B, G), dtype=torch.int8, device="cuda")
+    instr = _fold_instr(B, G, W, P, seed=G).cuda()
+    want_bits, want_alive = bits.clone(), alive.clone()
+    n = fold_kernel.FOLD_LAUNCHES
+    fold_kernel.bitset_fold(bits, alive, instr)
+    torch.cuda.synchronize()
+    assert fold_kernel.FOLD_LAUNCHES == n + 1
+    fold_ref.fold_pairs(want_bits, want_alive, instr)
+    assert torch.equal(bits, want_bits)
+    assert torch.equal(alive, want_alive)
+
+
+@pytest.mark.cuda
+def test_cuda_resident_summarize_matches_batched():
+    _need_card()
+    import repro_torch
+    from repro_torch.graphs import generators as GG
+
+    g = GG.caveman(200, 8, 0.05, seed=0)
+    n = (fold_kernel.TOPJ_LAUNCHES, fold_kernel.FOLD_LAUNCHES)
+    resident = repro_torch.summarize(g, T=5, backend="resident")
+    assert fold_kernel.TOPJ_LAUNCHES > n[0]
+    assert fold_kernel.FOLD_LAUNCHES > n[1]
+    batched = repro_torch.summarize(g, T=5, backend="batched")
+    np.testing.assert_array_equal(resident.parent, batched.parent)
+    np.testing.assert_array_equal(resident.edges, batched.edges)
+    assert resident.validate_lossless(g)

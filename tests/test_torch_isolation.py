@@ -33,7 +33,10 @@ def _imported_roots(path: Path) -> set:
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for want in ("src/repro_torch/core/engine.py",
+                 "src/repro_torch/core/resident.py",
                  "src/repro_torch/kernels/bitset_jaccard/kernel.py",
+                 "src/repro_torch/kernels/bitset_fold/kernel.py",
+                 "src/repro_torch/kernels/bitset_fold/carry.py",
                  "src/repro_torch/kernels/seghist/kernel.py", "chip_smoke.py"):
         assert want in names
 
@@ -53,6 +56,8 @@ def test_summarize_runs_without_jax_or_reference_loaded():
         "g = G.caveman(6, 5, 0.1, seed=0)\n"
         "s = repro_torch.summarize(g, T=2, device='cpu')\n"
         "assert s.validate_lossless(g)\n"
+        "r = repro_torch.summarize(g, T=2, device='cpu', backend='resident')\n"
+        "assert (r.edges == s.edges).all()\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print('LOADED', bad)\n")
@@ -72,6 +77,8 @@ def test_default_device_is_the_card(monkeypatch):
         repro_torch.SummarizerEngine(backend="numpy")
     with pytest.raises(RuntimeError, match="CUDA"):
         repro_torch.summarize(g, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.summarize(g, backend="resident")
 
 
 def test_default_backend_is_batched():
@@ -81,7 +88,8 @@ def test_default_backend_is_batched():
 
 
 @pytest.mark.parametrize("kwargs,exc,match", [
-    ({"backend": "resident"}, NotImplementedError, "slice C"),
+    ({"backend": "resident", "partitions": 2}, NotImplementedError,
+     "slice E"),
     ({"partitions": 2}, NotImplementedError, "slice E"),
     ({"backend": "bogus"}, ValueError, "unknown backend"),
     ({"partitions": 0}, ValueError, "partitions"),
@@ -127,13 +135,18 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
     assert '"ok": true' not in out.stdout
 
 
-def test_cpu_path_launches_no_kernel():
+@pytest.mark.parametrize("backend", ["batched", "resident"])
+def test_cpu_path_launches_no_kernel(backend):
+    from repro_torch.kernels.bitset_fold import kernel as K3
     from repro_torch.kernels.bitset_jaccard import kernel as K1
     from repro_torch.kernels.seghist import kernel as K2
 
-    before = (K1.LAUNCHES, K2.LAUNCHES)
+    def counts():
+        return (K1.LAUNCHES, K2.LAUNCHES, K3.TOPJ_LAUNCHES, K3.FOLD_LAUNCHES)
+
+    before = counts()
     g = PG.caveman(10, 6, 0.05, seed=1)
-    s = repro_torch.summarize(g, T=3, device="cpu")
+    s = repro_torch.summarize(g, T=3, device="cpu", backend=backend)
     assert s.validate_lossless(g)
-    assert (K1.LAUNCHES, K2.LAUNCHES) == before
+    assert counts() == before
     assert np.all(s.edges[:, 0] <= s.edges[:, 1])

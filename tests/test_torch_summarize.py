@@ -4,7 +4,9 @@ Both packages build the same graph from the same seeded generator and
 summarize it with the same settings; the port runs on the CPU
 (``device="cpu"``: the kernels' plain versions), the reference runs its
 Pallas kernels in interpret mode. ``parent`` and ``edges`` must be equal bit
-for bit, and the port's summary must decompress to the input graph. The
+for bit, and the port's summary must decompress to the input graph; the
+port's resident summary must also equal the reference's host oracle
+(``backend="numpy"``). The
 inputs reuse the engine edge cases of `tests/test_engine_partitioned.py`
 and `tests/test_merge_engines.py`.
 """
@@ -56,7 +58,7 @@ def _assert_same(ref, port, g_port):
 
 @pytest.mark.parametrize("prune_steps", [(1, 2, 3), ()], ids=["prune", "noprune"])
 @pytest.mark.parametrize("T", [1, 5])
-@pytest.mark.parametrize("backend", ["numpy", "batched"])
+@pytest.mark.parametrize("backend", ["numpy", "batched", "resident"])
 @pytest.mark.parametrize("name", list(GRAPHS) + list(SPECIAL))
 def test_summary_bit_identical(name, backend, T, prune_steps):
     g_ref, g_port = _pair(name)
@@ -65,6 +67,10 @@ def test_summary_bit_identical(name, backend, T, prune_steps):
     port = repro_torch.summarize(g_port, T=T, seed=3, backend=backend,
                                  prune_steps=prune_steps, device="cpu")
     _assert_same(ref, port, g_port)
+    if backend == "resident":
+        oracle = ref_core.summarize(g_ref, T=T, seed=3, backend="numpy",
+                                    prune_steps=prune_steps)
+        _assert_same(oracle, port, g_port)
 
 
 @pytest.mark.parametrize("backend", ["numpy", "batched"])
