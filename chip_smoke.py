@@ -23,15 +23,28 @@ Phases, each printing one JSON line with its seconds:
            every iteration (steady-state `upload` 0 B after iteration 1),
            peak device memory; then `rmat(14, 8)` resident equal to its
            batched run (the wide group buckets)
-  trace    the batched and the resident paths once more each under
+  serve    each summary (caveman 1.1M batched, then rmat(14, 8)) packed,
+           its `.npz` saved under `build/` and loaded back, and 16,384
+           `make_queries` queries drained through `SummaryQueryServer` on
+           the card with the kernel backend (interval-count launches
+           counted from 0), then torch and numpy: all three equal to each
+           other and to the input graph's CSR; q/s, call shapes, peak memory
+  shingles `node_shingles` (row-min hash kernel) for three sub-seeds equal
+           to the host `node_shingles_u32`; `group_jaccard` (pairwise
+           kernel) on rmat's 512 highest-degree neighbor sets equal to its
+           plain version and to the host sets' Jaccard on sampled pairs
+  trace    the batched and the resident paths, the kernel-backend serve
+           drains and the shingle calls once more each under
            `torch.profiler`: device busy time by kernel, copy and torch op
            against each run's wall time
 
 The line before the last is the per-kernel record; each kernel's launches
 come from its own path's counted run (batched for the intersections and
-the histogram, resident for top-J and the fold), its times are sums over
-every call that run made (distinct call shapes checked against the plain
-version, timed, and weighted by their call counts). The last line is
+the histogram, resident for top-J and the fold, both serve drains for the
+interval count, the shingles phase for the row-min hash and the pairwise
+intersections), its times are sums over every call that run made (each
+call, or each distinct call shape, checked against the plain version,
+timed, and weighted by its call count). The last line is
 ``{"ok": true, "device": {...}}``. Any failure raises: the script then
 exits non-zero without that line. Without a card, or outside a checkout,
 it exits non-zero at once.
@@ -65,6 +78,16 @@ HIST_SHAPES = [((1 << 17), (1 << 18)), ((1 << 20), (1 << 15))]
 # (B, G, Wp, J) and (B, G, Wp, P): small, main-path-like and the widest
 TOPJ_SHAPES = [(3, 2, 2, 1), (4096, 16, 2, 15), (64, 128, 256, 16)]
 FOLD_SHAPES = [(7, 32, 2, 16), (4096, 16, 2, 8), (64, 128, 256, 64)]
+# (B, E, P): the caveman-like, the wide (rmat hubs) and the widest tiles,
+# and the one-probe `edge_exists` tile
+INTERVAL_SHAPES = [(256, 128, 256), (256, 512, 1024), (64, 4096, 8192),
+                   (256, 512, 1)]
+ROWMIN_SHAPES = [(220000, 128), (1 << 20, 128), (4099, 1000)]  # (R, W)
+PAIRWISE_SHAPES = [(37, 5), (128, 128), (512, 6875)]  # (G, W)
+SERVE_QUERIES = 16384
+SERVE_SLOTS = 256
+SHINGLE_SEEDS = (0, 1, 2)
+JACCARD_ROWS = 512
 
 
 def emit(phase: str, t0: float, **fields):
@@ -274,6 +297,151 @@ def inter_library(bits):
     return lambda: torch.bmm(a, at)
 
 
+def exact_error(name, got, want, what):
+    """max |kernel − plain| of one call; raises unless 0."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
+        if got.numel() else 0
+    if err or got.shape != want.shape:
+        raise AssertionError(f"{name} {what}: max |kernel − plain| = {err}, "
+                             f"shapes {tuple(got.shape)} {tuple(want.shape)}")
+    return err
+
+
+def interval_input(B, E, P, rng, span=1 << 15):
+    """Intervals of 1..4095 positions over a DFS range of ``span`` and
+    probes over it, a quarter of each padded (lo == hi == 0, sign 0; -1)."""
+    import numpy as np
+    import torch
+
+    lo = rng.integers(0, span, size=(B, E)).astype(np.int32)
+    hi = lo + rng.integers(1, 4096, size=(B, E)).astype(np.int32)
+    sg = rng.choice([-1, 1], size=(B, E)).astype(np.int32)
+    pad = rng.random((B, E)) < 0.25
+    lo[pad] = hi[pad] = sg[pad] = 0
+    pos = rng.integers(0, span, size=(B, P)).astype(np.int32)
+    pos[rng.random((B, P)) < 0.25] = -1
+    return tuple(torch.from_numpy(a).cuda() for a in (lo, hi, sg, pos))
+
+
+def interval_pairs(sign, pos):
+    """(real interval, real probe) pairs of one call: a padded interval has
+    sign 0, a padded probe is -1; neither needs a compare."""
+    import torch
+
+    return int(((sign != 0).sum(dim=1, dtype=torch.int64)
+                * (pos >= 0).sum(dim=1, dtype=torch.int64)).sum())
+
+
+def interval_bound_s(B, E, P, pairs, rates):
+    """Every input slot is read once (the kernel has no count of the real
+    ones) and the (B, P) output written once; each real pair takes two
+    compares and a predicated add on the integer lanes."""
+    by_bytes = ((3 * B * E + B * P) * 4 + B * P * 4) / rates["hbm_bytes_per_s"]
+    return by_bytes, 3 * pairs / rates["int32_ops_per_s"]
+
+
+def rowmin_input(R, W, seed):
+    """Packed-adjacency-like rows made on the card: row r holds 1..W
+    random u32 words, then sentinels (int32 -1)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    words = torch.randint(-(1 << 31), (1 << 31) - 1, (R, W), generator=gen,
+                          dtype=torch.int32, device="cuda")
+    fill = torch.randint(1, W + 1, (R, 1), generator=gen, device="cuda")
+    cols = torch.arange(W, device="cuda")[None, :]
+    return torch.where(cols < fill, words, -1).contiguous()
+
+
+def rowmin_bound_s(nbr, rates):
+    """Every word read once, the (R,) output written once; each word takes
+    a sentinel compare and each real word eight more integer operations
+    (two multiplies, an add, two shifts, two xors, the min)."""
+    R, W = nbr.shape
+    n_valid = int((nbr != -1).sum())
+    return ((R * W * 4 + R * 4) / rates["hbm_bytes_per_s"],
+            (R * W + 8 * n_valid) / rates["int32_ops_per_s"])
+
+
+def pairwise_bound_s(G, W, rates):
+    """The (G, W) bits read once and the (G, G) output written once; the
+    matrix is symmetric, so G·(G + 1)/2 row pairs of W word pairs are
+    needed, each an AND and an ADD on the integer lanes and a POPC on its
+    own unit."""
+    pairs = G * (G + 1) // 2 * W
+    return ((G * W * 4 + G * G * 4) / rates["hbm_bytes_per_s"],
+            max(2 * pairs / rates["int32_ops_per_s"],
+                pairs / rates["popc_per_s"]))
+
+
+def pairwise_library(bits):
+    """One fp16 matmul of the bits unpacked to 0/1 (exact products, fp32
+    accumulation; the unpacking is set-up, not timed)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+    G, W = bits.shape
+    shifts = torch.arange(32, device=bits.device, dtype=torch.int32)
+    a = ((bits[..., None] >> shifts) & 1).reshape(G, W * 32).to(torch.float16)
+    at = a.t().contiguous()
+    return lambda: torch.matmul(a, at)
+
+
+def bound_fields(bb, bo):
+    return {"bound_us": max(bb, bo) * 1e6,
+            "bound_by": "bytes" if bb >= bo else "operations"}
+
+
+def new_kernel_rows(rng, rates):
+    """The interval-count, row-min hash and pairwise-intersection kernels
+    at their fixed shapes: exact against the plain versions, timed."""
+    import torch
+
+    from repro_torch.kernels.bitset_jaccard import kernel as K1, ref as R1
+    from repro_torch.kernels.interval_expand import kernel as KI, ref as RI
+    from repro_torch.kernels.minhash import kernel as KM, ref as RM
+
+    rows = []
+    for B, E, P in INTERVAL_SHAPES:
+        x = interval_input(B, E, P, rng)
+        err = exact_error("interval_count", KI.interval_counts(*x),
+                          RI.interval_counts(*x), (B, E, P))
+        rows.append({
+            "kernel": "interval_count", "shape": [B, E, P],
+            "max_abs_err": err,
+            "kernel_ms": cuda_ms(lambda: KI.interval_counts(*x), 20),
+            "plain_ms": cuda_ms(lambda: RI.interval_counts(*x), 2),
+            "library_ms": None,
+            **bound_fields(*interval_bound_s(
+                B, E, P, interval_pairs(x[2], x[3]), rates))})
+    for R, W in ROWMIN_SHAPES:
+        nbr = rowmin_input(R, W, seed=R + W)
+        a, b = 2654435761, 0x9E3779B9
+        err = exact_error("rowmin_hash", KM.rowmin_hash(nbr, a, b),
+                          RM.rowmin_hash(nbr, a, b), (R, W))
+        rows.append({
+            "kernel": "rowmin_hash", "shape": [R, W], "max_abs_err": err,
+            "kernel_ms": cuda_ms(lambda: KM.rowmin_hash(nbr, a, b), 20),
+            "plain_ms": cuda_ms(lambda: RM.rowmin_hash(nbr, a, b), 2),
+            "library_ms": None, **bound_fields(*rowmin_bound_s(nbr, rates))})
+    for G, W in PAIRWISE_SHAPES:
+        bits = inter_input(1, G, W, rng)[0]
+        err = exact_error("pairwise_intersections",
+                          K1.pairwise_intersections(bits),
+                          R1.pairwise_intersection(bits), (G, W))
+        rows.append({
+            "kernel": "pairwise_intersections", "shape": [G, W],
+            "max_abs_err": err,
+            "kernel_ms": cuda_ms(lambda: K1.pairwise_intersections(bits), 20),
+            "plain_ms": cuda_ms(lambda: R1.pairwise_intersection(bits), 2),
+            "library_ms": cuda_ms(pairwise_library(bits), 10),
+            **bound_fields(*pairwise_bound_s(G, W, rates))})
+    return rows
+
+
 # ---------------------------------------------------------------------- phases
 def phase_device():
     import torch
@@ -375,6 +543,7 @@ def phase_kernels(rng, rates):
             "plain_ms": cuda_ms(lambda: R3.fold_pairs(x, alive, instr), 2),
             "library_ms": None, "bound_us": max(bb, bo) * 1e6,
             "bound_by": "bytes" if bb >= bo else "operations"})
+    rows += new_kernel_rows(rng, rates)
     emit("kernels", t0, results=rows)
 
 
@@ -656,32 +825,12 @@ def phase_trace(graph, backend, top=8):
     time by kernel, copy and torch op, against the run's wall time.
     Reported, not asserted: the wall of this run includes the profiler's
     own cost."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     import repro_torch
 
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        tw = time.perf_counter()
-        repro_torch.summarize(graph, backend=backend, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - tw
-    by_name = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us:
-            by_name[e.key] = {"device_us": us, "count": e.count}
-    busy_us = sum(v["device_us"] for v in by_name.values())
-    ranked = dict(sorted(by_name.items(),
-                         key=lambda kv: -kv[1]["device_us"])[:top])
-    emit("trace", t0, backend=backend, wall_seconds=wall,
-         device_busy_us=busy_us,
-         device_busy_share=busy_us * 1e-6 / wall if busy_us else None,
-         kernel_launches=sum(v["count"] for v in by_name.values()),
-         by_name=ranked)
+    wall, by_name = traced(lambda: repro_torch.summarize(
+        graph, backend=backend, device="cuda"))
+    emit_trace(t0, backend, wall, by_name, top=top)
     return by_name
 
 
@@ -785,8 +934,338 @@ def kernel_record(recorder, launches, res_recorder, res_launches, rng,
             "bound_ms": max(acc["bb"], acc["bo"]) * 1e3,
             "bound_by": "bytes" if acc["bb"] >= acc["bo"] else "operations",
             "library_ms": acc["library_ms"],
-            "device_ms": sum(v["device_us"] for k, v in device_us.items()
-                             if f"{name}_kernel" in k) * 1e-3 or None})
+            "device_ms": device_ms(device_us, (f"{name}_kernel",))})
+    return out
+
+
+class IntervalRecorder:
+    """Keeps a copy of the inputs of every interval-count call the serving
+    path makes, by wrapping the name `interval_expand.ops` calls. The
+    kernel's own launch counter is untouched by it; the copies are small
+    device tiles and need no host sync."""
+
+    def __init__(self):
+        from repro_torch.kernels.interval_expand import ops as OI
+
+        self.OI = OI
+        self.calls: list = []
+        self._orig = OI.interval_counts
+
+        def rec(lo, hi, sign, pos, _f=self._orig):
+            self.calls.append(tuple(t.clone() for t in (lo, hi, sign, pos)))
+            return _f(lo, hi, sign, pos)
+
+        OI.interval_counts = rec
+
+    def close(self):
+        self.OI.interval_counts = self._orig
+
+
+def answers_agree(graph, queries, by_backend):
+    """Every backend's answers equal each other and the input graph's CSR
+    (the summary is lossless, so the CSR is the ground truth). Raises on
+    the first disagreement; returns the neighbors/edge split."""
+    import numpy as np
+
+    kinds = Counter()
+    for i, q in enumerate(queries):
+        got = {b: a[i] for b, a in by_backend.items()}
+        if q[0] == "neighbors":
+            v = q[1]
+            want = graph.indices[graph.indptr[v]:graph.indptr[v + 1]]
+            ok = all(isinstance(a, np.ndarray) and a.dtype == np.int64
+                     and np.array_equal(a, want) for a in got.values())
+        else:
+            want = graph.has_edge(q[1], q[2])
+            ok = all(isinstance(a, bool) and a == want for a in got.values())
+        if not ok:
+            raise AssertionError(f"query {i} {q}: answers {got} differ from "
+                                 f"the input graph's {want!r}")
+        kinds[q[0]] += 1
+    return dict(kinds)
+
+
+def phase_serve(graph, summary, label):
+    """Pack ``summary``, round-trip the `.npz` under `build/`, and drain
+    `SERVE_QUERIES` queries through `SummaryQueryServer` on the card with
+    the kernel backend (interval-count launches counted from 0), then with
+    torch and numpy; all three equal each other and the graph's CSR."""
+    import torch
+
+    from repro_torch.core.summary_ir import PackedSummary
+    from repro_torch.kernels.interval_expand import kernel as KI
+    from repro_torch.launch.summary_serve import (SummaryQueryServer,
+                                                  make_queries)
+
+    t0 = time.perf_counter()
+    tw = time.perf_counter()
+    packed = summary.pack_for_serving()
+    (ROOT / "build").mkdir(exist_ok=True)
+    path = packed.save(str(ROOT / "build" / f"serve_{label}.npz"))
+    ps = PackedSummary.load(path)
+    pack_s = time.perf_counter() - tw
+    queries = make_queries(graph.n, SERVE_QUERIES, edge_frac=0.25, seed=1)
+    torch.cuda.reset_peak_memory_stats()
+    answers, walls = {}, {}
+    recorder = IntervalRecorder()
+    KI.LAUNCHES = 0
+    try:
+        server = SummaryQueryServer(ps, batch_slots=SERVE_SLOTS,
+                                    backend="kernel", device="cuda")
+        tw = time.perf_counter()
+        answers["kernel"] = server.run(queries)
+        torch.cuda.synchronize()
+        walls["kernel"] = time.perf_counter() - tw
+    finally:
+        recorder.close()
+    launches = KI.LAUNCHES
+    if launches <= 0:
+        raise AssertionError(f"serving {label} never launched interval_count")
+    for backend in ("torch", "numpy"):
+        server = SummaryQueryServer(ps, batch_slots=SERVE_SLOTS,
+                                    backend=backend, device="cuda")
+        tw = time.perf_counter()
+        answers[backend] = server.run(queries)
+        torch.cuda.synchronize()
+        walls[backend] = time.perf_counter() - tw
+    if KI.LAUNCHES != launches:
+        raise AssertionError("the torch or numpy backend launched the "
+                             "interval kernel")
+    kinds = answers_agree(graph, queries, answers)
+    shapes = Counter(tuple(c[0].shape) + (c[3].shape[1],)
+                     for c in recorder.calls)
+    emit("serve", t0, graph=label, n=graph.n, m=graph.m,
+         queries=len(queries), kinds=kinds, slots=SERVE_SLOTS,
+         artifact_bytes=ps.nbytes(), artifact=str(Path(path).name),
+         max_depth=ps.max_depth, pack_save_load_seconds=pack_s,
+         wall_seconds=walls,
+         queries_per_second={b: len(queries) / w for b, w in walls.items()},
+         equal_backends=True, equal_to_csr=True, launches=launches,
+         call_shapes=sorted([[*k, n] for k, n in shapes.items()],
+                            key=lambda r: -r[-1]),
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    return ps, queries, recorder.calls, launches
+
+
+def phase_shingles(graph, rmat):
+    """`node_shingles` on the card for ``graph`` (rows of width 128) for
+    each of `SHINGLE_SEEDS` against the engine's host
+    `node_shingles_u32`; `group_jaccard` on the card over the neighbor sets
+    of the `JACCARD_ROWS` highest-degree nodes of ``rmat`` against its
+    plain version on the CPU and the host sets. Launches counted from 0."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import minhash as CM
+    from repro_torch.kernels.bitset_jaccard import kernel as K1, ops as O1
+    from repro_torch.kernels.minhash import kernel as KM, ops as OM
+
+    t0 = time.perf_counter()
+    rows, owners = OM.pack_adjacency(graph.indptr, graph.indices, 128)
+    rows_t = torch.from_numpy(rows.view(np.int32)).cuda()
+    owners_t = torch.from_numpy(owners).cuda()
+    consts, checks = [], []
+    KM.LAUNCHES = 0
+    for sub_seed in SHINGLE_SEEDS:
+        a, b = (int(c) for c in CM.u32_seed_consts(sub_seed))
+        tw = time.perf_counter()
+        got = OM.node_shingles(rows_t, owners_t, graph.n, a, b).cpu().numpy()
+        card_s = time.perf_counter() - tw
+        tw = time.perf_counter()
+        want = CM.node_shingles_u32(graph, sub_seed)
+        host_s = time.perf_counter() - tw
+        if not np.array_equal(got, want):
+            raise AssertionError(f"node_shingles on the card differ from the "
+                                 f"host's for sub-seed {sub_seed}")
+        consts.append((a, b))
+        checks.append({"sub_seed": sub_seed, "equal": True,
+                       "card_seconds": card_s, "host_seconds": host_s})
+    rowmin_launches = KM.LAUNCHES
+    if rowmin_launches <= 0:
+        raise AssertionError("node_shingles never launched rowmin_hash")
+    top = np.argsort(-np.diff(rmat.indptr), kind="stable")[:JACCARD_ROWS]
+    sets = [set(map(int, rmat.neighbors(int(u)))) for u in top]
+    bits = O1.pack_bitsets(sets, rmat.n)
+    K1.PAIRWISE_LAUNCHES = 0
+    tw = time.perf_counter()
+    jac = O1.group_jaccard(bits, device="cuda")
+    card_s = time.perf_counter() - tw
+    pairwise_launches = K1.PAIRWISE_LAUNCHES
+    if pairwise_launches <= 0:
+        raise AssertionError("group_jaccard never launched "
+                             "pairwise_intersections")
+    tw = time.perf_counter()
+    plain = O1.group_jaccard(bits, device="cpu")
+    plain_s = time.perf_counter() - tw
+    if not np.array_equal(jac, plain):
+        raise AssertionError("group_jaccard on the card differs from its "
+                             "plain version")
+    rng = np.random.default_rng(2)
+    pairs = rng.integers(0, len(sets), size=(2000, 2))
+    for i, j in pairs:
+        inter = len(sets[i] & sets[j])
+        union = len(sets[i] | sets[j])
+        want = np.float32(inter) / np.float32(union) if union else 0.0
+        if jac[i, j] != want:
+            raise AssertionError(f"group_jaccard[{i}, {j}] = {jac[i, j]}, "
+                                 f"host sets give {want}")
+    emit("shingles", t0, rows=list(rows.shape), node_checks=checks,
+         rowmin_launches=rowmin_launches, jaccard_shape=list(bits.shape),
+         jaccard_card_seconds=card_s, jaccard_plain_cpu_seconds=plain_s,
+         jaccard_sampled_pairs=len(pairs), pairwise_launches=pairwise_launches)
+    bits_t = torch.from_numpy(bits.view(np.int32)).cuda()
+    return {"rows": rows_t, "owners": owners_t, "n": graph.n,
+            "consts": consts, "rowmin_launches": rowmin_launches,
+            "bits": bits_t, "pairwise_launches": pairwise_launches}
+
+
+def traced(fn, warmup=False):
+    """Run ``fn`` once under `torch.profiler`: its wall and the device's
+    busy time by kernel, copy and torch op. The profiler drops the device
+    activities of its first millisecond or so (seen as missing launches in
+    short traces), so with ``warmup`` ``fn`` runs once first in a discarded
+    warm-up step and the second run is the one recorded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    steps = schedule(wait=0, warmup=1, active=1, repeat=1) if warmup else None
+    with profile(activities=[ProfilerActivity.CUDA], schedule=steps) as prof:
+        if warmup:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+        tw = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tw
+        if warmup:
+            prof.step()
+    by_name = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us:
+            by_name[e.key] = {"device_us": us, "count": e.count}
+    return wall, by_name
+
+
+def emit_trace(t0, what, wall, by_name, top=8):
+    busy_us = sum(v["device_us"] for v in by_name.values())
+    ranked = dict(sorted(by_name.items(),
+                         key=lambda kv: -kv[1]["device_us"])[:top])
+    emit("trace", t0, backend=what, wall_seconds=wall,
+         device_busy_us=busy_us,
+         device_busy_share=busy_us * 1e-6 / wall if busy_us else None,
+         kernel_launches=sum(v["count"] for v in by_name.values()),
+         by_name=ranked)
+
+
+def phase_trace_serving(served, shingles):
+    """The kernel-backend drains of every served summary (``served``: its
+    `PackedSummary` and queries) and the shingle calls once more each under
+    the profiler, after a warm-up run."""
+    from repro_torch.kernels.bitset_jaccard import kernel as K1
+    from repro_torch.kernels.minhash import ops as OM
+    from repro_torch.launch.summary_serve import SummaryQueryServer
+
+    t0 = time.perf_counter()
+    servers = [(SummaryQueryServer(ps, batch_slots=SERVE_SLOTS,
+                                   backend="kernel", device="cuda"), queries)
+               for ps, queries in served]
+
+    def drains():
+        for server, queries in servers:
+            server.run(queries)
+
+    wall, by_name = traced(drains, warmup=True)
+    emit_trace(t0, "serve-kernel", wall, by_name)
+    t0 = time.perf_counter()
+
+    def calls():
+        for a, b in shingles["consts"]:
+            OM.node_shingles(shingles["rows"], shingles["owners"],
+                             shingles["n"], a, b)
+        K1.pairwise_intersections(shingles["bits"])
+
+    wall2, by_name2 = traced(calls, warmup=True)
+    emit_trace(t0, "shingles", wall2, by_name2)
+    return {**by_name, **by_name2}
+
+
+def device_ms(device_us, names):
+    return sum(v["device_us"] for k, v in device_us.items()
+               if any(n in k for n in names)) * 1e-3 or None
+
+
+def serving_kernel_record(serve_calls, serve_launches, shingles, device_us,
+                          rates):
+    """The contract entries of the three serving/shingle kernels: each
+    path's calls re-run against the plain version, timed and bounded."""
+    import torch
+
+    from repro_torch.kernels.bitset_jaccard import kernel as K1, ref as R1
+    from repro_torch.kernels.interval_expand import kernel as KI, ref as RI
+    from repro_torch.kernels.minhash import kernel as KM, ref as RM
+
+    # comparison launches do not count
+    saved = (KI.LAUNCHES, KM.LAUNCHES, K1.PAIRWISE_LAUNCHES)
+    iv = dict(ms=0.0, plain_ms=0.0, library_ms=None, bb=0.0, bo=0.0, err=0)
+    for x in serve_calls:
+        B, E = x[0].shape
+        P = x[3].shape[1]
+        iv["err"] = max(iv["err"], exact_error(
+            "interval_count", KI.interval_counts(*x), RI.interval_counts(*x),
+            (B, E, P)))
+        iv["ms"] += cuda_ms(lambda: KI.interval_counts(*x), 5)
+        iv["plain_ms"] += cuda_ms(lambda: RI.interval_counts(*x), 1)
+        bb, bo = interval_bound_s(B, E, P, interval_pairs(x[2], x[3]), rates)
+        iv["bb"] += bb
+        iv["bo"] += bo
+    rm = dict(ms=0.0, plain_ms=0.0, library_ms=None, bb=0.0, bo=0.0, err=0)
+    nbr = shingles["rows"]
+    for a, b in shingles["consts"]:
+        rm["err"] = max(rm["err"], exact_error(
+            "rowmin_hash", KM.rowmin_hash(nbr, a, b), RM.rowmin_hash(nbr, a, b),
+            tuple(nbr.shape)))
+        rm["ms"] += cuda_ms(lambda: KM.rowmin_hash(nbr, a, b), 20)
+        rm["plain_ms"] += cuda_ms(lambda: RM.rowmin_hash(nbr, a, b), 2)
+        bb, bo = rowmin_bound_s(nbr, rates)
+        rm["bb"] += bb
+        rm["bo"] += bo
+    bits = shingles["bits"]
+    G, W = bits.shape
+    bb, bo = pairwise_bound_s(G, W, rates)
+    pw = dict(ms=cuda_ms(lambda: K1.pairwise_intersections(bits), 20),
+              plain_ms=cuda_ms(lambda: R1.pairwise_intersection(bits), 2),
+              library_ms=cuda_ms(pairwise_library(bits), 10), bb=bb, bo=bo,
+              err=exact_error("pairwise_intersections",
+                              K1.pairwise_intersections(bits),
+                              R1.pairwise_intersection(bits), (G, W)))
+    KI.LAUNCHES, KM.LAUNCHES, K1.PAIRWISE_LAUNCHES = saved
+    out = []
+    for name, acc, n_launch, src, replaces, names in (
+            ("interval_count", iv, serve_launches,
+             "src/repro_torch/csrc/interval_count.cu",
+             "src/repro/kernels/interval_expand/kernel.py:43",
+             ("interval_count_kernel", "interval_probe_kernel")),
+            ("rowmin_hash", rm, shingles["rowmin_launches"],
+             "src/repro_torch/csrc/rowmin_hash.cu",
+             "src/repro/kernels/minhash/kernel.py:42",
+             ("rowmin_hash_kernel",)),
+            ("pairwise_intersections", pw, shingles["pairwise_launches"],
+             "src/repro_torch/csrc/pairwise_intersections.cu",
+             "src/repro/kernels/bitset_jaccard/kernel.py:44",
+             ("pairwise_intersections_kernel",))):
+        out.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": n_launch,
+            "max_abs_err": acc["err"], "ms": acc["ms"],
+            "plain_ms": acc["plain_ms"],
+            "bound_ms": max(acc["bb"], acc["bo"]) * 1e3,
+            "bound_by": "bytes" if acc["bb"] >= acc["bo"] else "operations",
+            "library_ms": acc["library_ms"],
+            "device_ms": device_ms(device_us, names)})
     return out
 
 
@@ -820,11 +1299,21 @@ def main() -> int:
     rmat, rmat_batched = phase_parity(graph, summary)
     res_launches, res_recorder = phase_resident(graph, summary, rmat,
                                                 rmat_batched)
+    ps, queries, serve_calls, serve_launches = phase_serve(
+        graph, summary, "caveman_1.1M")
+    rmat_ps, rmat_queries, rmat_calls, rmat_launches = phase_serve(
+        rmat, rmat_batched, "rmat_14_8")
+    shingles = phase_shingles(graph, rmat)
     device_us = phase_trace(graph, "batched")
     device_us.update(phase_trace(graph, "resident", top=16))
+    device_us.update(phase_trace_serving(
+        [(ps, queries), (rmat_ps, rmat_queries)], shingles))
     t0 = time.perf_counter()
     record = kernel_record(recorder, launches, res_recorder, res_launches,
                            rng, device_us, rates)
+    record += serving_kernel_record(serve_calls + rmat_calls,
+                                    serve_launches + rmat_launches, shingles,
+                                    device_us, rates)
     emit("record", t0, total_seconds=time.perf_counter() - t_all)
     print(smi, flush=True)
     print(json.dumps({"kernels": record}), flush=True)

@@ -39,6 +39,9 @@ LAUNCHERS = {
     "segment_histogram_launch": (_P, _P, _I64, _I64, _P),
     "jaccard_topj_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _P),
     "bitset_fold_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _P),
+    "interval_count_launch": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    "rowmin_hash_launch": (_P, _P, _I64, _I64, _I64, _I64, _P),
+    "pairwise_intersections_launch": (_P, _P, _I64, _I64, _P),
 }
 
 _LOCK = threading.Lock()

@@ -10,6 +10,10 @@ the kernel receives the valid row count and writes zeros for padding rows.
 Per-group degrees are read off the diagonal (popcount(x & x) = |x|). Every
 dispatch reports its h2d/d2h bytes and ticks a ranking round on
 `core.transfer.GLOBAL`, entry for entry as the JAX package does.
+
+`group_jaccard` is the float similarity view of one wide group: all
+pairwise intersections from `kernel.pairwise_intersections` (whose diagonal
+is each row's popcount), then the Jaccard matrix.
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ import torch
 
 from repro_torch.core.transfer import GLOBAL as TRANSFER
 from repro_torch.kernels._build import pow2
-from repro_torch.kernels.bitset_jaccard.kernel import bitset_intersections
+from repro_torch.kernels.bitset_jaccard.kernel import (bitset_intersections,
+                                                       pairwise_intersections)
 
 TILE_B = 64  # rows per launch; the JAX package's tile, for ledger parity
 
@@ -32,6 +37,22 @@ def pack_bitsets(sets: list, universe: int) -> np.ndarray:
         if idx.size:
             np.bitwise_or.at(out[i], idx >> 5, np.uint32(1) << (idx & 31).astype(np.uint32))
     return out
+
+
+def group_jaccard(bits: np.ndarray, device=None) -> np.ndarray:
+    """(G, W) uint32 -> (G, G) float32 Jaccard similarity matrix,
+    ``inter / max(union, 1)`` where ``union > 0``, else 0, computed on
+    ``device`` (``None``: the CUDA card, which must exist)."""
+    from repro_torch.core.engine import resolve_device  # circular-safe
+
+    dev = resolve_device(device)
+    words = np.ascontiguousarray(bits, dtype=np.uint32).view(np.int32)
+    x = torch.from_numpy(words).to(dev)
+    inter = pairwise_intersections(x)
+    deg = torch.diagonal(inter)  # popcount(x & x) = |x|
+    union = deg[:, None] + deg[None, :] - inter
+    jac = torch.where(union > 0, inter / union.clamp(min=1), 0.0)
+    return jac.to(torch.float32).cpu().numpy()
 
 
 def batched_pairwise_intersections(bits: np.ndarray,

@@ -37,3 +37,16 @@ def bitset_intersections(bits: torch.Tensor, valid: int) -> torch.Tensor:
         inter = popcount_u32(rows[:, :, None, :] & rows[:, None, :, :])
         out[b0:b0 + rows.shape[0]] = inter.sum(-1).to(torch.int32)
     return out
+
+
+def pairwise_intersection(bits: torch.Tensor) -> torch.Tensor:
+    """bits ``(G, W)`` int32 (uint32 words) → ``(G, G)`` int32
+    ``popcount(row_i & row_j)`` summed over W. Rows go in chunks that
+    bound the ``(rows, G, W)`` temporary."""
+    G, W = bits.shape
+    out = torch.empty((G, G), dtype=torch.int32, device=bits.device)
+    step = max(1, _BUDGET // max(1, G * W))
+    for i0 in range(0, G, step):
+        inter = popcount_u32(bits[i0:i0 + step, None, :] & bits[None, :, :])
+        out[i0:i0 + step] = inter.sum(-1).to(torch.int32)
+    return out

@@ -1,7 +1,8 @@
 """Each CUDA kernel of the port against its plain PyTorch version, on the
 card. Every test is marked `cuda` and skips without a card (a CUDA kernel
-has no CPU mode; `tests/test_torch_kernels.py` holds the plain versions to
-the JAX package here).
+has no CPU mode; `tests/test_torch_kernels.py`, `test_torch_bitset_fold.py`,
+`test_torch_serving.py` and `test_torch_shingles.py` hold the plain
+versions to the JAX package here).
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine that has only the port installed:
@@ -16,6 +17,10 @@ from repro_torch.kernels.bitset_fold import kernel as fold_kernel
 from repro_torch.kernels.bitset_fold import ref as fold_ref
 from repro_torch.kernels.bitset_jaccard import kernel as inter_kernel
 from repro_torch.kernels.bitset_jaccard import ref as inter_ref
+from repro_torch.kernels.interval_expand import kernel as interval_kernel
+from repro_torch.kernels.interval_expand import ref as interval_ref
+from repro_torch.kernels.minhash import kernel as minhash_kernel
+from repro_torch.kernels.minhash import ref as minhash_ref
 from repro_torch.kernels.seghist import kernel as hist_kernel
 from repro_torch.kernels.seghist import ref as hist_ref
 
@@ -165,3 +170,115 @@ def test_cuda_resident_summarize_matches_batched():
     np.testing.assert_array_equal(resident.parent, batched.parent)
     np.testing.assert_array_equal(resident.edges, batched.edges)
     assert resident.validate_lossless(g)
+
+
+def _intervals(B, E, P, seed):
+    """Intervals and probes over a DFS range of 10,000 positions, about a
+    quarter of each padded (lo == hi == 0 with sign 0; probes -1)."""
+    rng = np.random.default_rng(seed)
+    lo = rng.integers(0, 10_000, size=(B, E)).astype(np.int32)
+    hi = lo + rng.integers(0, 2_000, size=(B, E)).astype(np.int32)
+    sg = rng.choice([-1, 1], size=(B, E)).astype(np.int32)
+    pad = rng.random((B, E)) < 0.25
+    lo[pad] = hi[pad] = sg[pad] = 0
+    pos = rng.integers(0, 12_000, size=(B, P)).astype(np.int32)
+    pos[rng.random((B, P)) < 0.25] = -1
+    return [torch.from_numpy(a).cuda() for a in (lo, hi, sg, pos)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,E,P", [(256, 8, 16), (256, 128, 256),
+                                   (256, 512, 1024), (3, 1000, 70_000),
+                                   (256, 512, 1), (5, 3, 1), (7, 0, 4),
+                                   (9, 33, 2)])
+def test_cuda_interval_counts_match_plain(B, E, P):
+    _need_card()
+    lo, hi, sg, pos = _intervals(B, E, P, seed=B + E + P)
+    n = interval_kernel.LAUNCHES
+    got = interval_kernel.interval_counts(lo, hi, sg, pos)
+    torch.cuda.synchronize()
+    assert interval_kernel.LAUNCHES == n + 1
+    assert torch.equal(got, interval_ref.interval_counts(lo, hi, sg, pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,W", [(220_000, 128), (4099, 1000), (33, 5),
+                                 (1, 0)])
+def test_cuda_rowmin_hash_matches_plain(R, W):
+    _need_card()
+    rng = np.random.default_rng(R + W)
+    words = rng.integers(0, 1 << 32, size=(R, W), dtype=np.uint64)
+    words[rng.random((R, W)) < 0.3] = 0xFFFFFFFF
+    words[::7] = 0xFFFFFFFF  # rows of sentinels only
+    nbr = torch.from_numpy(words.astype(np.uint32).view(np.int32)).cuda()
+    n = minhash_kernel.LAUNCHES
+    got = minhash_kernel.rowmin_hash(nbr, 2654435761, 0x9E3779B9)
+    torch.cuda.synchronize()
+    assert minhash_kernel.LAUNCHES == n + 1
+    assert torch.equal(got, minhash_ref.rowmin_hash(nbr, 2654435761,
+                                                    0x9E3779B9))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,W", [(37, 5), (128, 128), (512, 512), (33, 65),
+                                 (1, 1)])
+def test_cuda_pairwise_intersections_match_plain(G, W):
+    _need_card()
+    bits = _bits((G, W), seed=G * W).cuda()
+    n = inter_kernel.PAIRWISE_LAUNCHES
+    got = inter_kernel.pairwise_intersections(bits)
+    torch.cuda.synchronize()
+    assert inter_kernel.PAIRWISE_LAUNCHES == n + 1
+    assert torch.equal(got, inter_ref.pairwise_intersection(bits))
+
+
+@pytest.mark.cuda
+def test_cuda_shingles_and_jaccard_match_host():
+    _need_card()
+    from repro_torch.core import minhash as core_minhash
+    from repro_torch.graphs import generators as GG
+    from repro_torch.kernels.bitset_jaccard import ops as O1
+    from repro_torch.kernels.minhash import ops as OM
+
+    g = GG.caveman(300, 9, 0.05, seed=1)
+    rows, owners = OM.pack_adjacency(g.indptr, g.indices, 4)
+    rows_t = torch.from_numpy(rows.view(np.int32)).cuda()
+    for sub_seed in (0, 7):
+        a, b = core_minhash.u32_seed_consts(sub_seed)
+        got = OM.node_shingles(rows_t, torch.from_numpy(owners), g.n, int(a),
+                               int(b))
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      core_minhash.node_shingles_u32(g, sub_seed))
+    sets = [set(map(int, g.neighbors(u))) for u in range(0, 300, 3)]
+    bits = O1.pack_bitsets(sets, g.n)
+    np.testing.assert_array_equal(O1.group_jaccard(bits),
+                                  O1.group_jaccard(bits, device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["kernel", "torch"])
+def test_cuda_server_answers_match_numpy(backend):
+    _need_card()
+    import repro_torch
+    from repro_torch.graphs import generators as GG
+    from repro_torch.launch.summary_serve import (SummaryQueryServer,
+                                                  make_queries)
+
+    for g in (GG.caveman(200, 8, 0.05, seed=0), GG.rmat(10, 8, seed=0)):
+        ps = repro_torch.summarize(g, T=5).pack_for_serving()
+        queries = make_queries(g.n, 700, edge_frac=0.3, seed=2)
+        n = interval_kernel.LAUNCHES
+        got = SummaryQueryServer(ps, batch_slots=64, backend=backend).run(
+            queries)
+        if backend == "kernel":
+            assert interval_kernel.LAUNCHES > n
+        else:
+            assert interval_kernel.LAUNCHES == n
+        want = SummaryQueryServer(ps, batch_slots=64, backend="numpy").run(
+            queries)
+        for q, a, w in zip(queries, got, want):
+            if q[0] == "neighbors":
+                np.testing.assert_array_equal(a, w)
+                np.testing.assert_array_equal(a, g.neighbors(q[1]))
+            else:
+                assert a == w == g.has_edge(q[1], q[2]), q

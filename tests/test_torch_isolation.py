@@ -37,8 +37,22 @@ def test_port_files_exist():
                  "src/repro_torch/kernels/bitset_jaccard/kernel.py",
                  "src/repro_torch/kernels/bitset_fold/kernel.py",
                  "src/repro_torch/kernels/bitset_fold/carry.py",
-                 "src/repro_torch/kernels/seghist/kernel.py", "chip_smoke.py"):
+                 "src/repro_torch/kernels/seghist/kernel.py",
+                 "src/repro_torch/core/query_batch.py",
+                 "src/repro_torch/launch/serve.py",
+                 "src/repro_torch/launch/summary_serve.py",
+                 "src/repro_torch/kernels/interval_expand/kernel.py",
+                 "src/repro_torch/kernels/interval_expand/ops.py",
+                 "src/repro_torch/kernels/interval_expand/ref.py",
+                 "src/repro_torch/kernels/minhash/kernel.py",
+                 "src/repro_torch/kernels/minhash/ops.py",
+                 "src/repro_torch/kernels/minhash/ref.py",
+                 "src/repro_torch/kernels/bitset_jaccard/ops.py",
+                 "chip_smoke.py"):
         assert want in names
+    csrc = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")}
+    assert {"interval_count.cu", "rowmin_hash.cu",
+            "pairwise_intersections.cu"} <= csrc
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -150,3 +164,53 @@ def test_cpu_path_launches_no_kernel(backend):
     assert s.validate_lossless(g)
     assert counts() == before
     assert np.all(s.edges[:, 0] <= s.edges[:, 1])
+
+
+def _new_kernel_counts():
+    from repro_torch.kernels.bitset_jaccard import kernel as K1
+    from repro_torch.kernels.interval_expand import kernel as KI
+    from repro_torch.kernels.minhash import kernel as KM
+
+    return (KI.LAUNCHES, KM.LAUNCHES, K1.PAIRWISE_LAUNCHES)
+
+
+@pytest.mark.parametrize("backend", ["kernel", "torch", "numpy"])
+def test_cpu_serving_and_shingles_launch_no_kernel(backend):
+    from repro_torch.core import minhash as core_minhash
+    from repro_torch.kernels.bitset_jaccard import ops as O1
+    from repro_torch.kernels.minhash import ops as OM
+    from repro_torch.launch.summary_serve import (SummaryQueryServer,
+                                                  make_queries)
+
+    before = _new_kernel_counts()
+    g = PG.caveman(10, 6, 0.05, seed=1)
+    ps = repro_torch.summarize(g, T=3, device="cpu").pack_for_serving()
+    queries = make_queries(g.n, 50, edge_frac=0.5, seed=0)
+    answers = SummaryQueryServer(ps, batch_slots=16, backend=backend,
+                                 device="cpu").run(queries)
+    for q, a in zip(queries, answers):
+        if q[0] == "neighbors":
+            assert np.array_equal(a, g.neighbors(q[1]))
+        else:
+            assert a == g.has_edge(q[1], q[2])
+    rows, owners = OM.pack_adjacency(g.indptr, g.indices, 8)
+    a, b = core_minhash.u32_seed_consts(3)
+    sh = OM.node_shingles(torch.from_numpy(rows.view(np.int32)),
+                          torch.from_numpy(owners), g.n, int(a), int(b))
+    assert np.array_equal(sh.numpy(), core_minhash.node_shingles_u32(g, 3))
+    O1.group_jaccard(O1.pack_bitsets([[1, 2], [2, 3]], g.n), device="cpu")
+    assert _new_kernel_counts() == before
+
+
+def test_summary_server_defaults_to_the_card(monkeypatch):
+    from repro_torch.launch.summary_serve import SummaryQueryServer
+
+    g = PG.caveman(4, 4, 0.0, seed=0)
+    ps = repro_torch.summarize(g, T=2, device="cpu").pack_for_serving()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for backend in ("kernel", "torch"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            SummaryQueryServer(ps, backend=backend)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SummaryQueryServer(ps)
+    assert SummaryQueryServer(ps, backend="numpy").device is None
