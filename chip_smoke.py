@@ -33,24 +33,39 @@ Phases, each printing one JSON line with its seconds:
            to the host `node_shingles_u32`; `group_jaccard` (pairwise
            kernel) on rmat's 512 highest-degree neighbor sets equal to its
            plain version and to the host sets' Jaccard on sampled pairs
+  lm_serve qwen2.5-3b at full width and all 36 layers in bf16, random
+           weights from `torch.Generator(seed=0)`: 16 prompts of 1,024
+           tokens through `BatchServer(batch_slots=8)`, 32 greedy tokens
+           each, flash launches counted from 0 (36 × 2 prefills); prefill
+           tokens/s, time to first token, decode ms/step, generated
+           tokens/s, peak memory; checks (a) flash vs the chunked twin at
+           full depth (bf16, relative L2), (b) the same at 2 layers in f32
+           (the reference's tolerance), (c) decode steps vs a
+           teacher-forced forward
   trace    the batched and the resident paths, the kernel-backend serve
-           drains and the shingle calls once more each under
+           drains, the shingle calls and the LM drain once more each under
            `torch.profiler`: device busy time by kernel, copy and torch op
            against each run's wall time
+
+The kernels phase also holds the flash-attention kernel to its plain
+version (f32, TF32 off) within the reference's tolerances at five fixed
+shapes, beside SDPA's time.
 
 The line before the last is the per-kernel record; each kernel's launches
 come from its own path's counted run (batched for the intersections and
 the histogram, resident for top-J and the fold, both serve drains for the
 interval count, the shingles phase for the row-min hash and the pairwise
-intersections), its times are sums over every call that run made (each
-call, or each distinct call shape, checked against the plain version,
-timed, and weighted by its call count). The last line is
+intersections, the LM drain for flash attention), its times are sums over
+every call that run made (each call, or each distinct call shape, checked
+against the plain version, timed, and weighted by its call count). The
+last line is
 ``{"ok": true, "device": {...}}``. Any failure raises: the script then
 exits non-zero without that line. Without a card, or outside a checkout,
 it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -88,6 +103,24 @@ SERVE_QUERIES = 16384
 SERVE_SLOTS = 256
 SHINGLE_SEEDS = (0, 1, 2)
 JACCARD_ROWS = 512
+# Dense peaks of the H100 SXM (NVIDIA's data sheet): bf16 on the tensor
+# cores, f32 on the CUDA cores.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# (B, H, Hkv, Sq, Sk, D, dtype, causal, window): the serving prefill's call
+# (qwen2.5-3b, 8 prompts of 1,024), one long prompt, danube's heads past its
+# window, non-causal Sq != Sk, and ragged f32 tiles
+FLASH_SHAPES = [(8, 16, 2, 1024, 1024, 128, "bfloat16", True, 0),
+                (1, 16, 2, 4096, 4096, 128, "bfloat16", True, 0),
+                (1, 32, 8, 6144, 6144, 80, "bfloat16", True, 4096),
+                (2, 12, 12, 256, 1536, 64, "bfloat16", False, 0),
+                (2, 4, 2, 300, 300, 32, "float32", True, 64)]
+# the reference's tolerances (tests/test_flash_attn_kernel.py:21)
+FLASH_ATOL = {"bfloat16": 2e-2, "float32": 2e-5}
+FLASH_RTOL = 1e-2
+LM_ARCH = "qwen2.5-3b"
+LM_PROMPTS, LM_PROMPT_LEN, LM_GEN, LM_SLOTS = 16, 1024, 32, 8
+LM_F32_ATOL, LM_F32_RTOL = 2e-4, 1e-3  # tests/test_flash_attn_kernel.py:68
+LM_DECODE_CHECK = 8   # decode steps held to the teacher-forced forward
 
 
 def emit(phase: str, t0: float, **fields):
@@ -442,6 +475,103 @@ def new_kernel_rows(rng, rates):
     return rows
 
 
+# ------------------------------------------------------------ flash attention
+def flash_pairs(Sq, Sk, causal, window):
+    """The (query, key) pairs the mask lets through, per (b, h)."""
+    import numpy as np
+
+    if not causal:
+        return Sq * Sk
+    q = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(q, Sk - 1)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros_like(q)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_bound_s(B, H, Hkv, Sq, Sk, D, dtype, causal, window):
+    """Bytes: q, k, v read once and o written once. Operations: 4·D per
+    visible (query, key) pair (q·k and p·v, a multiply-add each), at the
+    card's dense peak for the inputs' type."""
+    size = 2 if dtype == "bfloat16" else 4
+    by_bytes = (2 * B * H * Sq * D + 2 * B * Hkv * Sk * D) * size \
+        / HBM_BYTES_PER_S
+    flops = 4 * D * flash_pairs(Sq, Sk, causal, window) * B * H
+    return by_bytes, flops / PEAK_FLOPS[dtype]
+
+
+def flash_input(B, H, Hkv, Sq, Sk, D, dtype, rng):
+    import numpy as np
+    import torch
+
+    dt = getattr(torch, dtype)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(dt).cuda() for s in ((B, H, Sq, D), (B, Hkv, Sk, D),
+                                     (B, Hkv, Sk, D))]
+
+
+def flash_library(q, k, v, causal, window):
+    """One `scaled_dot_product_attention` call of the same function (GQA
+    by ``enable_gqa``; a window as a boolean mask). Timed, never used by
+    the port."""
+    import torch
+    import torch.nn.functional as F
+
+    mask = None
+    if causal and window:
+        qpos = torch.arange(q.shape[2], device=q.device)[:, None]
+        kpos = torch.arange(k.shape[2], device=q.device)[None, :]
+        mask = (kpos <= qpos) & (kpos > qpos - window)
+    is_causal = causal and not window
+    return lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=is_causal, enable_gqa=True)
+
+
+def flash_error(q, k, v, causal, window):
+    """max |kernel − plain| of `flash_attention_bhsd`; raises beyond the
+    reference's tolerance. The plain version runs in full f32 (TF32 off)."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import kernel as KF, ref as RF
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got = KF.flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    want = RF.attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    dtype = str(q.dtype).split(".")[-1]
+    diff = (got.float() - want.float()).abs()
+    limit = FLASH_ATOL[dtype] + FLASH_RTOL * want.float().abs()
+    if not bool((diff <= limit).all()):
+        raise AssertionError(
+            f"flash_attention {tuple(q.shape)} {tuple(k.shape)} causal="
+            f"{causal} window={window}: max |kernel − plain| = "
+            f"{diff.max().item()} beyond atol {FLASH_ATOL[dtype]}, rtol "
+            f"{FLASH_RTOL}")
+    return diff.max().item()
+
+
+def flash_rows(rng):
+    """The flash kernel at its fixed shapes: within tolerance of the plain
+    version, timed beside it and beside SDPA."""
+    from repro_torch.kernels.flash_attn import kernel as KF, ref as RF
+
+    rows = []
+    for B, H, Hkv, Sq, Sk, D, dtype, causal, window in FLASH_SHAPES:
+        q, k, v = flash_input(B, H, Hkv, Sq, Sk, D, dtype, rng)
+        err = flash_error(q, k, v, causal, window)
+        rows.append({
+            "kernel": "flash_attention", "shape": [B, H, Hkv, Sq, Sk, D],
+            "dtype": dtype, "causal": causal, "window": window,
+            "max_abs_err": err,
+            "kernel_ms": cuda_ms(lambda: KF.flash_attention_bhsd(
+                q, k, v, causal=causal, window=window), 5),
+            "plain_ms": cuda_ms(lambda: RF.attention_ref(
+                q, k, v, causal=causal, window=window), 2),
+            "library_ms": cuda_ms(flash_library(q, k, v, causal, window), 10),
+            **bound_fields(*flash_bound_s(B, H, Hkv, Sq, Sk, D, dtype,
+                                          causal, window))})
+    return rows
+
+
 # ---------------------------------------------------------------------- phases
 def phase_device():
     import torch
@@ -544,6 +674,7 @@ def phase_kernels(rng, rates):
             "library_ms": None, "bound_us": max(bb, bo) * 1e6,
             "bound_by": "bytes" if bb >= bo else "operations"})
     rows += new_kernel_rows(rng, rates)
+    rows += flash_rows(rng)
     emit("kernels", t0, results=rows)
 
 
@@ -1119,6 +1250,344 @@ def phase_shingles(graph, rmat):
             "bits": bits_t, "pairwise_launches": pairwise_launches}
 
 
+class FlashRecorder:
+    """Counts the flash kernel's calls on a path by shape, and keeps a copy
+    of the inputs of the first call of each shape, by wrapping the name
+    `flash_attn.ops` calls. The kernel's own launch counter is untouched."""
+
+    def __init__(self):
+        from repro_torch.kernels.flash_attn import ops as OF
+
+        self.OF = OF
+        self.calls = Counter()
+        self.inputs: dict = {}
+        self._orig = OF.flash_attention_bhsd
+
+        def rec(q, k, v, *, causal=True, window=0, _f=self._orig):
+            key = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                   q.shape[3], str(q.dtype).split(".")[-1], bool(causal),
+                   int(window))
+            self.calls[key] += 1
+            if key not in self.inputs:
+                self.inputs[key] = (q.clone(), k.clone(), v.clone())
+            return _f(q, k, v, causal=causal, window=window)
+
+        OF.flash_attention_bhsd = rec
+
+    def close(self):
+        self.OF.flash_attention_bhsd = self._orig
+
+
+def rel_l2(a, b):
+    """||a − b|| / ||b|| in f32."""
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def phase_lm_serve():
+    """qwen2.5-3b at full width and depth in bf16 on the card, weights from
+    `torch.Generator(seed=0)`: 16 prompts of 1,024 tokens drained through
+    `BatchServer(batch_slots=8)`, 32 greedy tokens each, flash launches
+    counted from 0 (36 layers × 2 prefills). Each prefill and decode step
+    ends in a synchronize, as a streaming server's would, so its wall is
+    what the user waits. Then, on the same card, checks (a)–(c) of
+    `lm_checks`."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attn import kernel as KF
+    from repro_torch.launch.serve import BatchServer
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(LM_ARCH)
+    if cfg.attn_impl != "pallas_flash":
+        raise AssertionError(f"the port's default attn_impl is "
+                             f"{cfg.attn_impl!r}, not the flash kernel")
+    tw = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - tw
+    n_params = sum(t.numel() for t in tensor_leaves(params))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, size=LM_PROMPT_LEN)
+               for _ in range(LM_PROMPTS)]
+    server = BatchServer(cfg, params, batch_slots=LM_SLOTS, device="cuda")
+    api, decode = server.api, server.decode
+    prefill_s, decode_s, first_logits = [], [], []
+
+    def timed_prefill(*a, **k):
+        tw = time.perf_counter()
+        logits, cache = api.prefill(*a, **k)
+        torch.argmax(logits[:, -1], dim=-1).cpu()  # the first token, on host
+        prefill_s.append(time.perf_counter() - tw)
+        if len(prefill_s) == 1:
+            first_logits.append(logits[:, -1].clone())
+        return logits, cache
+
+    def timed_decode(*a):
+        tw = time.perf_counter()
+        logits, cache = decode(*a)
+        torch.argmax(logits[:, -1], dim=-1).cpu()
+        decode_s.append(time.perf_counter() - tw)
+        if len(prefill_s) == 1 and len(first_logits) < LM_DECODE_CHECK:
+            first_logits.append(logits[:, -1].clone())
+        return logits, cache
+
+    server.api = dataclasses.replace(api, prefill=timed_prefill)
+    server.decode = timed_decode
+    recorder = FlashRecorder()
+    torch.cuda.reset_peak_memory_stats()
+    KF.LAUNCHES = 0
+    try:
+        tw = time.perf_counter()
+        outs = server.run(prompts, gen_tokens=LM_GEN)
+        torch.cuda.synchronize()
+        drain_s = time.perf_counter() - tw
+    finally:
+        recorder.close()
+    launches = KF.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    server.api, server.decode = api, decode
+    want_launches = cfg.n_layers * (LM_PROMPTS // LM_SLOTS)
+    if launches != want_launches:
+        raise AssertionError(f"lm_serve launched flash_attention {launches} "
+                             f"times, expected {want_launches}")
+    for o in outs:
+        if not (isinstance(o, np.ndarray) and o.shape == (LM_GEN,)
+                and o.dtype == np.int32 and 0 <= o.min()
+                and o.max() < cfg.vocab):
+            raise AssertionError(f"lm_serve answer {o!r} is not {LM_GEN} "
+                                 f"tokens in [0, {cfg.vocab})")
+    batch = torch.from_numpy(np.stack(prompts[:LM_SLOTS])).cuda()
+    gen = torch.from_numpy(np.stack(outs[:LM_SLOTS])).cuda().long()
+    checks = lm_checks(cfg, params, batch, gen, first_logits)
+    prompt_tokens = LM_PROMPTS * LM_PROMPT_LEN
+    emit("lm_serve", t0, arch=LM_ARCH, layers=cfg.n_layers,
+         d_model=cfg.d_model, params=n_params, dtype=cfg.dtype,
+         attn_impl=cfg.attn_impl, init_seconds=init_s,
+         prompts=LM_PROMPTS, prompt_len=LM_PROMPT_LEN, gen_tokens=LM_GEN,
+         slots=LM_SLOTS, drain_seconds=drain_s,
+         prefill_tokens_per_s=prompt_tokens / sum(prefill_s),
+         ttft_seconds=prefill_s, decode_ms_per_step=1e3 * sum(decode_s)
+         / len(decode_s), decode_steps=len(decode_s),
+         generated_tokens_per_s=LM_PROMPTS * LM_GEN / drain_s,
+         max_memory_allocated=peak, flash_launches=launches,
+         flash_calls=[[*k, c] for k, c in recorder.calls.items()],
+         checks=checks)
+    return {"server": server, "prompts": prompts, "launches": launches,
+            "recorder": recorder}
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Within: `flash_attn.ops` calls the kernel's plain version (f32
+    scores and sums, the output in the input's type) instead of the
+    kernel. Used only to measure the bf16 floor, never on a counted run."""
+    from repro_torch.kernels.flash_attn import ops as OF, ref as RF
+
+    kernel = OF.flash_attention_bhsd
+    OF.flash_attention_bhsd = RF.attention_ref
+    try:
+        yield
+    finally:
+        OF.flash_attention_bhsd = kernel
+
+
+def last_logits(params, cfg, batch, impl):
+    """The prefill's last-position logits over the real vocabulary."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(cfg, attn_impl=impl)
+    return T.prefill(params, cfg, batch)[0][:, -1, :cfg.vocab]
+
+
+def forced_logits(params, cfg, batch, gen, n):
+    """A teacher-forced forward over prompt + the first ``n − 1`` generated
+    tokens: the logits at the ``n`` positions that predict them."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    seq = torch.cat([batch, gen[:, :n - 1]], dim=1)
+    hidden = T.forward(params, cfg, seq, return_hidden=True)[0]
+    return T._logits(params, cfg, hidden[:, batch.shape[1] - 1:])[
+        ..., :cfg.vocab]
+
+
+def clear_tokens_agree(got, want, diff):
+    """Greedy tokens agree wherever ``want``'s top-2 margin exceeds twice
+    the largest |got − want|: (clear, agreeing among clear, agreeing)."""
+    top2 = want.float().topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * diff
+    agree = got.argmax(-1) == want.argmax(-1)
+    return int(clear.sum()), int(agree[clear].sum()), int(agree.sum())
+
+
+def lm_checks(cfg, params, batch, gen, stepped):
+    """Checks (a)–(c) of the served model, on one batch.
+
+    bf16 at full depth sits at its own rounding floor: on this random
+    36-layer model two equally right computations of the logits differ by
+    about 2% in relative L2 (the flash path against the same model with
+    the kernel's plain version in its place, and the bf16 model against
+    an f32 copy of it; both are printed), so a bf16 logit bound cannot
+    tell a right kernel from a wrong one. The bf16 runs are held to greedy-token agreement where the margin
+    is clear, with their relative L2 reported; the numerical gates run at
+    full depth in f32 (the same weights cast), at the reference's own
+    tolerance between its two attention paths.
+
+    (a) prefill's last-position logits, flash kernel vs the chunked twin;
+    (b) the same at full width and 2 layers in f32 with fresh weights;
+    (c) the drain's first decode steps (``stepped``: the prefill's logits,
+        then each step's) vs a teacher-forced forward over prompt +
+        generated tokens; in f32 the same decode is replayed along the
+        drain's tokens."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    checks = {}
+    n = len(stepped)
+    stepped = torch.stack(stepped, dim=1)[..., :cfg.vocab]
+    # bf16, full depth: the served path
+    flash = last_logits(params, cfg, batch, "pallas_flash")
+    chunked = last_logits(params, cfg, batch, "xla_chunked")
+    diff = (flash.float() - chunked.float()).abs().max().item()
+    clear, clear_ok, agree = clear_tokens_agree(flash, chunked, diff)
+    with plain_attention():  # the same model, the kernel's plain version
+        plain = last_logits(params, cfg, batch, "pallas_flash")
+    checks["a_bf16"] = {"rel_l2": rel_l2(flash, chunked),
+                        "max_abs_diff": diff, "tokens_clear": clear,
+                        "tokens_clear_agree": clear_ok,
+                        "tokens_agree": agree,
+                        "rel_l2_to_plain_version": rel_l2(flash, plain)}
+    forced = forced_logits(params, cfg, batch, gen, n)
+    cdiff = (stepped.float() - forced.float()).abs().max().item()
+    c_clear, c_ok, c_agree = clear_tokens_agree(stepped, forced, cdiff)
+    checks["c_bf16"] = {"steps": n, "rel_l2": rel_l2(stepped, forced),
+                        "max_abs_diff": cdiff, "tokens_clear": c_clear,
+                        "tokens_clear_agree": c_ok, "tokens_agree": c_agree}
+    # f32, full depth: the same weights cast
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = f32_tree(params)
+    flash32 = last_logits(p32, cfg32, batch, "pallas_flash")
+    chunked32 = last_logits(p32, cfg32, batch, "xla_chunked")
+    checks["a_f32"] = {"rel_l2": rel_l2(flash32, chunked32),
+                       "max_abs_diff": (flash32 - chunked32).abs().max()
+                       .item(),
+                       "bf16_flash_vs_f32": rel_l2(flash, flash32),
+                       "bf16_chunked_vs_f32": rel_l2(chunked, chunked32)}
+    logits, cache = T.prefill(p32, cfg32, batch,
+                              cache_len=batch.shape[1] + n)
+    steps32 = [logits[:, -1]]
+    for g in range(n - 1):
+        logits, cache = T.decode_step(p32, cfg32, cache, gen[:, g:g + 1],
+                                      batch.shape[1] + g)
+        steps32.append(logits[:, -1])
+    steps32 = torch.stack(steps32, dim=1)[..., :cfg.vocab]
+    forced32 = forced_logits(p32, cfg32, batch, gen, n)
+    checks["c_f32"] = {"steps": n, "rel_l2": rel_l2(steps32, forced32),
+                       "max_abs_diff": (steps32 - forced32).abs().max()
+                       .item()}
+    del p32, cache
+    # (b) f32, full width, 2 layers, fresh weights
+    cfg2 = dataclasses.replace(cfg32, n_layers=2)
+    p2 = T.init_params(cfg2, torch.Generator(device="cuda").manual_seed(0),
+                       device="cuda")
+    flash2 = last_logits(p2, cfg2, batch, "pallas_flash")
+    chunked2 = last_logits(p2, cfg2, batch, "xla_chunked")
+    checks["b_f32_2_layers"] = {
+        "rel_l2": rel_l2(flash2, chunked2),
+        "max_abs_diff": (flash2 - chunked2).abs().max().item()}
+    del p2
+    failed = []
+    if clear_ok != clear:
+        failed.append("a_bf16: a clear greedy token differs")
+    if c_ok != c_clear:
+        failed.append("c_bf16: a clear greedy token differs")
+    for name, got, want in (("a_f32", flash32, chunked32),
+                            ("c_f32", steps32, forced32),
+                            ("b_f32_2_layers", flash2, chunked2)):
+        if not torch.allclose(got, want, atol=LM_F32_ATOL, rtol=LM_F32_RTOL):
+            failed.append(f"{name} beyond atol {LM_F32_ATOL}, rtol "
+                          f"{LM_F32_RTOL}")
+    if failed:
+        raise AssertionError(f"lm_serve checks failed: {failed}; {checks}")
+    return checks
+
+
+def f32_tree(tree):
+    if isinstance(tree, dict):
+        return {k: f32_tree(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def tensor_leaves(tree):
+    """The tensors of a nested parameter dict."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensor_leaves(v)
+    else:
+        yield tree
+
+
+def phase_trace_lm(lm):
+    """The whole drain once more under the profiler, after a warm-up run:
+    the device's busy share and its top ops over prefill and decode."""
+    t0 = time.perf_counter()
+    wall, by_name = traced(lambda: lm["server"].run(lm["prompts"],
+                                                    gen_tokens=LM_GEN),
+                           warmup=True)
+    emit_trace(t0, "lm-serve", wall, by_name, top=12)
+    return by_name
+
+
+def flash_record(lm, device_us):
+    """The flash kernel's contract entry: each distinct call shape of the
+    drain re-run on its recorded inputs against the plain version, timed
+    beside it and SDPA, bounded, and weighted by its call count."""
+    from repro_torch.kernels.flash_attn import kernel as KF, ref as RF
+
+    saved = KF.LAUNCHES  # comparison launches do not count
+    acc = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bb=0.0, bo=0.0, err=0.0)
+    rec = lm["recorder"]
+    for key, n in rec.calls.items():
+        q, k, v = rec.inputs[key]
+        *_, causal, window = key
+        acc["err"] = max(acc["err"], flash_error(q, k, v, causal, window))
+        acc["ms"] += n * cuda_ms(lambda: KF.flash_attention_bhsd(
+            q, k, v, causal=causal, window=window), 10)
+        acc["plain_ms"] += n * cuda_ms(lambda: RF.attention_ref(
+            q, k, v, causal=causal, window=window), 3)
+        acc["library_ms"] += n * cuda_ms(
+            flash_library(q, k, v, causal, window), 10)
+        bb, bo = flash_bound_s(*key)
+        acc["bb"] += n * bb
+        acc["bo"] += n * bo
+    KF.LAUNCHES = saved
+    return [{
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attn/kernel.py:80",
+        "launches": lm["launches"], "max_abs_err": acc["err"],
+        "ms": acc["ms"], "plain_ms": acc["plain_ms"],
+        "bound_ms": max(acc["bb"], acc["bo"]) * 1e3,
+        "bound_by": "bytes" if acc["bb"] >= acc["bo"] else "operations",
+        "library_ms": acc["library_ms"],
+        "device_ms": device_ms(device_us, ("flash_attention_kernel",))}]
+
+
 def traced(fn, warmup=False):
     """Run ``fn`` once under `torch.profiler`: its wall and the device's
     busy time by kernel, copy and torch op. The profiler drops the device
@@ -1304,16 +1773,19 @@ def main() -> int:
     rmat_ps, rmat_queries, rmat_calls, rmat_launches = phase_serve(
         rmat, rmat_batched, "rmat_14_8")
     shingles = phase_shingles(graph, rmat)
+    lm = phase_lm_serve()
     device_us = phase_trace(graph, "batched")
     device_us.update(phase_trace(graph, "resident", top=16))
     device_us.update(phase_trace_serving(
         [(ps, queries), (rmat_ps, rmat_queries)], shingles))
+    lm_device_us = phase_trace_lm(lm)
     t0 = time.perf_counter()
     record = kernel_record(recorder, launches, res_recorder, res_launches,
                            rng, device_us, rates)
     record += serving_kernel_record(serve_calls + rmat_calls,
                                     serve_launches + rmat_launches, shingles,
                                     device_us, rates)
+    record += flash_record(lm, lm_device_us)
     emit("record", t0, total_seconds=time.perf_counter() - t_all)
     print(smi, flush=True)
     print(json.dumps({"kernels": record}), flush=True)

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_F32 = ctypes.c_float
 # launcher name -> argtypes (every pointer and the stream as c_void_p, so
 # ctypes never truncates them to 32 bits)
 LAUNCHERS = {
@@ -42,6 +43,8 @@ LAUNCHERS = {
     "interval_count_launch": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     "rowmin_hash_launch": (_P, _P, _I64, _I64, _I64, _I64, _P),
     "pairwise_intersections_launch": (_P, _P, _I64, _I64, _P),
+    "flash_attention_launch": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                               _I64, _I64, _I64, _F32, _I64, _P),
 }
 
 _LOCK = threading.Lock()

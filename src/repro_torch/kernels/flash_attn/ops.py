@@ -1,0 +1,30 @@
+"""Layout adaptation between the model's ``(b, s, hkv, g, hd)`` attention
+convention and the kernel's ``(B, H, S, D)``.
+
+This is the attention of the serving path's prefill when
+``cfg.attn_impl == "pallas_flash"`` (the port's default): the CUDA kernel
+on a card, its plain version on the CPU. Query head ``h = kv·g + gi``, so
+the kernel's kv head ``h // g`` is the one ``jnp.repeat`` gives in the JAX
+package.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attn.kernel import flash_attention_bhsd
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, bq: int = 512,
+                    bk: int = 512) -> torch.Tensor:
+    """q: (b, sq, hkv, g, hd); k/v: (b, sk, hkv, hd) — `chunked_sdpa`'s
+    layout. Returns (b, sq, hkv, g, hd). ``bq``/``bk`` are the JAX kernel's
+    block sizes, kept so that one call reads the same in both packages;
+    this kernel tiles by its own 64 rows, and its result does not depend
+    on them."""
+    b, sq, hkv, g, hd = q.shape
+    qh = q.permute(0, 2, 3, 1, 4).reshape(b, hkv * g, sq, hd).contiguous()
+    kh = k.permute(0, 2, 1, 3).contiguous()
+    vh = v.permute(0, 2, 1, 3).contiguous()
+    o = flash_attention_bhsd(qh, kh, vh, causal=causal, window=window)
+    return o.reshape(b, hkv, g, sq, hd).permute(0, 3, 1, 2, 4)

@@ -1,0 +1,165 @@
+"""Grouped-query attention (optionally sliding-window, optionally biased):
+a full-sequence path (prefill) and a single-token decode path over a
+cache, as in the JAX package's `models/attention.py`.
+
+The prefill attends through `_attn_dispatch`: the hand-written CUDA flash
+kernel (`kernels/flash_attn`, ``attn_impl="pallas_flash"``, the default)
+or the plain PyTorch `chunked_sdpa` twin (``"xla_chunked"``). Decode
+attends with the plain `_sdpa`, as the reference does. MLA and
+cross-attention are not ported yet (ROADMAP Queue 1, slices F3 and F5).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attn.ops import flash_attention
+from repro_torch.models.layers import apply_rope
+
+NEG_INF = -1e30
+
+
+def _sdpa(q, k, v, mask):
+    """q: (b,sq,hkv,g,hd); k/v: (b,sk,hkv,hd); mask: (b|1, sq, sk)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q, k).float() * scale
+    scores = torch.where(mask[:, None, None], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bkgqs,bskd->bqkgd", w, v)
+
+
+def _causal_mask(sq, sk, q_offset, window, device=None):
+    pos_q = q_offset + torch.arange(sq, device=device)[:, None]
+    pos_k = torch.arange(sk, device=device)[None, :]
+    m = pos_k <= pos_q
+    if window:
+        m &= pos_k > pos_q - window
+    return m[None]  # (1, sq, sk)
+
+
+def chunked_sdpa(q, k, v, *, causal: bool, window: int = 0,
+                 chunk: int = 1024):
+    """Blocked attention in plain PyTorch (the flash kernel's twin): a loop
+    over q chunks × a loop over exactly the kv chunks each q chunk can see,
+    with an online-softmax (m, l, acc) carry, so the peak temporary is one
+    (b, hkv, g, chunk, chunk) score block.
+
+    q: (b, sq, hkv, g, hd); k: (b, sk, hkv, hd); v: (b, sk, hkv, vd).
+    Returns (b, sq, hkv, g, vd). One-shot `_sdpa` when the problem fits
+    in a single block or the shapes do not divide.
+    """
+    b, sq, hkv, g, hd = q.shape
+    sk, vd = k.shape[1], v.shape[-1]
+    cq, ck = min(chunk, sq), min(chunk, sk)
+    if (sq <= chunk and sk <= chunk) or sq % cq or sk % ck:
+        mask = (_causal_mask(sq, sk, 0, window, q.device) if causal
+                else torch.ones((1, sq, sk), dtype=torch.bool,
+                                device=q.device))
+        return _sdpa(q, k, v, mask)
+    nq, nk = sq // cq, sk // ck
+    scale = 1.0 / math.sqrt(hd)
+    outs = []
+    for i in range(nq):
+        qi = q[:, i * cq:(i + 1) * cq]
+        if causal:
+            lo = max(0, (i * cq - window) // ck) if window else 0
+            hi = i + 1 if cq == ck else min(nk, ((i + 1) * cq + ck - 1) // ck)
+        else:
+            lo, hi = 0, nk
+        acc = torch.zeros((b, hkv, g, cq, vd), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((b, hkv, g, cq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, hkv, g, cq), dtype=torch.float32, device=q.device)
+        for j in range(lo, hi):
+            kc = k[:, j * ck:(j + 1) * ck]
+            vc = v[:, j * ck:(j + 1) * ck]
+            s = torch.einsum("bqkgd,bskd->bkgqs", qi, kc).float() * scale
+            if causal:
+                qpos = i * cq + torch.arange(cq, device=q.device)
+                kpos = j * ck + torch.arange(ck, device=q.device)
+                msk = kpos[None, :] <= qpos[:, None]
+                if window:
+                    msk = msk & (kpos[None, :] > qpos[:, None] - window)
+                s = torch.where(msk[None, None, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            if causal:
+                p = torch.where(msk[None, None, None], p, 0.0)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p.to(vc.dtype), vc).float()
+            m = m_new
+        oi = (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+        outs.append(oi.permute(0, 3, 1, 2, 4))  # (b,cq,hkv,g,vd)
+    return torch.cat(outs, dim=1)
+
+
+def _attn_dispatch(cfg, q, k, v, *, causal, window):
+    """``attn_impl`` selection: the CUDA flash kernel (its plain version on
+    the CPU) or the plain chunked twin."""
+    if cfg.attn_impl == "pallas_flash":
+        bq = bk = min(512, q.shape[1], k.shape[1])
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               bq=bq, bk=bk)
+    if cfg.attn_impl == "xla_chunked":
+        return chunked_sdpa(q, k, v, causal=causal, window=window)
+    raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}; use "
+                     f"'pallas_flash' or 'xla_chunked'")
+
+
+def _project_qkv(p, cfg, x):
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return q, k, v
+
+
+def gqa_full(p, cfg: ModelConfig, x, positions, causal=True):
+    """Full-sequence attention. Returns (out, cache) with post-rope k and v."""
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q, k, v = _project_qkv(p, cfg, x)
+    q = q.reshape(b, s, hq, hd)
+    k = k.reshape(b, s, hkv, hd)
+    v = v.reshape(b, s, hkv, hd)
+    if causal:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    qg = q.reshape(b, s, hkv, hq // hkv, hd)
+    out = _attn_dispatch(cfg, qg, k, v, causal=causal,
+                         window=cfg.sliding_window if causal else 0)
+    out = out.reshape(b, s, hq * hd) @ p["wo"]
+    return out, {"k": k, "v": v}
+
+
+def gqa_decode(p, cfg: ModelConfig, x, cache, pos: int):
+    """x: (b,1,d); cache k/v: (b,S,hkv,hd); pos: position of the new token.
+    Writes k and v at ring slot ``pos % S`` IN PLACE (the reference returns
+    an updated copy; the port saves the copy) and attends over the slots
+    written so far — every slot once the ring is full."""
+    b = x.shape[0]
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    S = cache["k"].shape[1]
+    pos = int(pos)
+    q, k, v = _project_qkv(p, cfg, x)
+    q = q.reshape(b, 1, hq, hd)
+    k = k.reshape(b, 1, hkv, hd)
+    v = v.reshape(b, 1, hkv, hd)
+    posa = torch.full((b, 1), pos, device=x.device)
+    q = apply_rope(q, posa, cfg.rope_theta)
+    k = apply_rope(k, posa, cfg.rope_theta)
+    slot = pos % S
+    cache["k"][:, slot:slot + 1] = k
+    cache["v"][:, slot:slot + 1] = v
+    qg = q.reshape(b, 1, hkv, hq // hkv, hd)
+    idx = torch.arange(S, device=x.device)[None, :]
+    valid = (idx <= slot) | (pos >= S)
+    mask = valid[:, None, :].expand(b, 1, S)
+    out = _sdpa(qg, cache["k"], cache["v"], mask).reshape(b, 1, hq * hd)
+    return out @ p["wo"], cache

@@ -17,6 +17,8 @@ from repro_torch.kernels.bitset_fold import kernel as fold_kernel
 from repro_torch.kernels.bitset_fold import ref as fold_ref
 from repro_torch.kernels.bitset_jaccard import kernel as inter_kernel
 from repro_torch.kernels.bitset_jaccard import ref as inter_ref
+from repro_torch.kernels.flash_attn import kernel as flash_kernel
+from repro_torch.kernels.flash_attn import ref as flash_ref
 from repro_torch.kernels.interval_expand import kernel as interval_kernel
 from repro_torch.kernels.interval_expand import ref as interval_ref
 from repro_torch.kernels.minhash import kernel as minhash_kernel
@@ -282,3 +284,95 @@ def test_cuda_server_answers_match_numpy(backend):
                 np.testing.assert_array_equal(a, g.neighbors(q[1]))
             else:
                 assert a == w == g.has_edge(q[1], q[2]), q
+
+
+# (B, H, Hkv, Sq, Sk, D, dtype, causal, window): the serving prefill's
+# call, GQA and MHA, danube's head dim past its window, Sq != Sk, ragged
+# tiles, every head-dim bucket of the kernel (16 … 256)
+FLASH_CASES = [
+    (2, 16, 2, 1024, 1024, 128, "bfloat16", True, 0),
+    (1, 32, 8, 600, 600, 80, "bfloat16", True, 256),
+    (2, 12, 12, 256, 1536, 64, "bfloat16", False, 0),
+    (2, 4, 2, 300, 300, 32, "float32", True, 64),
+    (1, 4, 4, 77, 130, 16, "float32", False, 0),
+    (1, 2, 1, 200, 200, 256, "float32", True, 0),
+    (1, 6, 3, 129, 129, 24, "float32", True, 1),
+    (1, 2, 2, 64, 40, 128, "float32", True, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,dtype,causal,window", FLASH_CASES)
+def test_cuda_flash_attention_matches_plain(B, H, Hkv, Sq, Sk, D, dtype,
+                                            causal, window):
+    """Tolerances are the reference's (`tests/test_flash_attn_kernel.py`):
+    bf16 atol 2e-2, f32 atol 2e-5, rtol 1e-2; the plain version runs in
+    full f32 (no TF32)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(B * H + Sq + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(dt).cuda() for s in ((B, H, Sq, D), (B, Hkv, Sk, D),
+                                        (B, Hkv, Sk, D)))
+    n = flash_kernel.LAUNCHES
+    got = flash_kernel.flash_attention_bhsd(q, k, v, causal=causal,
+                                            window=window)
+    torch.cuda.synchronize()
+    assert flash_kernel.LAUNCHES == n + 1
+    assert got.dtype == dt and got.shape == q.shape
+    want = flash_ref.attention_ref(q, k, v, causal=causal, window=window)
+    atol = 2e-2 if dtype == "bfloat16" else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rejects_what_it_cannot_take():
+    _need_card()
+    q = torch.zeros(1, 2, 8, 20, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_kernel.flash_attention_bhsd(q, q, q)
+    q = torch.zeros(1, 2, 8, 32, device="cuda")
+    strided = q[:, :, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_kernel.flash_attention_bhsd(strided, strided, strided)
+
+
+@pytest.mark.cuda
+def test_cuda_lm_serving_matches_cpu():
+    """The dense smoke model served on the card (flash kernel in prefill)
+    gives the CPU run's tokens, and its logits, in float32."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import BatchServer
+    from repro_torch.models import transformer as T
+
+    for arch in ("qwen2.5-3b", "h2o-danube-1.8b"):
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  dtype="float32")
+        params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+        on_card = _to(params, "cuda")
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, size=(2, 24)))
+        n = flash_kernel.LAUNCHES
+        got = T.forward(on_card, cfg, toks.cuda())[0]
+        assert flash_kernel.LAUNCHES == n + cfg.n_layers
+        want = T.forward(params, cfg, toks)[0]
+        torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=1e-3)
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(0, cfg.vocab, size=12) for _ in range(3)]
+        a = BatchServer(cfg, on_card, batch_slots=2).run(prompts, 4)
+        b = BatchServer(cfg, params, batch_slots=2, device="cpu").run(
+            prompts, 4)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)

@@ -48,11 +48,22 @@ def test_port_files_exist():
                  "src/repro_torch/kernels/minhash/ops.py",
                  "src/repro_torch/kernels/minhash/ref.py",
                  "src/repro_torch/kernels/bitset_jaccard/ops.py",
+                 "src/repro_torch/configs/base.py",
+                 "src/repro_torch/configs/registry.py",
+                 "src/repro_torch/configs/qwen2_5_3b.py",
+                 "src/repro_torch/models/layers.py",
+                 "src/repro_torch/models/attention.py",
+                 "src/repro_torch/models/transformer.py",
+                 "src/repro_torch/models/api.py",
+                 "src/repro_torch/kernels/flash_attn/kernel.py",
+                 "src/repro_torch/kernels/flash_attn/ops.py",
+                 "src/repro_torch/kernels/flash_attn/ref.py",
+                 "src/repro_torch/interop.py",
                  "chip_smoke.py"):
         assert want in names
     csrc = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")}
     assert {"interval_count.cu", "rowmin_hash.cu",
-            "pairwise_intersections.cu"} <= csrc
+            "pairwise_intersections.cu", "flash_attention.cu"} <= csrc
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

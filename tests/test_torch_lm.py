@@ -1,0 +1,428 @@
+"""The port's dense LM substrate (configs, layers, transformer, api,
+`BatchServer`, weight carry) against the JAX package's, on the CPU.
+
+The reference initialises each model (`jax.random`); its weights come
+across through `interop.params_from_arrays`, so both packages run the
+same numbers. Token inputs are drawn with numpy. Float32 comparisons use
+the reference's own tolerance between its two attention paths (atol 2e-4,
+rtol 1e-3, `tests/test_flash_attn_kernel.py`); under
+``attn_impl="pallas_flash"`` the JAX kernel runs in interpret mode, as the
+reference's test runs it. The reference's LM parity is single-device
+(ROADMAP Queue 3).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.registry import get_config as ref_config
+from repro.launch import serve as ref_serve
+from repro.models import layers as RL
+from repro.models import transformer as RT
+from repro.models.api import get_api as ref_api
+from repro_torch.configs import base as port_base
+from repro_torch.configs.registry import ARCH_NAMES
+from repro_torch.configs.registry import get_config as port_config
+from repro_torch.interop import params_from_arrays
+from repro_torch.kernels.flash_attn import kernel as flash_kernel
+from repro_torch.launch import serve as port_serve
+from repro_torch.models import layers as PL
+from repro_torch.models import transformer as PT
+from repro_torch.models.api import get_api as port_api
+
+DENSE = ["qwen2.5-3b", "h2o-danube-1.8b", "deepseek-7b", "minitron-4b"]
+ATOL, RTOL = 2e-4, 1e-3
+# bf16: the two packages round matmuls and norms at the same places but
+# not always to the same neighbour; over two layers the logits (|x| < 4)
+# differ by up to a few bf16 ulps (0.0156 each at 2–4): measured ≤ 0.051
+# and relative L2 ≤ 0.0091 on the four smoke configs.
+BF16_ATOL, BF16_REL_L2 = 0.08, 2e-2
+
+
+def _configs(arch, dtype="float32", impl="pallas_flash"):
+    rc = dataclasses.replace(ref_config(arch, smoke=True), dtype=dtype,
+                             attn_impl=impl)
+    pc = dataclasses.replace(port_config(arch, smoke=True), dtype=dtype,
+                             attn_impl=impl)
+    return rc, pc
+
+
+@pytest.fixture(scope="module")
+def models():
+    """arch, dtype -> (ref params, port params), built once per module."""
+    cache = {}
+
+    def get(arch, dtype="float32"):
+        if (arch, dtype) not in cache:
+            rc, pc = _configs(arch, dtype)
+            rp = RT.init_params(rc, jax.random.key(0))
+            pp = params_from_arrays(pc, jax.tree.map(np.asarray, rp),
+                                    device="cpu")
+            cache[arch, dtype] = (rp, pp)
+        return cache[arch, dtype]
+
+    return get
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _close(got, want, atol=ATOL, rtol=RTOL):
+    np.testing.assert_allclose(_np(got), _np(want), atol=atol, rtol=rtol)
+
+
+# --------------------------------------------------------------- configs
+def test_configs_are_the_references_but_the_attention_default():
+    assert ARCH_NAMES == list(__import__(
+        "repro.configs.registry", fromlist=["ARCH_NAMES"]).ARCH_NAMES)
+    for arch in ARCH_NAMES:
+        for smoke in (False, True):
+            r = dataclasses.asdict(ref_config(arch, smoke=smoke))
+            p = dataclasses.asdict(port_config(arch, smoke=smoke))
+            assert r.pop("attn_impl") == "xla_chunked"
+            assert p.pop("attn_impl") == "pallas_flash"
+            assert r == p
+            rc, pc = ref_config(arch, smoke), port_config(arch, smoke)
+            assert rc.padded_vocab == pc.padded_vocab
+            assert rc.resolved_head_dim == pc.resolved_head_dim
+            for active in (False, True):
+                assert rc.param_count(active) == pc.param_count(active)
+    from repro.configs import base as ref_base
+
+    assert {k: dataclasses.asdict(v) for k, v in ref_base.SHAPES.items()} \
+        == {k: dataclasses.asdict(v) for k, v in port_base.SHAPES.items()}
+    for arch in ARCH_NAMES:
+        assert ref_base.applicable_shapes(ref_config(arch)) == \
+            port_base.applicable_shapes(port_config(arch))
+
+
+# --------------------------------------------------------------- weights
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_params_from_arrays_round_trips(dtype):
+    rc, pc = _configs("qwen2.5-3b", dtype)
+    tree = jax.tree.map(np.asarray, RT.init_params(rc, jax.random.key(3)))
+    params = params_from_arrays(pc, tree, device="cpu")
+    flat_r = jax.tree_util.tree_flatten_with_path(tree)[0]
+    assert len(flat_r) == len(jax.tree.leaves(params))
+    for path, a in flat_r:
+        t = params
+        for key in path:
+            t = t[key.key]
+        assert t.dtype == getattr(torch, dtype)
+        assert tuple(t.shape) == a.shape
+        if dtype == "bfloat16":  # bit for bit, through the 16-bit pattern
+            assert np.array_equal(t.view(torch.int16).numpy(),
+                                  a.view(np.uint16).view(np.int16))
+        else:
+            assert np.array_equal(t.numpy(), a)
+    # and back: the port's tensors give the reference the same model
+    back = jax.tree.map(lambda t: jnp.asarray(t.float().numpy()).astype(
+        dtype), params, is_leaf=lambda x: isinstance(x, torch.Tensor))
+    toks = jnp.asarray(np.random.default_rng(0).integers(0, rc.vocab, (1, 6)),
+                       jnp.int32)
+    rcx = dataclasses.replace(rc, attn_impl="xla_chunked")
+    assert np.array_equal(np.asarray(RT.forward(back, rcx, toks)[0]),
+                          np.asarray(RT.forward(tree, rcx, toks)[0]))
+
+
+def test_params_from_arrays_rejects_other_trees():
+    rc, pc = _configs("qwen2.5-3b")
+    tree = jax.tree.map(np.asarray, RT.init_params(rc, jax.random.key(0)))
+    bad = dict(tree, embed=tree["embed"][:-1])
+    with pytest.raises(ValueError, match="embed"):
+        params_from_arrays(pc, bad, device="cpu")
+    missing = {k: v for k, v in tree.items() if k != "lm_head"}
+    with pytest.raises(ValueError, match="keys"):
+        params_from_arrays(pc, missing, device="cpu")
+
+
+def test_init_params_shapes_and_distributions():
+    _, pc = _configs("minitron-4b")
+    g = torch.Generator().manual_seed(0)
+    params = PT.init_params(pc, g, device="cpu")
+    shapes = jax.tree.map(lambda a: a.shape, jax.eval_shape(
+        lambda k: RT.init_params(_configs("minitron-4b")[0], k),
+        jax.random.key(0)))
+    got = jax.tree.map(lambda t: tuple(t.shape), params,
+                       is_leaf=lambda x: isinstance(x, torch.Tensor))
+    assert got == jax.tree.map(tuple, shapes,
+                               is_leaf=lambda x: isinstance(x, tuple))
+    assert abs(params["embed"].std().item() - 0.02) < 2e-3
+    wq = params["layers"]["attn"]["wq"]
+    assert abs(wq.std().item() * np.sqrt(pc.d_model) - 1.0) < 0.05
+    assert torch.equal(params["layers"]["ln1"], torch.ones_like(
+        params["layers"]["ln1"]))
+    again = PT.init_params(pc, torch.Generator().manual_seed(0),
+                           device="cpu")
+    assert torch.equal(again["lm_head"], params["lm_head"])
+
+
+# ---------------------------------------------------------------- layers
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layers_match_jax(dtype):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 3, 16)).astype(np.float32) * 3
+    w = rng.standard_normal(16).astype(np.float32)
+    wg, wu = (rng.standard_normal((16, 24)).astype(np.float32) * 0.3
+              for _ in range(2))
+    wd = rng.standard_normal((24, 16)).astype(np.float32) * 0.3
+    pos = np.arange(5)[None].repeat(2, 0) + 7
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def j(a):
+        return jnp.asarray(a).astype(jd)
+
+    def t(a):
+        return torch.from_numpy(a).to(td)
+
+    tol = dict(atol=1e-6, rtol=1e-6) if dtype == "float32" else \
+        dict(atol=0, rtol=0)  # one rounding of the same f32 values
+    _close(PL.rms_norm(t(x), t(w), 1e-6), RL.rms_norm(j(x), j(w), 1e-6),
+           **tol)
+    _close(PL.rope_freqs(16, 1e6), RL.rope_freqs(16, 1e6), atol=0,
+           rtol=1e-6)
+    _close(PL.apply_rope(t(x), torch.from_numpy(pos), 1e6),
+           RL.apply_rope(j(x), jnp.asarray(pos), 1e6),
+           **(dict(atol=2e-6, rtol=1e-5) if dtype == "float32"
+              else dict(atol=0.0625, rtol=0)))
+    got = PL.swiglu(t(x[..., 0, :]), t(wg), t(wu), t(wd))
+    want = RL.swiglu(j(x[..., 0, :]), j(wg), j(wu), j(wd))
+    _close(got, want, **(dict(atol=1e-5, rtol=1e-5) if dtype == "float32"
+                         else dict(atol=0.07, rtol=2e-2)))
+    assert PL.rms_norm(t(x), t(w)).dtype == td
+    lin = PL.init_linear(torch.Generator().manual_seed(1), 64, 32, td)
+    assert lin.shape == (64, 32) and lin.dtype == td
+
+
+# ------------------------------------------------------------ the models
+@pytest.mark.parametrize("impl", ["pallas_flash", "xla_chunked"])
+@pytest.mark.parametrize("arch", DENSE)
+def test_forward_matches_jax(models, arch, impl):
+    rc, pc = _configs(arch, impl=impl)
+    rp, pp = models(arch)
+    # danube's smoke window is 8: 20 positions run past it
+    toks = np.random.default_rng(1).integers(0, rc.vocab, size=(2, 20))
+    want, _, rcache = RT.forward(rp, rc, jnp.asarray(toks, jnp.int32),
+                                 return_caches=True)
+    got, aux, pcache = PT.forward(pp, pc, torch.from_numpy(toks),
+                                  return_caches=True)
+    assert got.shape == want.shape and aux == 0.0
+    _close(got, want)
+    for name in ("k", "v"):
+        _close(pcache["attn"][name], rcache["attn"][name])
+    hidden, _, _ = PT.forward(pp, pc, torch.from_numpy(toks),
+                              return_hidden=True)
+    assert hidden.shape == (2, 20, pc.d_model)
+
+
+def test_forward_bf16_matches_jax(models):
+    """The model in its own dtype: looser, stated tolerance."""
+    rc, pc = _configs("qwen2.5-3b", dtype="bfloat16")
+    rp, pp = models("qwen2.5-3b", "bfloat16")
+    toks = np.random.default_rng(2).integers(0, rc.vocab, size=(2, 24))
+    want = _np(RT.forward(rp, rc, jnp.asarray(toks, jnp.int32))[0])
+    got = PT.forward(pp, pc, torch.from_numpy(toks))[0]
+    assert got.dtype == torch.bfloat16
+    got = _np(got)
+    assert np.abs(got - want).max() <= BF16_ATOL
+    assert np.linalg.norm(got - want) <= BF16_REL_L2 * np.linalg.norm(want)
+
+
+@pytest.mark.parametrize("arch,plen,cache_extra", [
+    ("qwen2.5-3b", 10, 6), ("deepseek-7b", 10, 6), ("minitron-4b", 10, 6),
+    # danube: a prompt past the window (cache clipped to the last 8) and
+    # one inside it whose decode wraps the ring
+    ("h2o-danube-1.8b", 12, 6), ("h2o-danube-1.8b", 5, 6)])
+def test_prefill_and_teacher_forced_decode_match_jax(models, arch, plen,
+                                                     cache_extra):
+    rc, pc = _configs(arch)
+    rp, pp = models(arch)
+    rng = np.random.default_rng(plen)
+    toks = rng.integers(0, rc.vocab, size=(2, plen))
+    forced = rng.integers(0, rc.vocab, size=(2, cache_extra))
+    cache_len = plen + cache_extra
+    want, rcache = RT.prefill(rp, rc, jnp.asarray(toks, jnp.int32),
+                              cache_len=cache_len)
+    got, pcache = PT.prefill(pp, pc, torch.from_numpy(toks),
+                             cache_len=cache_len)
+    assert got.shape == want.shape == (2, 1, rc.padded_vocab)
+    _close(got, want)
+    for name in ("k", "v"):
+        assert pcache["attn"][name].shape == rcache["attn"][name].shape
+        _close(pcache["attn"][name], rcache["attn"][name])
+    ref_step = jax.jit(lambda p, c, t, pos: RT.decode_step(p, rc, c, t, pos))
+    for s in range(cache_extra):
+        tok = forced[:, s:s + 1]
+        want, rcache = ref_step(rp, rcache, jnp.asarray(tok, jnp.int32),
+                                jnp.int32(plen + s))
+        got, pcache = PT.decode_step(pp, pc, pcache, torch.from_numpy(tok),
+                                     plen + s)
+        assert got.shape == want.shape == (2, 1, rc.padded_vocab)
+        _close(got, want)
+    for name in ("k", "v"):
+        _close(pcache["attn"][name], rcache["attn"][name])
+
+
+def test_decode_matches_teacher_forced_forward(models):
+    """Inside the cache (no ring wrap) decode is the forward's last row."""
+    rc, pc = _configs("qwen2.5-3b")
+    _, pp = models("qwen2.5-3b")
+    seq = torch.from_numpy(np.random.default_rng(5).integers(
+        0, rc.vocab, size=(2, 14)))
+    full = PT.forward(pp, pc, seq)[0]
+    logits, cache = PT.prefill(pp, pc, seq[:, :8], cache_len=14)
+    _close(logits[:, 0], full[:, 7])
+    for pos in range(8, 14):
+        logits, cache = PT.decode_step(pp, pc, cache, seq[:, pos:pos + 1],
+                                       pos)
+        _close(logits[:, 0], full[:, pos])
+
+
+def _record(server, logs):
+    """Wrap a server's prefill and decode so every step's logits land in
+    ``logs`` (works for both packages: same attribute names)."""
+    api, decode = server.api, server.decode
+
+    def prefill(*a, **k):
+        logits, cache = api.prefill(*a, **k)
+        logs.append(_np(logits[:, -1]))
+        return logits, cache
+
+    def step(*a):
+        logits, cache = decode(*a)
+        logs.append(_np(logits[:, -1]))
+        return logits, cache
+
+    server.api = dataclasses.replace(api, prefill=prefill)
+    server.decode = step
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "h2o-danube-1.8b"])
+def test_batch_server_matches_jax(models, arch):
+    rc, pc = _configs(arch)
+    rp, pp = models(arch)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, rc.vocab, size=10) for _ in range(3)]
+    gen = 5
+    ref_logs, port_logs = [], []
+    ref = ref_serve.BatchServer(rc, rp, batch_slots=2)
+    port = port_serve.BatchServer(pc, pp, batch_slots=2, device="cpu")
+    _record(ref, ref_logs)
+    _record(port, port_logs)
+    want = ref.run(prompts, gen_tokens=gen)
+    got = port.run(prompts, gen_tokens=gen)
+    assert len(got) == len(want) == 3
+    assert len(port_logs) == len(ref_logs) == 2 * gen
+    for batch in range(2):
+        rows = [i for i in (2 * batch, 2 * batch + 1) if i < 3]
+        for step in range(gen):
+            r = ref_logs[batch * gen + step][:len(rows), :rc.vocab]
+            p = port_logs[batch * gen + step][:len(rows), :rc.vocab]
+            _close(p, r)
+            top2 = np.sort(r, axis=-1)[:, -2:]
+            for j, i in enumerate(rows):
+                assert got[i].dtype == np.int32
+                assert got[i][step] == want[i][step] == r[j].argmax()
+            # past a near-tie the two may continue differently
+            if (top2[:, 1] - top2[:, 0]).min() <= 1e-3:
+                break
+
+
+# -------------------------------------- the reference's regression cases
+def test_batch_server_empty_prompt_list():
+    cfg = port_config("qwen2.5-3b", smoke=True)
+    server = port_serve.BatchServer(cfg, params=None, device="cpu")
+    assert server.run([]) == []
+
+
+def test_batch_server_all_malformed_prompts_never_decode():
+    cfg = port_config("qwen2.5-3b", smoke=True)
+    server = port_serve.BatchServer(cfg, params=None, device="cpu")
+    prompts = [np.zeros((2, 3), dtype=np.int64),          # wrong rank
+               np.zeros(0, dtype=np.int64),               # empty
+               np.array([0.5, 1.5]),                      # float dtype
+               np.array([0, cfg.vocab], dtype=np.int64)]  # out of vocab
+    out = server.run(prompts)
+    assert len(out) == len(prompts)
+    assert all(isinstance(o, port_serve.RequestError) for o in out)
+    assert "non-empty 1-D" in out[0].reason
+    assert "not integer" in out[2].reason
+    assert "out of range" in out[3].reason
+    ref = ref_serve.BatchServer(ref_config("qwen2.5-3b", smoke=True), None)
+    assert [o.reason for o in ref.run(prompts)] == [o.reason for o in out]
+
+
+def test_batch_server_mixed_malformed_and_timeout():
+    cfg = port_config("qwen2.5-3b", smoke=True)
+    params = port_api(cfg).init_params(cfg, torch.Generator().manual_seed(0),
+                                       device="cpu")
+    server = port_serve.BatchServer(cfg, params, batch_slots=2, device="cpu")
+    rng = np.random.default_rng(1)
+    good = [rng.integers(0, cfg.vocab, size=5) for _ in range(3)]
+    prompts = [good[0], np.zeros((2, 2), dtype=np.int64), good[1], good[2]]
+    out = server.run(prompts, gen_tokens=2)
+    assert isinstance(out[1], port_serve.RequestError)
+    want = server.run(good, gen_tokens=2)
+    for o, w in zip([out[0], out[2], out[3]], want):
+        assert np.array_equal(o, w)
+    # timeout: 3 valid prompts / 2 slots = 2 batches; an already-expired
+    # deadline lets only the first run
+    out = server.run(good, gen_tokens=2, timeout=0.0)
+    assert np.array_equal(out[0], want[0]) and np.array_equal(out[1], want[1])
+    assert isinstance(out[2], port_serve.RequestError)
+    assert "timed out" in out[2].reason
+
+
+def test_mask_pad_logits_matches_jax():
+    cfg = dataclasses.replace(port_config("qwen2.5-3b", smoke=True),
+                              vocab_pad=64)
+    rcfg = dataclasses.replace(ref_config("qwen2.5-3b", smoke=True),
+                               vocab_pad=64)
+    logits = np.random.default_rng(0).standard_normal(
+        (3, cfg.padded_vocab)).astype(np.float32)
+    got = port_serve.mask_pad_logits(cfg, torch.from_numpy(logits))
+    want = ref_serve.mask_pad_logits(rcfg, jnp.asarray(logits))
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert (got[:, cfg.vocab:] == -1e30).all()
+
+
+# ------------------------------------------------- unported and no card
+@pytest.mark.parametrize("arch,match", [
+    ("qwen3-moe-235b-a22b", "F2"), ("deepseek-v2-lite-16b", "F2"),
+    ("mamba2-130m", "F4"), ("zamba2-7b", "F4"), ("whisper-small", "F5"),
+    ("internvl2-26b", "F6")])
+def test_unported_families_raise(arch, match):
+    cfg = port_config(arch, smoke=True)
+    for call in (lambda: port_api(cfg),
+                 lambda: PT.init_params(cfg, device="cpu"),
+                 lambda: PT.forward({}, cfg, torch.zeros((1, 2), dtype=int)),
+                 lambda: port_serve.BatchServer(cfg, None, device="cpu")):
+        with pytest.raises(NotImplementedError, match=match):
+            call()
+
+
+def test_no_card_means_no_fallback(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = port_config("qwen2.5-3b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_serve.BatchServer(cfg, None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PT.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_arrays(cfg, {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_serve.main(["--smoke"])
+
+
+def test_cpu_serving_launches_no_kernel():
+    n = flash_kernel.LAUNCHES
+    outs = port_serve.main(["--smoke", "--device", "cpu", "--requests", "3",
+                            "--prompt-len", "6", "--gen", "3"])
+    assert len(outs) == 3 and all(o.shape == (3,) for o in outs)
+    assert flash_kernel.LAUNCHES == n
