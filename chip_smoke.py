@@ -7,7 +7,11 @@ CUDA card, and check it.
 Phases, each printing one JSON line with its seconds:
 
   device   the card's name and count, and its power limit from nvidia-smi
-  build    the CUDA kernels built from `src/repro_torch/csrc` (nvcc, sm_90a)
+  build    the CUDA kernels built from `src/repro_torch/csrc` (nvcc, sm_90a);
+           the flash kernels' ptxas resources (registers, spills, shared
+           memory) and `cuobjdump -sass` of the library: raises unless
+           every bf16 flash kernel holds tensor-core instructions (HMMA or
+           HGMMA) and the f32 one none
   kernels  each kernel against its plain PyTorch version on the card, at
            fixed shapes (the widest included): exact equality, CUDA-event
            times of the kernel, the plain version and, where one exists, a
@@ -36,7 +40,8 @@ Phases, each printing one JSON line with its seconds:
   lm_serve qwen2.5-3b at full width and all 36 layers in bf16, random
            weights from `torch.Generator(seed=0)`: 16 prompts of 1,024
            tokens through `BatchServer(batch_slots=8)`, 32 greedy tokens
-           each, flash launches counted from 0 (36 × 2 prefills); prefill
+           each, flash launches counted from 0 (36 × 2 prefills, all on
+           the bf16 tensor-core kernel by its own counter); prefill
            tokens/s, time to first token, decode ms/step, generated
            tokens/s, peak memory; checks (a) flash vs the chunked twin at
            full depth (bf16, relative L2), (b) the same at 2 layers in f32
@@ -49,7 +54,10 @@ Phases, each printing one JSON line with its seconds:
 
 The kernels phase also holds the flash-attention kernel to its plain
 version (f32, TF32 off) within the reference's tolerances at five fixed
-shapes, beside SDPA's time.
+shapes, beside SDPA's time, each row naming the variant its counters saw
+launch (bf16 on the tensor cores, f32 on the CUDA cores); and once more
+at the serving call through `ops.flash_attention` on the model's
+``(b, s, hkv, g, hd)`` tensors, which the kernel reads by strides.
 
 The line before the last is the per-kernel record; each kernel's launches
 come from its own path's counted run (batched for the intersections and
@@ -549,19 +557,38 @@ def flash_error(q, k, v, causal, window):
     return diff.max().item()
 
 
+def flash_variant_ran(fn):
+    """Runs ``fn`` and names the flash kernel variant it launched, from
+    the per-variant counters (exactly one launch)."""
+    from repro_torch.kernels.flash_attn import kernel as KF
+
+    before = dict(KF.LAUNCHES_BY)
+    out = fn()
+    ran = [k for k, n in KF.LAUNCHES_BY.items() if n != before[k]]
+    if len(ran) != 1 or KF.LAUNCHES_BY[ran[0]] != before[ran[0]] + 1:
+        raise AssertionError(f"expected one flash launch, counters went "
+                             f"from {before} to {KF.LAUNCHES_BY}")
+    return out, ran[0]
+
+
 def flash_rows(rng):
-    """The flash kernel at its fixed shapes: within tolerance of the plain
-    version, timed beside it and beside SDPA."""
+    """The flash kernel at its fixed shapes: the variant that ran, within
+    tolerance of the plain version, timed beside it and beside SDPA; then
+    the serving call through `ops.flash_attention` on the model's layout."""
     from repro_torch.kernels.flash_attn import kernel as KF, ref as RF
 
     rows = []
     for B, H, Hkv, Sq, Sk, D, dtype, causal, window in FLASH_SHAPES:
         q, k, v = flash_input(B, H, Hkv, Sq, Sk, D, dtype, rng)
-        err = flash_error(q, k, v, causal, window)
+        err, ran = flash_variant_ran(
+            lambda: flash_error(q, k, v, causal, window))
+        if ran != KF.variant(q.dtype):
+            raise AssertionError(f"{dtype} flash ran {ran}, not "
+                                 f"{KF.variant(q.dtype)}")
         rows.append({
             "kernel": "flash_attention", "shape": [B, H, Hkv, Sq, Sk, D],
             "dtype": dtype, "causal": causal, "window": window,
-            "max_abs_err": err,
+            "variant": ran, "max_abs_err": err,
             "kernel_ms": cuda_ms(lambda: KF.flash_attention_bhsd(
                 q, k, v, causal=causal, window=window), 5),
             "plain_ms": cuda_ms(lambda: RF.attention_ref(
@@ -569,7 +596,53 @@ def flash_rows(rng):
             "library_ms": cuda_ms(flash_library(q, k, v, causal, window), 10),
             **bound_fields(*flash_bound_s(B, H, Hkv, Sq, Sk, D, dtype,
                                           causal, window))})
+    rows.append(flash_ops_row(rng, *FLASH_SHAPES[0]))
     return rows
+
+
+def flash_ops_row(rng, B, H, Hkv, Sq, Sk, D, dtype, causal, window):
+    """One call through `ops.flash_attention` on the model's layout, as
+    `gqa_full` makes it: q (b, s, hkv, g, hd) and k, v (b, s, hkv, hd),
+    dense. The kernel reads them by strides and writes its output in
+    place, so the result is dense in the model's layout (no copy); it is
+    held to the plain version on the same data made (B, H, S, D)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attn import ops as OF, ref as RF
+
+    g = H // Hkv
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(dt).cuda() for s in ((B, Sq, Hkv, g, D), (B, Sk, Hkv, D),
+                                        (B, Sk, Hkv, D)))
+    got, ran = flash_variant_ran(
+        lambda: OF.flash_attention(q, k, v, causal=causal, window=window))
+    if not got.is_contiguous() or got.shape != q.shape:
+        raise AssertionError(f"ops.flash_attention gave {tuple(got.shape)}, "
+                             f"strides {got.stride()}: not dense in the "
+                             f"model's layout")
+    qh = q.permute(0, 2, 3, 1, 4).reshape(B, H, Sq, D).contiguous()
+    kh, vh = (t.permute(0, 2, 1, 3).contiguous() for t in (k, v))
+    want = RF.attention_ref(qh, kh, vh, causal=causal, window=window)
+    got = got.permute(0, 2, 3, 1, 4).reshape(B, H, Sq, D)
+    diff = (got.float() - want.float()).abs()
+    if not bool((diff <= FLASH_ATOL[dtype] + FLASH_RTOL
+                 * want.float().abs()).all()):
+        raise AssertionError(f"ops.flash_attention {tuple(q.shape)}: max "
+                             f"|kernel − plain| = {diff.max().item()}")
+    return {
+        "kernel": "flash_attention", "path": "ops.flash_attention",
+        "layout": "model (b, s, hkv, g, hd)", "shape": [B, H, Hkv, Sq, Sk, D],
+        "dtype": dtype, "causal": causal, "window": window, "variant": ran,
+        "max_abs_err": diff.max().item(),
+        "kernel_ms": cuda_ms(lambda: OF.flash_attention(
+            q, k, v, causal=causal, window=window), 10),
+        "plain_ms": cuda_ms(lambda: RF.attention_ref(
+            qh, kh, vh, causal=causal, window=window), 2),
+        "library_ms": cuda_ms(flash_library(qh, kh, vh, causal, window), 10),
+        **bound_fields(*flash_bound_s(B, H, Hkv, Sq, Sk, D, dtype, causal,
+                                      window))}
 
 
 # ---------------------------------------------------------------------- phases
@@ -592,12 +665,83 @@ def phase_device():
     return dev, smi.splitlines()[0], rates
 
 
+def flash_ptxas(ptxas):
+    """The flash kernels' ptxas resources, by kernel and instantiated
+    width (the bf16 kernel's padded head dim; the f32 kernel's output
+    columns a thread, NJ): registers, spill bytes, stack; beside each, the
+    dynamic shared memory its launcher asks for at that width (f32: at the
+    widest head dim it serves, 16 NJ)."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    lib = _build.load_library()
+    out, cur = {}, None
+    for ln in ptxas:
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            k = re.search(r"flash_attention_(tc_)?kernelILi(\d+)E", m.group(1))
+            cur = None
+            if k:
+                tc = bool(k.group(1))
+                width = int(k.group(2))  # the padded head dim, or f32's NJ
+                cur = f"{'tc_bf16' if tc else 'cuda_core_f32'}<{width}>"
+                out[cur] = {"smem_dynamic_bytes": lib.flash_attention_smem_bytes(
+                    width if tc else 16 * width, 1 if tc else 0)}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out[cur].update(stack_bytes=int(m.group(1)),
+                            spill_store_bytes=int(m.group(2)),
+                            spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+            out[cur]["ptxas"] = ln
+    return out
+
+
+def flash_sass_hmma(path):
+    """Tensor-core instructions (HMMA/HGMMA) in the SASS of each flash
+    kernel of the built library, by `cuobjdump -sass`. Raises unless every
+    bf16 (`tc`) instantiation holds some, and if the f32 kernel does."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+            fn = fn if "flash_attention" in fn else None
+            if fn:
+                counts[fn] = 0
+        elif fn and ("HMMA" in ln or "HGMMA" in ln):
+            counts[fn] += 1
+    tc = {f: n for f, n in counts.items() if "flash_attention_tc_kernel" in f}
+    f32 = {f: n for f, n in counts.items() if f not in tc}
+    if not tc or not all(tc.values()) or any(f32.values()):
+        raise AssertionError(f"flash kernels' tensor-core instructions in "
+                             f"SASS: {counts}")
+    return {"tc_bf16": sorted(tc.values()), "cuda_core_f32": sorted(
+        f32.values())}
+
+
 def phase_build():
+    """Builds every kernel from the sources; reports the flash kernels'
+    ptxas resources and proves from the SASS that the bf16 flash kernel
+    runs on the tensor cores."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     _build.load_library(rebuild=True)
-    emit("build", t0, **_build.BUILD_INFO)
+    info = dict(_build.BUILD_INFO)
+    emit("build", t0, **info, flash_ptxas=flash_ptxas(info["ptxas"]),
+         flash_sass_hmma=flash_sass_hmma(info["path"]))
 
 
 def phase_kernels(rng, rates):
@@ -1345,6 +1489,8 @@ def phase_lm_serve():
     recorder = FlashRecorder()
     torch.cuda.reset_peak_memory_stats()
     KF.LAUNCHES = 0
+    for name in KF.LAUNCHES_BY:
+        KF.LAUNCHES_BY[name] = 0
     try:
         tw = time.perf_counter()
         outs = server.run(prompts, gen_tokens=LM_GEN)
@@ -1353,12 +1499,17 @@ def phase_lm_serve():
     finally:
         recorder.close()
     launches = KF.LAUNCHES
+    launches_by = dict(KF.LAUNCHES_BY)
     peak = torch.cuda.max_memory_allocated()
     server.api, server.decode = api, decode
     want_launches = cfg.n_layers * (LM_PROMPTS // LM_SLOTS)
     if launches != want_launches:
         raise AssertionError(f"lm_serve launched flash_attention {launches} "
                              f"times, expected {want_launches}")
+    if launches_by["tc_bf16"] != launches:
+        raise AssertionError(f"lm_serve's flash launches by variant are "
+                             f"{launches_by}: not all on the bf16 "
+                             f"tensor-core kernel")
     for o in outs:
         if not (isinstance(o, np.ndarray) and o.shape == (LM_GEN,)
                 and o.dtype == np.int32 and 0 <= o.min()
@@ -1379,6 +1530,7 @@ def phase_lm_serve():
          / len(decode_s), decode_steps=len(decode_s),
          generated_tokens_per_s=LM_PROMPTS * LM_GEN / drain_s,
          max_memory_allocated=peak, flash_launches=launches,
+         flash_launches_by_variant=launches_by,
          flash_calls=[[*k, c] for k, c in recorder.calls.items()],
          checks=checks)
     return {"server": server, "prompts": prompts, "launches": launches,
@@ -1585,7 +1737,8 @@ def flash_record(lm, device_us):
         "bound_ms": max(acc["bb"], acc["bo"]) * 1e3,
         "bound_by": "bytes" if acc["bb"] >= acc["bo"] else "operations",
         "library_ms": acc["library_ms"],
-        "device_ms": device_ms(device_us, ("flash_attention_kernel",))}]
+        "device_ms": device_ms(device_us, ("flash_attention_tc_kernel",
+                                           "flash_attention_kernel"))}]
 
 
 def traced(fn, warmup=False):

@@ -44,7 +44,9 @@ LAUNCHERS = {
     "rowmin_hash_launch": (_P, _P, _I64, _I64, _I64, _I64, _P),
     "pairwise_intersections_launch": (_P, _P, _I64, _I64, _P),
     "flash_attention_launch": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
-                               _I64, _I64, _I64, _F32, _I64, _P),
+                               _I64, _I64, _I64, _F32, _I64, _P, _P),
+    # not a launcher: the flash kernels' dynamic shared memory, for reports
+    "flash_attention_smem_bytes": (_I64, _I64),
 }
 
 _LOCK = threading.Lock()
@@ -101,7 +103,8 @@ def _compile(sources: list, lib_path: Path) -> list:
             out, _ = proc.communicate()
             if proc.returncode != 0:
                 failed.append(f"{src.name}:\n{out}")
-            ptxas += [ln.strip() for ln in out.splitlines() if "ptxas" in ln]
+            ptxas += [ln.strip() for ln in out.splitlines()
+                      if "ptxas" in ln or "spill" in ln]
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         staged = tmp / lib_path.name

@@ -1,13 +1,21 @@
-"""Wrapper of the CUDA kernel `csrc/flash_attention.cu`: causal,
+"""Wrapper of the CUDA kernels `csrc/flash_attention.cu`: causal,
 sliding-window or full attention with GQA and an online softmax.
 
-Dispatch is by the tensor's device and nothing else: a CUDA tensor
-launches the kernel (a failed launch raises), a CPU tensor takes the plain
-version in `ref.py`. ``LAUNCHES`` counts kernel launches only. The
-kernel's tiles are its own (64 query rows by 64 key rows), so the JAX
-kernel's ``bq``/``bk`` have no counterpart here.
+Dispatch is by the tensor's device, then by its type. A CPU tensor takes
+the plain version in `ref.py`. A CUDA tensor launches a kernel (a failed
+launch raises; nothing gives way to another kernel or to the plain
+version): bfloat16 the tensor-core kernel (``"tc_bf16"``), float32 the
+CUDA-core kernel (``"cuda_core_f32"``, whose f32 arithmetic meets the
+reference's f32 tolerance, which TF32 tensor cores cannot). ``LAUNCHES``
+counts kernel launches, ``LAUNCHES_BY`` the same by variant. The kernels
+read q, k, v and write o through their (batch, head, row) strides, so
+views of the model's ``(b, s, h, d)`` activations need no copy. Their
+tiles are their own (64 query rows), so the JAX kernel's ``bq``/``bk``
+have no counterpart here.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -15,7 +23,34 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attn import ref
 
 LAUNCHES = 0
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+LAUNCHES_BY = {"tc_bf16": 0, "cuda_core_f32": 0}
+# dtype -> (the launcher's dtype code, the variant it runs)
+_DTYPES = {torch.float32: (0, "cuda_core_f32"),
+           torch.bfloat16: (1, "tc_bf16")}
+_STRIDES = ctypes.c_int64 * 12  # (batch, head, row) of q, k, v, o
+
+
+def variant(dtype: torch.dtype) -> str:
+    """The kernel that a CUDA tensor of ``dtype`` launches."""
+    return _DTYPES[dtype][1]
+
+
+def _strides(t: torch.Tensor, name: str) -> tuple:
+    """The (batch, head, row) element strides of ``t`` for the kernels, 0
+    for a dim of size 1 (never stepped). The kernels read each row as
+    16-byte chunks: raises unless the last dim is contiguous and every row
+    (and the base) is 16-byte aligned. Runs on every launch: kept cheap."""
+    s, n = t.stride(), t.shape
+    st = (s[0] if n[0] > 1 else 0, s[1] if n[1] > 1 else 0,
+          s[2] if n[2] > 1 else 0)
+    if s[3] != 1:
+        raise ValueError(f"the last dim of {name} must be contiguous, got "
+                         f"strides {s}")
+    if (t.data_ptr() | (st[0] | st[1] | st[2]) * t.element_size()) % 16:
+        raise ValueError(f"every row of {name} must start on a 16-byte "
+                         f"boundary, got strides {s} and address "
+                         f"{t.data_ptr():#x}")
+    return st
 
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -23,8 +58,10 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          window: int = 0) -> torch.Tensor:
     """q: (B, H, Sq, D); k/v: (B, Hkv, Sk, D) with H % Hkv == 0 (kv head
     ``h // (H // Hkv)``), one dtype (bfloat16 or float32), D a multiple of
-    8 in [8, 256]. Returns (B, H, Sq, D) in q's dtype. ``window`` (> 0)
-    limits each query to its last ``window`` keys when ``causal``."""
+    8 in [8, 256]. On the card the last dim must be contiguous and every
+    row 16-byte aligned; other strides are free. Returns (B, H, Sq, D) in
+    q's dtype, laid out as q is when q is dense. ``window`` (> 0) limits
+    each query to its last ``window`` keys when ``causal``."""
     global LAUNCHES
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"need q (B, H, Sq, D) and k, v (B, Hkv, Sk, D) of "
@@ -51,20 +88,20 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"unsupported device {q.device}")
     if D % 8 or not 8 <= D <= 256:
         raise ValueError(f"head dim {D} is not a multiple of 8 in [8, 256]")
-    if not all(t.is_contiguous() for t in (q, k, v)):
-        raise ValueError("q, k and v must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k and v must start on a 16-byte boundary")
-    out = torch.empty_like(q)
+    strides = (*_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"))
+    out = torch.empty_like(q)  # q's strides when q is dense
     if out.numel() == 0:
         return out
+    code, name = _DTYPES[q.dtype]
+    strides = _STRIDES(*strides, *out.stride()[:3])
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
             Hkv, Sq, Sk, D, int(bool(causal)), int(window), 1.0 / D ** 0.5,
-            _DTYPES[q.dtype], stream)
+            code, ctypes.addressof(strides), stream)
     _build.check_status("flash_attention", status)
     LAUNCHES += 1
+    LAUNCHES_BY[name] += 1
     return out

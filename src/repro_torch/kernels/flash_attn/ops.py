@@ -5,7 +5,9 @@ This is the attention of the serving path's prefill when
 ``cfg.attn_impl == "pallas_flash"`` (the port's default): the CUDA kernel
 on a card, its plain version on the CPU. Query head ``h = kv·g + gi``, so
 the kernel's kv head ``h // g`` is the one ``jnp.repeat`` gives in the JAX
-package.
+package. The kernel takes strides, so q, k and v go in as permuted views
+(no copy when q is dense), and its output, laid out as q is, comes back
+as ``(b, sq, hkv, g, hd)`` by a view.
 """
 from __future__ import annotations
 
@@ -23,8 +25,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     this kernel tiles by its own 64 rows, and its result does not depend
     on them."""
     b, sq, hkv, g, hd = q.shape
-    qh = q.permute(0, 2, 3, 1, 4).reshape(b, hkv * g, sq, hd).contiguous()
-    kh = k.permute(0, 2, 1, 3).contiguous()
-    vh = v.permute(0, 2, 1, 3).contiguous()
-    o = flash_attention_bhsd(qh, kh, vh, causal=causal, window=window)
+    qh = q.permute(0, 2, 3, 1, 4).reshape(b, hkv * g, sq, hd)
+    o = flash_attention_bhsd(qh, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+                             causal=causal, window=window)
     return o.reshape(b, hkv, g, sq, hd).permute(0, 3, 1, 2, 4)

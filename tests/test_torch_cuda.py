@@ -288,7 +288,11 @@ def test_cuda_server_answers_match_numpy(backend):
 
 # (B, H, Hkv, Sq, Sk, D, dtype, causal, window): the serving prefill's
 # call, GQA and MHA, danube's head dim past its window, Sq != Sk, ragged
-# tiles, every head-dim bucket of the kernel (16 … 256)
+# tiles, every head-dim bucket of the f32 kernel (16 … 256); then the bf16
+# tensor-core kernel at head dims 8 … 256 (each padded width, and padding
+# inside one), Sq and Sk multiples of neither 64 nor 16, Sq < Sk and
+# Sq > Sk causal and not, window 1, a window past the sequence, Hkv = 1,
+# and rows past Sk + window - 1 that see no key
 FLASH_CASES = [
     (2, 16, 2, 1024, 1024, 128, "bfloat16", True, 0),
     (1, 32, 8, 600, 600, 80, "bfloat16", True, 256),
@@ -298,33 +302,113 @@ FLASH_CASES = [
     (1, 2, 1, 200, 200, 256, "float32", True, 0),
     (1, 6, 3, 129, 129, 24, "float32", True, 1),
     (1, 2, 2, 64, 40, 128, "float32", True, 0),
+    (1, 4, 2, 77, 130, 8, "bfloat16", False, 0),
+    (1, 4, 2, 130, 77, 24, "bfloat16", True, 0),
+    (2, 6, 3, 200, 200, 40, "bfloat16", True, 1),
+    (1, 8, 1, 333, 333, 64, "bfloat16", True, 1000),
+    (1, 8, 2, 150, 90, 80, "bfloat16", False, 0),
+    (1, 4, 4, 90, 150, 96, "bfloat16", True, 0),
+    (1, 4, 1, 257, 257, 128, "bfloat16", True, 100),
+    (1, 2, 1, 100, 121, 136, "bfloat16", False, 0),
+    (1, 2, 2, 300, 300, 256, "bfloat16", True, 0),
+    (1, 2, 1, 200, 330, 256, "bfloat16", False, 0),
+    (1, 4, 2, 100, 40, 64, "bfloat16", True, 16),
 ]
+
+
+def _flash_inputs(shapes, dtype, seed, device="cuda"):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(getattr(torch, dtype)).to(device) for s in shapes]
+
+
+def _flash_close(got, q, k, v, causal, window):
+    """Tolerances are the reference's (`tests/test_flash_attn_kernel.py`):
+    bf16 atol 2e-2, f32 atol 2e-5, rtol 1e-2; the plain version runs in
+    full f32 (no TF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want = flash_ref.attention_ref(q, k, v, causal=causal, window=window)
+    atol = 2e-2 if q.dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=1e-2)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,dtype,causal,window", FLASH_CASES)
 def test_cuda_flash_attention_matches_plain(B, H, Hkv, Sq, Sk, D, dtype,
                                             causal, window):
-    """Tolerances are the reference's (`tests/test_flash_attn_kernel.py`):
-    bf16 atol 2e-2, f32 atol 2e-5, rtol 1e-2; the plain version runs in
-    full f32 (no TF32)."""
+    """bf16 runs on the tensor-core kernel and f32 on the CUDA-core one:
+    the per-variant counter says which launched."""
     _need_card()
-    torch.backends.cuda.matmul.allow_tf32 = False
     dt = getattr(torch, dtype)
-    rng = np.random.default_rng(B * H + Sq + D)
-    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
-               .to(dt).cuda() for s in ((B, H, Sq, D), (B, Hkv, Sk, D),
-                                        (B, Hkv, Sk, D)))
-    n = flash_kernel.LAUNCHES
+    q, k, v = _flash_inputs([(B, H, Sq, D), (B, Hkv, Sk, D),
+                             (B, Hkv, Sk, D)], dtype, B * H + Sq + D)
+    name = flash_kernel.variant(dt)
+    assert name == ("tc_bf16" if dtype == "bfloat16" else "cuda_core_f32")
+    n, by = flash_kernel.LAUNCHES, dict(flash_kernel.LAUNCHES_BY)
     got = flash_kernel.flash_attention_bhsd(q, k, v, causal=causal,
                                             window=window)
     torch.cuda.synchronize()
     assert flash_kernel.LAUNCHES == n + 1
+    assert flash_kernel.LAUNCHES_BY == {**by, name: by[name] + 1}
     assert got.dtype == dt and got.shape == q.shape
-    want = flash_ref.attention_ref(q, k, v, causal=causal, window=window)
-    atol = 2e-2 if dtype == "bfloat16" else 2e-5
-    torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                               rtol=1e-2)
+    _flash_close(got, q, k, v, causal, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48),
+                                           (False, 0)])
+def test_cuda_flash_attention_reads_model_layout_in_place(dtype, causal,
+                                                          window):
+    """`ops.flash_attention` on the model's (b, s, hkv, g, hd) tensors
+    hands the kernel strided views, and views cut from one fused qkv row
+    (row stride past D), and gives bit for bit what the kernel gives on
+    the same data made contiguous; the output needs no copy."""
+    _need_card()
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+
+    b, s, hkv, g, hd = 2, 200, 2, 4, 80
+    q, k, v = _flash_inputs([(b, s, hkv, g, hd), (b, s, hkv, hd),
+                             (b, s, hkv, hd)], dtype, 17)
+    fused = torch.cat([q.reshape(b, s, -1), k.reshape(b, s, -1),
+                       v.reshape(b, s, -1)], dim=-1)
+    qv = fused[..., :hkv * g * hd].view(b, s, hkv, g, hd)
+    kv = fused[..., hkv * g * hd:(hkv * g + hkv) * hd].view(b, s, hkv, hd)
+    vv = fused[..., (hkv * g + hkv) * hd:].view(b, s, hkv, hd)
+    want = flash_kernel.flash_attention_bhsd(
+        q.permute(0, 2, 3, 1, 4).reshape(b, hkv * g, s, hd).contiguous(),
+        k.permute(0, 2, 1, 3).contiguous(), v.permute(0, 2, 1, 3).contiguous(),
+        causal=causal, window=window)
+    want = want.reshape(b, hkv, g, s, hd).permute(0, 3, 1, 2, 4)
+    for args in ((q, k, v), (qv, kv, vv)):
+        n = flash_kernel.LAUNCHES
+        got = flash_ops.flash_attention(*args, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert flash_kernel.LAUNCHES == n + 1
+        assert got.shape == (b, s, hkv, g, hd)
+        assert torch.equal(got, want)
+    assert flash_ops.flash_attention(q, k, v, causal=causal,
+                                     window=window).is_contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_flash_attention_never_reads_past_sk(dtype):
+    """Rows past Sk in the backing storage hold NaN: the kernel zero-fills
+    its tiles there (0 × a stale NaN would be NaN)."""
+    _need_card()
+    B, H, Hkv, Sq, Sk, D = 1, 4, 2, 100, 77, 64
+    q, k_full, v_full = _flash_inputs([(B, H, Sq, D), (B, Hkv, 128, D),
+                                       (B, Hkv, 128, D)], dtype, 5)
+    k_full[:, :, Sk:] = float("nan")
+    v_full[:, :, Sk:] = float("nan")
+    k, v = k_full[:, :, :Sk], v_full[:, :, :Sk]
+    for causal in (True, False):
+        got = flash_kernel.flash_attention_bhsd(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        _flash_close(got, q, k.contiguous(), v.contiguous(), causal, 0)
 
 
 @pytest.mark.cuda
@@ -333,10 +417,16 @@ def test_cuda_flash_attention_rejects_what_it_cannot_take():
     q = torch.zeros(1, 2, 8, 20, device="cuda")
     with pytest.raises(ValueError, match="multiple of 8"):
         flash_kernel.flash_attention_bhsd(q, q, q)
-    q = torch.zeros(1, 2, 8, 32, device="cuda")
-    strided = q[:, :, ::2]
+    q = torch.zeros(1, 2, 32, 32, device="cuda")
+    strided = q.transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
         flash_kernel.flash_attention_bhsd(strided, strided, strided)
+    ragged = torch.zeros(1, 2, 8, 33, device="cuda")[..., :32]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_kernel.flash_attention_bhsd(ragged, ragged, ragged)
+    shifted = torch.zeros(1 + 2 * 8 * 32, device="cuda")[1:].view(1, 2, 8, 32)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_kernel.flash_attention_bhsd(shifted, shifted, shifted)
 
 
 @pytest.mark.cuda

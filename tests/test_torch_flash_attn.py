@@ -188,3 +188,81 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, match):
         flash_kernel.flash_attention_bhsd(*bad(q, k, v))
     with pytest.raises(ValueError, match="window"):
         flash_kernel.flash_attention_bhsd(q, k, v, window=-1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48),
+                                           (False, 0)])
+def test_ops_strided_views_match_the_copy_path(dtype, causal, window):
+    """`ops.flash_attention` hands the kernel permuted views of the
+    model's (b, s, hkv, g, hd) tensors, and views cut from one fused qkv
+    row; the result equals the permute-and-copy path (contiguous
+    (B, H, S, D) copies in, the output permuted back), here on the plain
+    version."""
+    b, s, hkv, g, d = 2, 96, 2, 3, 32
+    _, (q, k, v) = _both(_draw([(b, s, hkv, g, d), (b, s, hkv, d),
+                                (b, s, hkv, d)], seed=21), dtype)
+    want = flash_kernel.flash_attention_bhsd(
+        q.permute(0, 2, 3, 1, 4).reshape(b, hkv * g, s, d).contiguous(),
+        k.permute(0, 2, 1, 3).contiguous(), v.permute(0, 2, 1, 3).contiguous(),
+        causal=causal, window=window)
+    want = want.reshape(b, hkv, g, s, d).permute(0, 3, 1, 2, 4)
+    fused = torch.cat([q.reshape(b, s, -1), k.reshape(b, s, -1),
+                       v.reshape(b, s, -1)], dim=-1)
+    nq, nk = hkv * g * d, hkv * d
+    views = (fused[..., :nq].view(b, s, hkv, g, d),
+             fused[..., nq:nq + nk].view(b, s, hkv, d),
+             fused[..., nq + nk:].view(b, s, hkv, d))
+    for args in ((q, k, v), views):
+        got = flash_ops.flash_attention(*args, causal=causal, window=window)
+        assert got.shape == (b, s, hkv, g, d) and got.dtype == q.dtype
+        assert torch.equal(got, want)
+
+
+# The bf16 cases of the card's tests (`tests/test_torch_cuda.py`), the
+# first at B = 1 to keep its scores small here
+BF16_CARD_CASES = [
+    (1, 16, 2, 1024, 1024, 128, True, 0),
+    (1, 32, 8, 600, 600, 80, True, 256),
+    (2, 12, 12, 256, 1536, 64, False, 0),
+    (1, 4, 2, 77, 130, 8, False, 0),
+    (1, 4, 2, 130, 77, 24, True, 0),
+    (2, 6, 3, 200, 200, 40, True, 1),
+    (1, 8, 1, 333, 333, 64, True, 1000),
+    (1, 8, 2, 150, 90, 80, False, 0),
+    (1, 4, 4, 90, 150, 96, True, 0),
+    (1, 4, 1, 257, 257, 128, True, 100),
+    (1, 2, 1, 100, 121, 136, False, 0),
+    (1, 2, 2, 300, 300, 256, True, 0),
+    (1, 2, 1, 200, 330, 256, False, 0),
+    (1, 4, 2, 100, 40, 64, True, 16),
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal,window", BF16_CARD_CASES)
+def test_bf16_probabilities_stay_inside_the_tolerance(B, H, Hkv, Sq, Sk, D,
+                                                      causal, window):
+    """The tensor-core kernel's one rounding that the plain version lacks:
+    P enters P·V as bf16 (the f32 accumulator and the row sum take the
+    unrounded p). The plain version with that rounding, in f32 on the
+    bf16-rounded inputs, stays within a quarter of the reference's bf16
+    budget (atol 2e-2 + rtol 1e-2 · |want|) of the plain version."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).float() for a in _draw(
+        [(B, H, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D)], seed=Sq + D))
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    g = H // Hkv
+    kr, vr = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, kr) / D ** 0.5
+    mask = torch.ones(Sq, Sk, dtype=torch.bool)
+    if causal:
+        qpos, kpos = torch.arange(Sq)[:, None], torch.arange(Sk)[None, :]
+        mask = kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+    s = torch.where(mask, s, -1e30)
+    p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    rounded = p.to(torch.bfloat16).float()
+    got = torch.einsum("bhqk,bhkd->bhqd", rounded, vr) \
+        / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    budget = 2e-2 + 1e-2 * want.abs()
+    assert float(((got - want).abs() / budget).max()) <= 0.25
