@@ -8,10 +8,12 @@ Phases, each printing one JSON line with its seconds:
 
   device   the card's name and count, and its power limit from nvidia-smi
   build    the CUDA kernels built from `src/repro_torch/csrc` (nvcc, sm_90a);
-           the flash kernels' ptxas resources (registers, spills, shared
-           memory) and `cuobjdump -sass` of the library: raises unless
-           every bf16 flash kernel holds tensor-core instructions (HMMA or
-           HGMMA) and the f32 one none
+           the flash and the two intersection kernels' ptxas resources
+           (registers, spills, shared memory) and `cuobjdump -sass` of the
+           library: raises unless every bf16 flash kernel holds tensor-core
+           instructions (HMMA or HGMMA) and the f32 one none, and unless
+           every intersection kernel holds the binary MMA (BMMA); reports
+           their POPC, BMMA and IMMA counts
   kernels  each kernel against its plain PyTorch version on the card, at
            fixed shapes (the widest included): exact equality, CUDA-event
            times of the kernel, the plain version and, where one exists, a
@@ -112,8 +114,14 @@ SERVE_SLOTS = 256
 SHINGLE_SEEDS = (0, 1, 2)
 JACCARD_ROWS = 512
 # Dense peaks of the H100 SXM (NVIDIA's data sheet): bf16 on the tensor
-# cores, f32 on the CUDA cores.
+# cores, f32 on the CUDA cores; int8 on the tensor cores. The data sheet
+# gives no binary (b1) rate: on the card the b1 MMA m16n8k256 issues at the
+# int8 MMA m16n8k32's rate (`popc_bench.py --probe`: both ≈ 0.6 a clock an
+# SM) with 8 times the element pairs, so it is taken as 8 times the int8
+# peak (2 operations a bit pair, as int8 counts 2 an element pair).
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+INT8_OPS_PER_S = 1.979e15
+B1_OPS_PER_S = 8 * INT8_OPS_PER_S
 # (B, H, Hkv, Sq, Sk, D, dtype, causal, window): the serving prefill's call
 # (qwen2.5-3b, 8 prompts of 1,024), one long prompt, danube's heads past its
 # window, non-causal Sq != Sk, and ragged f32 tiles
@@ -180,16 +188,26 @@ def card_rates():
             "hbm_bytes_per_s": HBM_BYTES_PER_S}
 
 
+def gram_ops_bound_s(pairs, rates):
+    """The least time of ``pairs`` word pairs' AND-popcounts over the units
+    the card has: on the CUDA cores each takes an AND and an ADD on the
+    integer lanes and a POPC on its own unit, which issue side by side (the
+    slower bounds); on the tensor cores it is 32 bit pairs of 2 operations
+    each, in int8 on the bits unpacked to 0/1 or in b1 on the packed words.
+    Returns (seconds, the unit that gives them)."""
+    return min((max(2 * pairs / rates["int32_ops_per_s"],
+                    pairs / rates["popc_per_s"]), "popc_lanes"),
+               (2 * pairs * 32 / INT8_OPS_PER_S, "int8_tensor_cores"),
+               (2 * pairs * 32 / B1_OPS_PER_S, "b1_tensor_cores"))
+
+
 def inter_bound_s(B, G, W, valid, rates):
     """Rows ``b >= valid`` are neither read nor needed; the whole (B, G, G)
-    output is written. Each of the valid*G*G*W word pairs takes one AND and
-    one ADD on the integer lanes and one POPC on its own unit; the two
-    issue side by side, so the slower of them bounds."""
+    output is written. The matrix is symmetric, so each valid row needs
+    G·(G + 1)/2 row pairs of W word pairs (`gram_ops_bound_s`). Returns
+    the bytes' and the operations' times and the operations' unit."""
     by_bytes = (valid * G * W * 4 + B * G * G * 4) / rates["hbm_bytes_per_s"]
-    pairs = valid * G * G * W
-    by_ops = max(2 * pairs / rates["int32_ops_per_s"],
-                 pairs / rates["popc_per_s"])
-    return by_bytes, by_ops
+    return (by_bytes, *gram_ops_bound_s(valid * G * (G + 1) // 2 * W, rates))
 
 
 def topj_input(B, G, W, rng):
@@ -410,12 +428,9 @@ def rowmin_bound_s(nbr, rates):
 def pairwise_bound_s(G, W, rates):
     """The (G, W) bits read once and the (G, G) output written once; the
     matrix is symmetric, so G·(G + 1)/2 row pairs of W word pairs are
-    needed, each an AND and an ADD on the integer lanes and a POPC on its
-    own unit."""
-    pairs = G * (G + 1) // 2 * W
+    needed (`gram_ops_bound_s`)."""
     return ((G * W * 4 + G * G * 4) / rates["hbm_bytes_per_s"],
-            max(2 * pairs / rates["int32_ops_per_s"],
-                pairs / rates["popc_per_s"]))
+            *gram_ops_bound_s(G * (G + 1) // 2 * W, rates))
 
 
 def pairwise_library(bits):
@@ -431,9 +446,12 @@ def pairwise_library(bits):
     return lambda: torch.matmul(a, at)
 
 
-def bound_fields(bb, bo):
+def bound_fields(bb, bo, unit=None):
+    """``unit``: the unit whose rate gives the operations' time, where the
+    bound takes the least over several (`gram_ops_bound_s`)."""
     return {"bound_us": max(bb, bo) * 1e6,
-            "bound_by": "bytes" if bb >= bo else "operations"}
+            "bound_by": "bytes" if bb >= bo else "operations",
+            **({"bound_unit": unit} if unit else {})}
 
 
 def new_kernel_rows(rng, rates):
@@ -704,10 +722,15 @@ def flash_ptxas(ptxas):
     return out
 
 
-def flash_sass_hmma(path):
-    """Tensor-core instructions (HMMA/HGMMA) in the SASS of each flash
-    kernel of the built library, by `cuobjdump -sass`. Raises unless every
-    bf16 (`tc`) instantiation holds some, and if the f32 kernel does."""
+SASS_OPS = ("HMMA", "HGMMA", "IMMA", "BMMA", "POPC")
+
+
+def sass_counts(path, name):
+    """Counts of the `SASS_OPS` opcodes (by mnemonic, before any modifier)
+    in the SASS of each function of the library at ``path`` whose
+    mangled name holds ``name``, by `cuobjdump -sass`."""
+    import re
+
     from repro_torch.kernels import _build
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
@@ -717,11 +740,23 @@ def flash_sass_hmma(path):
     for ln in sass.splitlines():
         if "Function :" in ln:
             fn = ln.split("Function :")[1].strip()
-            fn = fn if "flash_attention" in fn else None
+            fn = fn if name in fn else None
             if fn:
-                counts[fn] = 0
-        elif fn and ("HMMA" in ln or "HGMMA" in ln):
-            counts[fn] += 1
+                counts[fn] = Counter()
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                      ln)
+        if fn and m and m.group(1) in SASS_OPS:
+            counts[fn][m.group(1)] += 1
+    return counts
+
+
+def flash_sass_hmma(path):
+    """Tensor-core instructions (HMMA/HGMMA) in the SASS of each flash
+    kernel of the built library, by `cuobjdump -sass`. Raises unless every
+    bf16 (`tc`) instantiation holds some, and if the f32 kernel does."""
+    counts = {f: c["HMMA"] + c["HGMMA"]
+              for f, c in sass_counts(path, "flash_attention").items()}
     tc = {f: n for f, n in counts.items() if "flash_attention_tc_kernel" in f}
     f32 = {f: n for f, n in counts.items() if f not in tc}
     if not tc or not all(tc.values()) or any(f32.values()):
@@ -731,17 +766,72 @@ def flash_sass_hmma(path):
         f32.values())}
 
 
+INTER_KERNELS = ("bitset_intersections_kernel",
+                 "pairwise_intersections_kernel")
+# the instruction of the shipped intersection design: the tensor cores'
+# binary multiply (it beat the CUDA-core POPC tile on the card:
+# `popc_bench.py --probe`, PERF.md §6)
+INTER_OP = "BMMA"
+
+
+def inter_build_report(ptxas, path):
+    """The two intersection kernels' instantiations (by their copy width,
+    ``vec1``/``vec4`` words): ptxas resources (registers, spill bytes,
+    stack, static shared memory) and SASS counts of POPC and the
+    tensor-core opcodes. Raises unless every instantiation holds the
+    shipped design's instruction, `INTER_OP`."""
+    import re
+
+    out, cur = {}, None
+    for ln in ptxas:
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            k = re.search(r"(%s)ILi(\d+)E" % "|".join(INTER_KERNELS),
+                          m.group(1))
+            cur = f"{k.group(1)}<vec{k.group(2)}>" if k else None
+            if cur:
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out[cur].update(stack_bytes=int(m.group(1)),
+                            spill_store_bytes=int(m.group(2)),
+                            spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            out[cur]["smem_static_bytes"] = int(sm.group(1)) if sm else 0
+    for name in INTER_KERNELS:
+        for fn, ops in sass_counts(path, name).items():
+            k = re.search(r"ILi(\d+)E", fn)
+            key = f"{name}<vec{k.group(1) if k else '?'}>"
+            out.setdefault(key, {})["sass"] = {
+                op: ops[op] for op in ("POPC", "BMMA", "IMMA")}
+    missing = [k for k, v in out.items()
+               if not v.get("sass", {}).get(INTER_OP)]
+    if len(out) != 2 * len(INTER_KERNELS) or missing:
+        raise AssertionError(f"intersection kernels without {INTER_OP} in "
+                             f"their SASS: {missing or out}")
+    return out
+
+
 def phase_build():
-    """Builds every kernel from the sources; reports the flash kernels'
-    ptxas resources and proves from the SASS that the bf16 flash kernel
-    runs on the tensor cores."""
+    """Builds every kernel from the sources; reports the flash and the
+    intersection kernels' ptxas resources and proves from the SASS that the
+    bf16 flash kernel runs on the tensor cores and the intersection kernels
+    on the shipped design's instruction."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     _build.load_library(rebuild=True)
     info = dict(_build.BUILD_INFO)
     emit("build", t0, **info, flash_ptxas=flash_ptxas(info["ptxas"]),
-         flash_sass_hmma=flash_sass_hmma(info["path"]))
+         flash_sass_hmma=flash_sass_hmma(info["path"]),
+         intersections=inter_build_report(info["ptxas"], info["path"]))
 
 
 def phase_kernels(rng, rates):
@@ -763,15 +853,13 @@ def phase_kernels(rng, rates):
             raise AssertionError(f"bitset_intersections {B, G, W, valid}: "
                                  f"max |kernel − plain| = {err}")
         lib = inter_library(x)
-        bb, bo = inter_bound_s(B, G, W, valid, rates)
         rows.append({
             "kernel": "bitset_intersections", "shape": [B, G, W],
             "valid": valid, "max_abs_err": err,
             "kernel_ms": cuda_ms(lambda: K1.bitset_intersections(x, valid), 50),
             "plain_ms": cuda_ms(lambda: R1.bitset_intersections(x, valid), 3),
             "library_ms": cuda_ms(lib, 20),
-            "bound_us": max(bb, bo) * 1e6,
-            "bound_by": "bytes" if bb >= bo else "operations"})
+            **bound_fields(*inter_bound_s(B, G, W, valid, rates))})
     for E, S in HIST_SHAPES:
         ids = hist_input(E, S, rng)
         got = K2.segment_histogram(ids, S)
@@ -1125,7 +1213,8 @@ def kernel_record(recorder, launches, res_recorder, res_launches, rng,
 
     # comparison launches do not count
     saved = (K1.LAUNCHES, K2.LAUNCHES, K3.TOPJ_LAUNCHES, K3.FOLD_LAUNCHES)
-    inter = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bb=0.0, bo=0.0, err=0)
+    inter = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bb=0.0, bo=0.0, err=0,
+                 unit=None)
     for (B, G, W, valid), n in recorder.inter.items():
         x = inter_input(B, G, W, rng)
         got = K1.bitset_intersections(x, valid)
@@ -1136,7 +1225,7 @@ def kernel_record(recorder, launches, res_recorder, res_launches, rng,
         inter["plain_ms"] += n * cuda_ms(
             lambda: R1.bitset_intersections(x, valid), 2)
         inter["library_ms"] += n * cuda_ms(inter_library(x), 5)
-        bb, bo = inter_bound_s(B, G, W, valid, rates)
+        bb, bo, inter["unit"] = inter_bound_s(B, G, W, valid, rates)
         inter["bb"] += n * bb
         inter["bo"] += n * bo
     hist = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bb=0.0, bo=0.0, err=0)
@@ -1208,6 +1297,7 @@ def kernel_record(recorder, launches, res_recorder, res_launches, rng,
             "plain_ms": acc["plain_ms"],
             "bound_ms": max(acc["bb"], acc["bo"]) * 1e3,
             "bound_by": "bytes" if acc["bb"] >= acc["bo"] else "operations",
+            **({"bound_unit": acc["unit"]} if acc.get("unit") else {}),
             "library_ms": acc["library_ms"],
             "device_ms": device_ms(device_us, (f"{name}_kernel",))})
     return out
@@ -1857,10 +1947,11 @@ def serving_kernel_record(serve_calls, serve_launches, shingles, device_us,
         rm["bo"] += bo
     bits = shingles["bits"]
     G, W = bits.shape
-    bb, bo = pairwise_bound_s(G, W, rates)
+    bb, bo, unit = pairwise_bound_s(G, W, rates)
     pw = dict(ms=cuda_ms(lambda: K1.pairwise_intersections(bits), 20),
               plain_ms=cuda_ms(lambda: R1.pairwise_intersection(bits), 2),
               library_ms=cuda_ms(pairwise_library(bits), 10), bb=bb, bo=bo,
+              unit=unit,
               err=exact_error("pairwise_intersections",
                               K1.pairwise_intersections(bits),
                               R1.pairwise_intersection(bits), (G, W)))
@@ -1886,6 +1977,7 @@ def serving_kernel_record(serve_calls, serve_launches, shingles, device_us,
             "plain_ms": acc["plain_ms"],
             "bound_ms": max(acc["bb"], acc["bo"]) * 1e3,
             "bound_by": "bytes" if acc["bb"] >= acc["bo"] else "operations",
+            **({"bound_unit": acc["unit"]} if acc.get("unit") else {}),
             "library_ms": acc["library_ms"],
             "device_ms": device_ms(device_us, names)})
     return out

@@ -5,46 +5,89 @@
 // (block function `_masked_batch_block`): for every batch row b < valid and
 // every row pair (i, j) of its (G, W) uint32 bitmap,
 //     out[b, i, j] = sum_w popcount(bits[b, i, w] & bits[b, j, w]),
-// and out[b, i, j] = 0 for the padding rows b >= valid.
+// and out[b, i, j] = 0 for the padding rows b >= valid, which are never
+// read.
 //
 // What bounds it on an H100: the main path calls it on tiles of
 // (64, G, W) with G in 8..128 and W in 8..256 (powers of two). The work is
-// G*G*W AND+POPC pairs per row, against G*W*4 bytes read and G*G*4 written,
-// so for G >= 16 the instruction throughput of the per-word-pair work (two
-// loads, an AND, a POPC at quarter rate, an add) bounds it, not HBM; at
-// G = 8 the output write and the launch itself dominate.
+// G*(G+1)/2*W word pairs per row (the matrix is symmetric) against G*W*4
+// bytes read and G*G*4 written. On the tensor cores' binary multiply (see
+// `popc_gram.cuh`) the operations take far less than the bytes at every
+// one of those shapes, so moving the rows bounds it, and at the main
+// path's G = 8 and 16 the launch itself.
 //
-// Design: one thread per (b, i, j), a 16x16 thread block per (i, j) tile,
-// grid.z over the batch. The TPU kernel's sequential W-grid accumulation
-// becomes the in-thread loop over W words with `__popc`, so no partial sum
-// leaves a register and no atomics are needed. Reads go through the
-// read-only path (`__ldg`) and hit L1/L2: a block touches only 32 rows of
-// one group. Staging the group in shared memory and computing only the
-// upper triangle (the matrix is symmetric) are the next steps for speed.
+// Design: the tile routine of `popc_gram.cuh` (32 x 32 output tiles by
+// `mma.m16n8k256.b1.and.popc`, rows staged in shared memory by
+// double-buffered `cp.async`, fragments by `ldmatrix`). For G > 32, one
+// block per (b, upper-triangle tile pair), each count written to (i, j)
+// and (j, i). For G <= 32, one block per run of k = 32 / G consecutive
+// groups: their k*G rows are consecutive in memory, so they form one
+// diagonal tile whose G x G diagonal blocks are the groups' outputs (the
+// rest of the tile is not written), and a block is not mostly idle on the
+// main path's G = 8 and 16. Rows of groups b >= valid load as zero without
+// a read, so their outputs are zeros.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "popc_gram.cuh"
+
 namespace {
 
-constexpr int kTile = 16;
+using namespace popc_gram;
 
-__global__ void bitset_intersections_kernel(const uint32_t* __restrict__ bits,
-                                            int32_t* __restrict__ out,
-                                            int64_t G, int64_t W,
-                                            int64_t valid) {
-  const int64_t b = blockIdx.z;
-  const int64_t i = static_cast<int64_t>(blockIdx.y) * kTile + threadIdx.y;
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x;
-  if (i >= G || j >= G) return;
-  int32_t acc = 0;
-  if (b < valid) {
-    const uint32_t* ri = bits + (b * G + i) * W;
-    const uint32_t* rj = bits + (b * G + j) * W;
-    for (int64_t w = 0; w < W; ++w) {
-      acc += __popc(__ldg(ri + w) & __ldg(rj + w));
+// per_tile > 0: G <= kTile, per_tile groups a block; else one block per
+// (b, tile pair) of a T x T tile grid with `pairs` upper-triangle pairs
+template <int kVec>
+__global__ void __launch_bounds__(kThreads)
+    bitset_intersections_kernel(const uint32_t* __restrict__ bits,
+                                int32_t* __restrict__ out, int64_t B,
+                                int64_t G, int64_t W, int64_t valid,
+                                int64_t per_tile, int64_t T, int64_t pairs) {
+  __shared__ Stage st[kStages];
+  Counts acc = {};
+  if (per_tile > 0) {
+    const int64_t b0 = static_cast<int64_t>(blockIdx.x) * per_tile;
+    const int64_t nb = B - b0 < per_tile ? B - b0 : per_tile;
+    const int64_t live = valid - b0 < nb ? valid - b0 : nb;  // groups read
+    if (live > 0) {
+      const Rows rows{bits + b0 * G * W, static_cast<int>(live * G)};
+      gram_tile<kVec>(st, rows, rows, true, W, 0, W, acc);
     }
+    // r / G as (r + 1/2) * (1/G) in f32: exact for r < kTile, G <= kTile
+    // (the product is at least 1/(2G) from an integer), and far cheaper
+    // than an integer division
+    const int g = static_cast<int>(G), span = static_cast<int>(nb) * g;
+    const float inv = 1.0f / static_cast<float>(g);
+    int32_t* o = out + b0 * G * G;
+    for_each_count(acc, true, [&](int r, int c, int v) {
+      const int k = static_cast<int>((r + 0.5f) * inv);
+      if (c < span && k == static_cast<int>((c + 0.5f) * inv)) {  // r <= c
+        // group k's (i, j) = (r - kg, c - kg) lies at o[(kg + i) g + j]
+        o[r * g + c - k * g] = v;
+        o[c * g + r - k * g] = v;
+      }
+    });
+    return;
   }
-  out[(b * G + i) * G + j] = acc;
+  const int64_t b = blockIdx.x / pairs;
+  int64_t ti, tj;
+  tile_pair(blockIdx.x % pairs, T, ti, tj);
+  const int64_t i0 = ti * kTile, j0 = tj * kTile;
+  if (b < valid) {
+    const uint32_t* g = bits + b * G * W;
+    gram_tile<kVec>(
+        st, Rows{g + i0 * W, static_cast<int>(G - i0 < kTile ? G - i0 : kTile)},
+        Rows{g + j0 * W, static_cast<int>(G - j0 < kTile ? G - j0 : kTile)},
+        ti == tj, W, 0, W, acc);
+  }
+  int32_t* o = out + b * G * G;
+  for_each_count(acc, ti == tj, [&](int r, int c, int v) {
+    const int64_t i = i0 + r, j = j0 + c;
+    if (i < G && j < G) {
+      o[i * G + j] = v;
+      o[j * G + i] = v;
+    }
+  });
 }
 
 }  // namespace
@@ -53,13 +96,16 @@ extern "C" int bitset_intersections_launch(const void* bits, void* out,
                                            int64_t B, int64_t G, int64_t W,
                                            int64_t valid, void* stream) {
   if (B <= 0 || G <= 0) return static_cast<int>(cudaGetLastError());
-  dim3 block(kTile, kTile);
-  dim3 grid(static_cast<unsigned>((G + kTile - 1) / kTile),
-            static_cast<unsigned>((G + kTile - 1) / kTile),
-            static_cast<unsigned>(B));
-  bitset_intersections_kernel<<<grid, block, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(bits), static_cast<int32_t*>(out), G, W,
-      valid);
+  const int64_t per_tile = G <= kTile ? kTile / G : 0;
+  const int64_t T = (G + kTile - 1) / kTile;
+  const int64_t pairs = T * (T + 1) / 2;
+  const int64_t blocks = per_tile ? (B + per_tile - 1) / per_tile : B * pairs;
+  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  auto* kernel = vec4_ok(bits, W) ? &bitset_intersections_kernel<4>
+                                  : &bitset_intersections_kernel<1>;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(bits), static_cast<int32_t*>(out), B, G, W,
+      valid, per_tile, T, pairs);
   return static_cast<int>(cudaGetLastError());
 }

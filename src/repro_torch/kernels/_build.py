@@ -8,8 +8,9 @@ pointers, sizes and a ``cudaStream_t``, returning ``cudaGetLastError()``).
 No PyTorch header is included, so a cold build takes seconds, not minutes.
 
 The library is built at first use into ``build/repro_torch/`` at the root
-of the checkout, named by a hash of the sources and the flags, so an edited
-source rebuilds and an unchanged one loads the cached file. Nothing here
+of the checkout, named by a hash of the sources, the headers they include
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+an unchanged tree loads the cached file. Nothing here
 runs at import time: the CPU-only test suite imports every module.
 """
 from __future__ import annotations
@@ -42,7 +43,7 @@ LAUNCHERS = {
     "bitset_fold_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _P),
     "interval_count_launch": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     "rowmin_hash_launch": (_P, _P, _I64, _I64, _I64, _I64, _P),
-    "pairwise_intersections_launch": (_P, _P, _I64, _I64, _P),
+    "pairwise_intersections_launch": (_P, _P, _I64, _I64, _I64, _P),
     "flash_attention_launch": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                                _I64, _I64, _I64, _F32, _I64, _P, _P),
     # not a launcher: the flash kernels' dynamic shared memory, for reports
@@ -60,6 +61,8 @@ def pow2(x: int, floor: int = 8) -> int:
 
 
 def _sources() -> list:
+    """The translation units: every ``*.cu``, each compiled by its own
+    nvcc."""
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
@@ -76,9 +79,12 @@ def _nvcc() -> str:
     return found
 
 
-def _digest(sources: list) -> str:
+def _digest(csrc: Path = CSRC_DIR) -> str:
+    """Hash of the flags and of every source and header (``*.cuh``) in
+    ``csrc``: an edit to either names a new library, so nothing stale
+    loads."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -131,7 +137,7 @@ def load_library(rebuild: bool = False):
             return _LIB
         sources = _sources()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        lib_path = BUILD_DIR / f"librepro_torch_{_digest(sources)}.so"
+        lib_path = BUILD_DIR / f"librepro_torch_{_digest()}.so"
         t0 = time.perf_counter()
         if lib_path.is_file() and not rebuild:
             ptxas_file = lib_path.with_suffix(".ptxas.txt")

@@ -1,11 +1,19 @@
 """Wrappers of the CUDA kernels `csrc/bitset_intersections.cu` (batched
 all-pairs intersection popcounts of packed neighbor bitmaps) and
-`csrc/pairwise_intersections.cu` (all pairs of one wide bitmap set).
+`csrc/pairwise_intersections.cu` (all pairs of one wide bitmap set), both
+built on the tile routine of `csrc/popc_gram.cuh`.
 
 Dispatch is by the tensor's device and nothing else: a CUDA tensor
 launches the kernel (a failed launch raises), a CPU tensor takes the plain
 version in `ref.py`. ``LAUNCHES`` and ``PAIRWISE_LAUNCHES`` count kernel
 launches only.
+
+The merge engine calls `bitset_intersections` thousands of times a run on
+small tiles, so its launch path does little per call: the launcher is
+looked up once, the output comes from `new_empty`, the stream is read as a
+raw handle for the tensor's device, the device is switched only when the
+tensor is not on the current one, and the pairwise launcher is handed the
+device's SM count (read once a device) instead of asking the runtime.
 """
 from __future__ import annotations
 
@@ -16,6 +24,30 @@ from repro_torch.kernels.bitset_jaccard import ref
 
 LAUNCHES = 0
 PAIRWISE_LAUNCHES = 0
+_LAUNCHERS: dict = {}  # launcher name -> the library's ctypes function
+_SMS: dict = {}  # device index -> its SM count
+
+
+def _launch(name: str, index: int, *args) -> None:
+    """Launch ``name`` on the current stream of CUDA device ``index``;
+    raises on a non-zero ``cudaError_t``."""
+    fn = _LAUNCHERS.get(name)
+    if fn is None:
+        fn = _LAUNCHERS[name] = getattr(_build.load_library(), name)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        status = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            status = fn(*args, stream)
+    _build.check_status(name.removesuffix("_launch"), status)
+
+
+def _check_cuda(bits: torch.Tensor, device: torch.device) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if not bits.is_contiguous():
+        raise ValueError("bits must be contiguous")
 
 
 def bitset_intersections(bits: torch.Tensor, valid: int) -> torch.Tensor:
@@ -28,21 +60,15 @@ def bitset_intersections(bits: torch.Tensor, valid: int) -> torch.Tensor:
                          f"{tuple(bits.shape)} {bits.dtype}")
     B, G, W = bits.shape
     valid = max(0, min(int(valid), B))
-    if bits.device.type == "cpu":
+    device = bits.device
+    if device.type == "cpu":
         return ref.bitset_intersections(bits, valid)
-    if bits.device.type != "cuda":
-        raise ValueError(f"unsupported device {bits.device}")
-    if not bits.is_contiguous():
-        raise ValueError("bits must be contiguous")
-    lib = _build.load_library()
-    out = torch.empty((B, G, G), dtype=torch.int32, device=bits.device)
+    _check_cuda(bits, device)
+    out = bits.new_empty((B, G, G))
     if out.numel() == 0:
         return out
-    with torch.cuda.device(bits.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.bitset_intersections_launch(
-            bits.data_ptr(), out.data_ptr(), B, G, W, valid, stream)
-    _build.check_status("bitset_intersections", status)
+    _launch("bitset_intersections_launch", device.index, bits.data_ptr(),
+            out.data_ptr(), B, G, W, valid)
     LAUNCHES += 1
     return out
 
@@ -55,20 +81,19 @@ def pairwise_intersections(bits: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"bits must be a (G, W) int32 tensor, got "
                          f"{tuple(bits.shape)} {bits.dtype}")
     G, W = bits.shape
-    if bits.device.type == "cpu":
+    device = bits.device
+    if device.type == "cpu":
         return ref.pairwise_intersection(bits)
-    if bits.device.type != "cuda":
-        raise ValueError(f"unsupported device {bits.device}")
-    if not bits.is_contiguous():
-        raise ValueError("bits must be contiguous")
-    lib = _build.load_library()
-    out = torch.empty((G, G), dtype=torch.int32, device=bits.device)
+    _check_cuda(bits, device)
+    out = bits.new_empty((G, G))
     if G == 0:
         return out
-    with torch.cuda.device(bits.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.pairwise_intersections_launch(
-            bits.data_ptr(), out.data_ptr(), G, W, stream)
-    _build.check_status("pairwise_intersections", status)
+    index = device.index
+    sms = _SMS.get(index)
+    if sms is None:
+        sms = _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    _launch("pairwise_intersections_launch", index, bits.data_ptr(),
+            out.data_ptr(), G, W, sms)
     PAIRWISE_LAUNCHES += 1
     return out

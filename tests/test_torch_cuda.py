@@ -46,17 +46,53 @@ def _ids(E, S, seed):
     return torch.from_numpy(ids)
 
 
+def _gram_checks(got, bits, valid):
+    """A Gram matrix of popcounts: symmetric, its diagonal the rows'
+    popcounts, zero in the rows past ``valid``."""
+    assert torch.equal(got, got.transpose(-1, -2))
+    pop = inter_ref.popcount_u32(bits[:valid]).sum(-1).to(torch.int32)
+    assert torch.equal(torch.diagonal(got[:valid], dim1=-2, dim2=-1), pop)
+    assert not got[valid:].any()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("G,W,valid", [(8, 8, 64), (16, 64, 37), (128, 256, 64),
-                                       (32, 5, 3), (17, 3, 64)])
-def test_cuda_intersections_match_plain(G, W, valid):
+@pytest.mark.parametrize("G,W,valid", [
+    (8, 8, 64), (16, 64, 37), (128, 256, 64), (32, 5, 3), (17, 3, 64),
+    # the tiling's edges: G one row, a ragged second 32-row tile, one short
+    # of four tiles; W one word, a ragged 32-word chunk, past 256 words;
+    # no valid row and one
+    (1, 1, 64), (1, 257, 1), (33, 9, 64), (33, 257, 0), (127, 1, 1),
+    (127, 9, 64), (127, 257, 37), (3, 9, 0), (1, 9, 63)])
+@pytest.mark.parametrize("ones", [False, True], ids=["random", "ones-group"])
+def test_cuda_intersections_match_plain(G, W, valid, ones):
     _need_card()
-    bits = _bits((64, G, W), seed=G + W).cuda()
+    bits = _bits((64, G, W), seed=G + W)
+    if ones:
+        bits[1] = -1  # a whole group of all-ones words
+    bits = bits.cuda()
     n = inter_kernel.LAUNCHES
     got = inter_kernel.bitset_intersections(bits, valid)
     torch.cuda.synchronize()
     assert inter_kernel.LAUNCHES == n + 1
     assert torch.equal(got, inter_ref.bitset_intersections(bits, valid))
+    _gram_checks(got, bits, valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,W", [(8, 8), (64, 64), (33, 9)])
+def test_cuda_intersections_read_a_misaligned_base(G, W):
+    """A contiguous view whose base is not 16-byte aligned takes the
+    kernel's 4-byte copies; the counts are the same."""
+    _need_card()
+    rng = np.random.default_rng(G)
+    words = rng.integers(0, 1 << 32, size=64 * G * W + 1, dtype=np.uint64)
+    flat = torch.from_numpy(words.astype(np.uint32).view(np.int32)).cuda()
+    bits = flat[1:].view(64, G, W)
+    assert bits.data_ptr() % 16
+    got = inter_kernel.bitset_intersections(bits, 64)
+    assert torch.equal(got, inter_ref.bitset_intersections(bits, 64))
+    pw = inter_kernel.pairwise_intersections(bits[0])
+    assert torch.equal(pw, inter_ref.pairwise_intersection(bits[0]))
 
 
 @pytest.mark.cuda
@@ -223,7 +259,8 @@ def test_cuda_rowmin_hash_matches_plain(R, W):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("G,W", [(37, 5), (128, 128), (512, 512), (33, 65),
-                                 (1, 1)])
+                                 (1, 1), (200, 1), (512, 6875), (513, 33),
+                                 (64, 4096)])
 def test_cuda_pairwise_intersections_match_plain(G, W):
     _need_card()
     bits = _bits((G, W), seed=G * W).cuda()
@@ -232,6 +269,7 @@ def test_cuda_pairwise_intersections_match_plain(G, W):
     torch.cuda.synchronize()
     assert inter_kernel.PAIRWISE_LAUNCHES == n + 1
     assert torch.equal(got, inter_ref.pairwise_intersection(bits))
+    _gram_checks(got, bits, G)
 
 
 @pytest.mark.cuda

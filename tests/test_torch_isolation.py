@@ -1,5 +1,5 @@
-"""The port stands alone: `src/repro_torch`, `chip_smoke.py` and
-`flash_bench.py` import neither jax nor the JAX package, entry points
+"""The port stands alone: `src/repro_torch`, `chip_smoke.py`,
+`flash_bench.py` and `popc_bench.py` import neither jax nor the JAX package, entry points
 default to the CUDA card and refuse to fall back to the CPU, and the
 unported paths say so."""
 import ast
@@ -17,7 +17,7 @@ from repro_torch.graphs import generators as PG
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "flash_bench.py"]
+    ROOT / "chip_smoke.py", ROOT / "flash_bench.py", ROOT / "popc_bench.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -60,7 +60,7 @@ def test_port_files_exist():
                  "src/repro_torch/kernels/flash_attn/ops.py",
                  "src/repro_torch/kernels/flash_attn/ref.py",
                  "src/repro_torch/interop.py",
-                 "chip_smoke.py", "flash_bench.py"):
+                 "chip_smoke.py", "flash_bench.py", "popc_bench.py"):
         assert want in names
     csrc = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")}
     assert {"interval_count.cu", "rowmin_hash.cu",
@@ -160,6 +160,17 @@ def test_flash_bench_fails_without_a_card():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "flash_bench.py"], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "kernel_ms" not in out.stdout
+
+
+def test_popc_bench_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: popc_bench.py would run")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "popc_bench.py", "--probe"],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode != 0
     assert "kernel_ms" not in out.stdout
 

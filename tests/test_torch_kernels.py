@@ -53,6 +53,15 @@ INTER_CASES = [
     (2, 16, 16, 2, True),
     (2, 128, 2, 2, False),   # the widest batched group
     (5, 128, 3, 3, True),
+    # the CUDA kernel's tiling edges: one row, a ragged second 32-row tile,
+    # one tile short of 128; one word, a ragged 32-word chunk, W past 256;
+    # no valid row, one valid row; an all-ones group (G = 1)
+    (3, 1, 1, 0, False),
+    (2, 1, 257, 1, True),
+    (3, 33, 9, 1, True),
+    (2, 33, 1, 0, True),
+    (2, 127, 257, 1, False),
+    (4, 127, 9, 2, True),
 ]
 
 
@@ -60,7 +69,7 @@ INTER_CASES = [
 def test_plain_intersections_match_pallas(B, G, W, valid, all_ones):
     bits = _bits((B, G, W), seed=B * 1000 + G + W)
     if all_ones:
-        bits[:, : G // 2, :] = 0xFFFFFFFF
+        bits[:, : max(1, G // 2), :] = 0xFFFFFFFF
     want = np.asarray(batch_masked_intersection_kernel(
         jnp.asarray(bits), jnp.asarray([valid], dtype=jnp.int32),
         interpret=True))

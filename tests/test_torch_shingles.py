@@ -164,8 +164,12 @@ def test_node_shingles_equal_the_engines_host_shingles(sub_seed):
 
 
 # ------------------------------------------------------- pairwise intersections
+# the last four: the CUDA kernel's tiling edges (one row; one word; the
+# record's wide row, W split over the SMs with 4-byte copies; a ragged
+# 17th 32-row tile)
 @pytest.mark.parametrize("G,W", [(4, 1), (32, 8), (128, 16), (60, 33),
-                                 (37, 5)])
+                                 (37, 5), (1, 1), (200, 1), (512, 6875),
+                                 (513, 33)])
 def test_plain_pairwise_intersection_matches_pallas(G, W):
     rng = np.random.default_rng(G + W)
     bits = rng.integers(0, 1 << 32, size=(G, W), dtype=np.uint64)
@@ -176,9 +180,12 @@ def test_plain_pairwise_intersection_matches_pallas(G, W):
     got = jaccard_kernel.pairwise_intersections(_i32(bits))
     assert got.dtype == torch.int32 and got.shape == (G, G)
     np.testing.assert_array_equal(got.numpy(), want)
-    np.testing.assert_array_equal(
-        got.numpy(), np.asarray(ref_jaccard_ref.pairwise_intersection(
-            jnp.asarray(bits))))
+    # the jnp oracle holds G·G·W words at once (21 GB at 512 × 6875), so it
+    # checks the cases that stay small; the Pallas kernel checks them all
+    if G * G * W <= 1 << 24:
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(ref_jaccard_ref.pairwise_intersection(
+                jnp.asarray(bits))))
 
 
 def test_plain_pairwise_intersection_chunks_rows(monkeypatch):
