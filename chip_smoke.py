@@ -8,16 +8,20 @@ Phases, each printing one JSON line with its seconds:
 
   device   the card's name and count, and its power limit from nvidia-smi
   build    the CUDA kernels built from `src/repro_torch/csrc` (nvcc, sm_90a);
-           the flash and the two intersection kernels' ptxas resources
-           (registers, spills, shared memory) and `cuobjdump -sass` of the
-           library: raises unless every bf16 flash kernel holds tensor-core
-           instructions (HMMA or HGMMA) and the f32 one none, and unless
-           every intersection kernel holds the binary MMA (BMMA); reports
-           their POPC, BMMA and IMMA counts
+           the flash, the two intersection, the top-J and the
+           interval-count kernels' ptxas resources (registers, spills,
+           shared memory) and `cuobjdump -sass` of the library: raises
+           unless every bf16 flash kernel holds tensor-core instructions
+           (HMMA or HGMMA) and the f32 one none, and unless every
+           intersection kernel holds the binary MMA (BMMA); reports their
+           POPC, BMMA and IMMA counts
   kernels  each kernel against its plain PyTorch version on the card, at
-           fixed shapes (the widest included): exact equality, CUDA-event
-           times of the kernel, the plain version and, where one exists, a
-           one-call PyTorch yardstick
+           fixed shapes (the widest, and the resident path's largest top-J
+           calls, included; the interval count also at serving's hub tile
+           and on inputs past serving's: lo >= hi, negative positions,
+           signs of ±3): exact equality, CUDA-event times of the kernel,
+           the plain version and, where one exists, a one-call PyTorch
+           yardstick
   main     `summarize(caveman(20000, 11, 0.03), backend="batched")` — the
            1.1M-edge graph at T=20 — lossless, with the launch counts of
            all four kernels read from a run that started them at 0
@@ -100,13 +104,21 @@ POPC_LANES_PER_SM = 16
 INTER_SHAPES = [(64, g, w, 64) for g in (8, 16, 32, 64, 128)
                 for w in (8, 64, 256)] + [(64, 16, 8, 37)]
 HIST_SHAPES = [((1 << 17), (1 << 18)), ((1 << 20), (1 << 15))]
-# (B, G, Wp, J) and (B, G, Wp, P): small, main-path-like and the widest
-TOPJ_SHAPES = [(3, 2, 2, 1), (4096, 16, 2, 15), (64, 128, 256, 16)]
+# (B, G, Wp, J) and (B, G, Wp, P): small, main-path-like, the resident
+# main path's two largest calls (G = 8 and 16 at 2 words, J = G - 1) and
+# the widest
+TOPJ_SHAPES = [(3, 2, 2, 1), (4096, 16, 2, 15), (32768, 8, 2, 7),
+               (32768, 16, 2, 15), (64, 128, 256, 16)]
 FOLD_SHAPES = [(7, 32, 2, 16), (4096, 16, 2, 8), (64, 128, 256, 64)]
-# (B, E, P): the caveman-like, the wide (rmat hubs) and the widest tiles,
-# and the one-probe `edge_exists` tile
-INTERVAL_SHAPES = [(256, 128, 256), (256, 512, 1024), (64, 4096, 8192),
-                   (256, 512, 1)]
+# (layout, B, E, P): random tiles (`interval_input`: caveman-like, wide,
+# the widest and the one-probe `edge_exists` tile); serving's hub tile
+# (`interval_serving_input`: one row of E real intervals, the rest of at
+# most 16, probing every sorted boundary as `query_batch._ranges_kernel`
+# does); and any-int32 input (`interval_edge_input`: lo >= hi, negative
+# positions, signs of ±3)
+INTERVAL_SHAPES = [("random", 256, 128, 256), ("random", 256, 512, 1024),
+                   ("random", 64, 4096, 8192), ("random", 256, 512, 1),
+                   ("serving", 256, 4096, 8192), ("edge", 64, 1000, 3000)]
 ROWMIN_SHAPES = [(220000, 128), (1 << 20, 128), (4099, 1000)]  # (R, W)
 PAIRWISE_SHAPES = [(37, 5), (128, 128), (512, 6875)]  # (G, W)
 SERVE_QUERIES = 16384
@@ -260,16 +272,18 @@ def topj_bound_s(B, G, W, J, calls, pairs, keys, live, compares, rates):
     """``calls`` calls of one shape, the rest summed over them
     (`topj_work`). Bytes: the live groups' bits, alive and the output
     once each. Operations: each needed row pair and each live row's
-    degree is W word pairs of an AND and an ADD on the integer lanes and
-    a POPC on its own unit; each needed pair's key takes at least 8
+    degree is W word pairs, at the least time over the POPC lanes, int8
+    and b1 (`gram_ops_bound_s`); each needed pair's key takes at least 8
     integer operations (union, bit length, shifts, the divide counted as
-    one), each combined key 3 more, plus the selections' compares."""
+    one), each combined key 3 more, plus the selections' compares, on the
+    integer lanes, which run beside the word pairs' unit (the slower of
+    the two bounds). Returns the bytes' and the operations' times and the
+    word pairs' unit."""
     by_bytes = (live * G * W * 4 + calls * (B * G + B * G * J * 4)) / rates[
         "hbm_bytes_per_s"]
-    words = (pairs + live * G) * W
-    ints = 2 * words + 8 * pairs + 3 * keys + compares
-    return by_bytes, max(ints / rates["int32_ops_per_s"],
-                         words / rates["popc_per_s"])
+    by_pairs, unit = gram_ops_bound_s((pairs + live * G) * W, rates)
+    ints = 8 * pairs + 3 * keys + compares
+    return by_bytes, max(by_pairs, ints / rates["int32_ops_per_s"]), unit
 
 
 def fold_input(B, G, W, P, n_valid, rng):
@@ -385,21 +399,65 @@ def interval_input(B, E, P, rng, span=1 << 15):
     return tuple(torch.from_numpy(a).cuda() for a in (lo, hi, sg, pos))
 
 
-def interval_pairs(sign, pos):
-    """(real interval, real probe) pairs of one call: a padded interval has
-    sign 0, a padded probe is -1; neither needs a compare."""
+def interval_serving_input(B, E, rng, span=1 << 14):
+    """Serving's layout of one wide tile (`query_batch._padded_batch` and
+    `_ranges_kernel`): row 0, the hub, holds E real intervals, every other
+    row 1..16; slots past a row's count are (0, 0, 0); the probes are every
+    row's 2E boundaries, sorted, padding's 0s included."""
+    import numpy as np
     import torch
 
-    return int(((sign != 0).sum(dim=1, dtype=torch.int64)
-                * (pos >= 0).sum(dim=1, dtype=torch.int64)).sum())
+    n = rng.integers(1, 17, size=B)
+    n[0] = E
+    real = np.arange(E)[None, :] < n[:, None]
+    lo = np.where(real, rng.integers(0, span, size=(B, E)), 0)
+    hi = np.where(real, lo + rng.integers(1, 512, size=(B, E)), 0)
+    sg = np.where(real, rng.choice([-1, 1], size=(B, E)), 0)
+    pos = np.sort(np.concatenate([lo, hi], axis=1), axis=1)
+    return tuple(torch.from_numpy(a.astype(np.int32)).cuda()
+                 for a in (lo, hi, sg, pos))
 
 
-def interval_bound_s(B, E, P, pairs, rates):
+def interval_edge_input(B, E, P, rng, span=1 << 12):
+    """Inputs past serving's: a third of the intervals with lo >= hi,
+    positions and bounds negative and positive, signs of ±1, ±3 and 0."""
+    import numpy as np
+    import torch
+
+    lo = rng.integers(-span, span, size=(B, E))
+    hi = lo + rng.integers(-span // 2, span, size=(B, E))
+    sg = rng.choice([-3, -1, 0, 1, 3], size=(B, E))
+    pos = rng.integers(-2 * span, 2 * span, size=(B, P))
+    return tuple(torch.from_numpy(a.astype(np.int32)).cuda()
+                 for a in (lo, hi, sg, pos))
+
+
+INTERVAL_INPUTS = {"random": interval_input, "edge": interval_edge_input,
+                   "serving": lambda B, E, P, rng: interval_serving_input(
+                       B, E, rng)}
+
+
+def interval_work(lo, hi, sign, pos):
+    """What one call's data needs: its real intervals (sign != 0 and
+    lo < hi) and the probes of the rows that hold one (a row without one
+    answers 0 to every probe unread). Ints, one host sync."""
+    import torch
+
+    real = ((sign != 0) & (lo < hi)).sum(dim=1, dtype=torch.int64)
+    return torch.stack([real.sum(), ((real > 0) * pos.shape[1]).sum()]
+                       ).tolist()
+
+
+def interval_bound_s(B, E, P, intervals, probes, rates):
     """Every input slot is read once (the kernel has no count of the real
-    ones) and the (B, P) output written once; each real pair takes two
-    compares and a predicated add on the integer lanes."""
+    ones) and the (B, P) output written once. Operations: each real
+    interval and each probe of a row that has one handled once, one
+    integer operation each. The brute (real interval, probe) pairs are no
+    lower bound: sorting a row's intervals once and searching each probe
+    computes the same function in O((n + P) log n), and any algorithm must
+    still look at every interval and every probe."""
     by_bytes = ((3 * B * E + B * P) * 4 + B * P * 4) / rates["hbm_bytes_per_s"]
-    return by_bytes, 3 * pairs / rates["int32_ops_per_s"]
+    return by_bytes, (intervals + probes) / rates["int32_ops_per_s"]
 
 
 def rowmin_input(R, W, seed):
@@ -464,18 +522,18 @@ def new_kernel_rows(rng, rates):
     from repro_torch.kernels.minhash import kernel as KM, ref as RM
 
     rows = []
-    for B, E, P in INTERVAL_SHAPES:
-        x = interval_input(B, E, P, rng)
+    for kind, B, E, P in INTERVAL_SHAPES:
+        x = INTERVAL_INPUTS[kind](B, E, P, rng)
         err = exact_error("interval_count", KI.interval_counts(*x),
-                          RI.interval_counts(*x), (B, E, P))
+                          RI.interval_counts(*x), (kind, B, E, P))
         rows.append({
-            "kernel": "interval_count", "shape": [B, E, P],
+            "kernel": "interval_count", "layout": kind, "shape": [B, E, P],
             "max_abs_err": err,
             "kernel_ms": cuda_ms(lambda: KI.interval_counts(*x), 20),
             "plain_ms": cuda_ms(lambda: RI.interval_counts(*x), 2),
             "library_ms": None,
-            **bound_fields(*interval_bound_s(
-                B, E, P, interval_pairs(x[2], x[3]), rates))})
+            **bound_fields(*interval_bound_s(B, E, P, *interval_work(*x),
+                                             rates))})
     for R, W in ROWMIN_SHAPES:
         nbr = rowmin_input(R, W, seed=R + W)
         a, b = 2654435761, 0x9E3779B9
@@ -774,22 +832,24 @@ INTER_KERNELS = ("bitset_intersections_kernel",
 INTER_OP = "BMMA"
 
 
-def inter_build_report(ptxas, path):
-    """The two intersection kernels' instantiations (by their copy width,
-    ``vec1``/``vec4`` words): ptxas resources (registers, spill bytes,
-    stack, static shared memory) and SASS counts of POPC and the
-    tensor-core opcodes. Raises unless every instantiation holds the
-    shipped design's instruction, `INTER_OP`."""
+def ptxas_resources(ptxas, names, arg="vec"):
+    """ptxas resources (registers, spill bytes, stack, static shared
+    memory) of each entry function whose mangled name holds one of
+    ``names``, keyed by that name and, for a template, its first argument
+    (``<{arg}N>``; the intersection kernels' ``vecN`` is the copy width in
+    words)."""
     import re
 
     out, cur = {}, None
     for ln in ptxas:
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            k = re.search(r"(%s)ILi(\d+)E" % "|".join(INTER_KERNELS),
+            k = re.search(r"(%s)(?:ILi(\d+)E)?" % "|".join(names),
                           m.group(1))
-            cur = f"{k.group(1)}<vec{k.group(2)}>" if k else None
-            if cur:
+            cur = None
+            if k:
+                cur = k.group(1) + (f"<{arg}{k.group(2)}>" if k.group(2)
+                                    else "")
                 out[cur] = {}
             continue
         if cur is None:
@@ -805,6 +865,17 @@ def inter_build_report(ptxas, path):
             out[cur]["registers"] = int(m.group(1))
             sm = re.search(r"(\d+) bytes smem", ln)
             out[cur]["smem_static_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def inter_build_report(ptxas, path):
+    """The two intersection kernels' instantiations (by their copy width,
+    ``vec1``/``vec4`` words): ptxas resources (`ptxas_resources`) and SASS
+    counts of POPC and the tensor-core opcodes. Raises unless every
+    instantiation holds the shipped design's instruction, `INTER_OP`."""
+    import re
+
+    out = ptxas_resources(ptxas, INTER_KERNELS)
     for name in INTER_KERNELS:
         for fn, ops in sass_counts(path, name).items():
             k = re.search(r"ILi(\d+)E", fn)
@@ -819,11 +890,19 @@ def inter_build_report(ptxas, path):
     return out
 
 
+# the top-J kernels (G <= 32 by its segment width S = pow2(G), and the
+# wide b1 one by its copy width in words) and the interval-count kernels
+# (sort-and-search, and the one-probe warp kernel)
+RANK_COUNT_KERNELS = ("jaccard_topj_narrow_kernel", "jaccard_topj_wide_kernel",
+                      "interval_count_kernel", "interval_probe_kernel")
+
+
 def phase_build():
-    """Builds every kernel from the sources; reports the flash and the
-    intersection kernels' ptxas resources and proves from the SASS that the
-    bf16 flash kernel runs on the tensor cores and the intersection kernels
-    on the shipped design's instruction."""
+    """Builds every kernel from the sources; reports the flash, the
+    intersection, the top-J and the interval-count kernels' ptxas
+    resources and proves from the SASS that the bf16 flash kernel runs on
+    the tensor cores and the intersection kernels on the shipped design's
+    instruction."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -831,7 +910,9 @@ def phase_build():
     info = dict(_build.BUILD_INFO)
     emit("build", t0, **info, flash_ptxas=flash_ptxas(info["ptxas"]),
          flash_sass_hmma=flash_sass_hmma(info["path"]),
-         intersections=inter_build_report(info["ptxas"], info["path"]))
+         intersections=inter_build_report(info["ptxas"], info["path"]),
+         rank_count_ptxas=ptxas_resources(info["ptxas"], RANK_COUNT_KERNELS,
+                                          arg=""))
 
 
 def phase_kernels(rng, rates):
@@ -883,15 +964,13 @@ def phase_kernels(rng, rates):
     for B, G, W, J in TOPJ_SHAPES:
         x, alive = topj_input(B, G, W, rng)
         err = topj_error(x, alive, J)
-        bb, bo = topj_bound_s(B, G, W, J, 1, *topj_work(alive, J).tolist(),
-                              rates)
         rows.append({
             "kernel": "jaccard_topj", "shape": [B, G, W, J],
-            "max_abs_err": err,
+            "regime": "narrow" if G <= 32 else "wide", "max_abs_err": err,
             "kernel_ms": cuda_ms(lambda: K3.jaccard_topj(x, alive, J), 20),
             "plain_ms": cuda_ms(lambda: R3.topj_all(x, alive, J), 2),
-            "library_ms": None, "bound_us": max(bb, bo) * 1e6,
-            "bound_by": "bytes" if bb >= bo else "operations"})
+            "library_ms": None, **bound_fields(*topj_bound_s(
+                B, G, W, J, 1, *topj_work(alive, J).tolist(), rates))})
     for B, G, W, P in FOLD_SHAPES:
         n_valid = B * P - B // 2  # a few padding rows
         x, alive, instr = fold_input(B, G, W, P, n_valid, rng)
@@ -1243,14 +1322,14 @@ def kernel_record(recorder, launches, res_recorder, res_launches, rng,
         hist["bb"] += bb
         hist["bo"] += bo
     topj = dict(ms=0.0, plain_ms=0.0, library_ms=None, bb=0.0, bo=0.0,
-                err=0)
+                err=0, unit=None)
     for (B, G, W, J), n in res_recorder.topj.items():
         x, alive = topj_input(B, G, W, rng)
         topj["err"] = max(topj["err"], topj_error(x, alive, J))
         topj["ms"] += n * cuda_ms(lambda: K3.jaccard_topj(x, alive, J), 5)
         topj["plain_ms"] += n * cuda_ms(lambda: R3.topj_all(x, alive, J), 1)
-        bb, bo = topj_bound_s(B, G, W, J, n, *res_recorder.topj_work[
-            (B, G, W, J)], rates)
+        bb, bo, topj["unit"] = topj_bound_s(B, G, W, J, n, *res_recorder
+                                            .topj_work[(B, G, W, J)], rates)
         topj["bb"] += bb
         topj["bo"] += bo
     fold = dict(ms=0.0, plain_ms=0.0, library_ms=None, bb=0.0, bo=0.0,
@@ -1277,19 +1356,23 @@ def kernel_record(recorder, launches, res_recorder, res_launches, rng,
             raise AssertionError(f"{name} differs from its plain version on "
                                  f"the main path's calls by {acc['err']}")
     out = []
-    for name, acc, n_launch, src, replaces in (
+    for name, acc, n_launch, src, replaces, names in (
             ("bitset_intersections", inter, launches,
              "src/repro_torch/csrc/bitset_intersections.cu",
-             "src/repro/kernels/bitset_jaccard/kernel.py:85"),
+             "src/repro/kernels/bitset_jaccard/kernel.py:85",
+             ("bitset_intersections_kernel",)),
             ("segment_histogram", hist, launches,
              "src/repro_torch/csrc/segment_histogram.cu",
-             "src/repro/kernels/seghist/kernel.py:39"),
+             "src/repro/kernels/seghist/kernel.py:39",
+             ("segment_histogram_kernel",)),
             ("jaccard_topj", topj, res_launches,
              "src/repro_torch/csrc/jaccard_topj.cu",
-             "src/repro/kernels/bitset_fold/kernel.py:78"),
+             "src/repro/kernels/bitset_fold/kernel.py:78",
+             ("jaccard_topj_narrow_kernel", "jaccard_topj_wide_kernel")),
             ("bitset_fold", fold, res_launches,
              "src/repro_torch/csrc/bitset_fold.cu",
-             "src/repro/kernels/bitset_fold/kernel.py:129")):
+             "src/repro/kernels/bitset_fold/kernel.py:129",
+             ("bitset_fold_kernel",))):
         out.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": n_launch[name],
@@ -1299,7 +1382,7 @@ def kernel_record(recorder, launches, res_recorder, res_launches, rng,
             "bound_by": "bytes" if acc["bb"] >= acc["bo"] else "operations",
             **({"bound_unit": acc["unit"]} if acc.get("unit") else {}),
             "library_ms": acc["library_ms"],
-            "device_ms": device_ms(device_us, (f"{name}_kernel",))})
+            "device_ms": device_ms(device_us, names)})
     return out
 
 
@@ -1931,7 +2014,7 @@ def serving_kernel_record(serve_calls, serve_launches, shingles, device_us,
             (B, E, P)))
         iv["ms"] += cuda_ms(lambda: KI.interval_counts(*x), 5)
         iv["plain_ms"] += cuda_ms(lambda: RI.interval_counts(*x), 1)
-        bb, bo = interval_bound_s(B, E, P, interval_pairs(x[2], x[3]), rates)
+        bb, bo = interval_bound_s(B, E, P, *interval_work(*x), rates)
         iv["bb"] += bb
         iv["bo"] += bo
     rm = dict(ms=0.0, plain_ms=0.0, library_ms=None, bb=0.0, bo=0.0, err=0)

@@ -24,6 +24,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parents[1] / "build" / "repro_torch"
@@ -42,6 +44,9 @@ LAUNCHERS = {
     "jaccard_topj_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _P),
     "bitset_fold_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _P),
     "interval_count_launch": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    # the same with the probe split given (`rank_count_bench.py --split`)
+    "interval_count_split_launch": (_P, _P, _P, _P, _P, _I64, _I64, _I64,
+                                    _I64, _P),
     "rowmin_hash_launch": (_P, _P, _I64, _I64, _I64, _I64, _P),
     "pairwise_intersections_launch": (_P, _P, _I64, _I64, _I64, _P),
     "flash_attention_launch": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
@@ -53,6 +58,7 @@ LAUNCHERS = {
 _LOCK = threading.Lock()
 _LIB = None
 BUILD_INFO: dict = {}
+_LAUNCHERS: dict = {}  # launcher name -> the library's ctypes function
 
 
 def pow2(x: int, floor: int = 8) -> int:
@@ -167,3 +173,21 @@ def check_status(name: str, status: int):
         what = _LIB.repro_torch_error_string(status).decode()
         raise RuntimeError(f"{name} failed to launch: cudaError_t {status} "
                            f"({what})")
+
+
+def launch(name: str, index: int, *args) -> None:
+    """Launch ``name`` with ``args`` on the current stream of CUDA device
+    ``index``; raises on a non-zero ``cudaError_t``. The wrappers' hot
+    path: the launcher is looked up once, the stream is read as a raw
+    handle, and the device is switched only when ``index`` is not the
+    current one."""
+    fn = _LAUNCHERS.get(name)
+    if fn is None:
+        fn = _LAUNCHERS[name] = getattr(load_library(), name)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        status = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            status = fn(*args, stream)
+    check_status(name.removesuffix("_launch"), status)

@@ -5,7 +5,9 @@
 Dispatch is by the tensor's device and nothing else: a CUDA tensor
 launches the kernel (a failed launch raises), a CPU tensor takes the plain
 version in `ref.py`. ``TOPJ_LAUNCHES`` and ``FOLD_LAUNCHES`` count kernel
-launches only.
+launches only. The resident round calls both once a round, so the launch
+path is `_build.launch` (launcher looked up once, raw stream, no device
+switch on the current device) and outputs come from `new_empty`.
 """
 from __future__ import annotations
 
@@ -51,16 +53,11 @@ def jaccard_topj(bits: torch.Tensor, alive: torch.Tensor,
         raise ValueError(f"J={J} outside 1..{G - 1}")
     if bits.device.type == "cpu":
         return ref.topj_all(bits, alive, J)
-    lib = _build.load_library()
-    out = torch.empty((B, G, J), dtype=torch.int32, device=bits.device)
+    out = bits.new_empty((B, G, J))
     if B == 0:
         return out
-    with torch.cuda.device(bits.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.jaccard_topj_launch(
-            bits.data_ptr(), alive.data_ptr(), out.data_ptr(), B, G, W, J,
-            stream)
-    _build.check_status("jaccard_topj", status)
+    _build.launch("jaccard_topj_launch", bits.device.index, bits.data_ptr(),
+                  alive.data_ptr(), out.data_ptr(), B, G, W, J)
     TOPJ_LAUNCHES += 1
     return out
 
@@ -83,13 +80,9 @@ def bitset_fold(bits: torch.Tensor, alive: torch.Tensor,
         return
     if not instr.is_contiguous():
         raise ValueError("instr must be contiguous")
-    lib = _build.load_library()
     if B == 0 or instr.shape[1] == 0:
         return
-    with torch.cuda.device(bits.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.bitset_fold_launch(
-            bits.data_ptr(), alive.data_ptr(), instr.data_ptr(), B, G, W,
-            instr.shape[1], stream)
-    _build.check_status("bitset_fold", status)
+    _build.launch("bitset_fold_launch", bits.device.index, bits.data_ptr(),
+                  alive.data_ptr(), instr.data_ptr(), B, G, W,
+                  instr.shape[1])
     FOLD_LAUNCHES += 1

@@ -9,11 +9,11 @@ version in `ref.py`. ``LAUNCHES`` and ``PAIRWISE_LAUNCHES`` count kernel
 launches only.
 
 The merge engine calls `bitset_intersections` thousands of times a run on
-small tiles, so its launch path does little per call: the launcher is
-looked up once, the output comes from `new_empty`, the stream is read as a
-raw handle for the tensor's device, the device is switched only when the
-tensor is not on the current one, and the pairwise launcher is handed the
-device's SM count (read once a device) instead of asking the runtime.
+small tiles, so its launch path does little per call: the output comes
+from `new_empty`, `_build.launch` looks the launcher up once, reads the
+stream as a raw handle and switches the device only when the tensor is
+not on the current one, and the pairwise launcher is handed the device's
+SM count (read once a device) instead of asking the runtime.
 """
 from __future__ import annotations
 
@@ -24,23 +24,7 @@ from repro_torch.kernels.bitset_jaccard import ref
 
 LAUNCHES = 0
 PAIRWISE_LAUNCHES = 0
-_LAUNCHERS: dict = {}  # launcher name -> the library's ctypes function
 _SMS: dict = {}  # device index -> its SM count
-
-
-def _launch(name: str, index: int, *args) -> None:
-    """Launch ``name`` on the current stream of CUDA device ``index``;
-    raises on a non-zero ``cudaError_t``."""
-    fn = _LAUNCHERS.get(name)
-    if fn is None:
-        fn = _LAUNCHERS[name] = getattr(_build.load_library(), name)
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    if index == torch.cuda.current_device():
-        status = fn(*args, stream)
-    else:
-        with torch.cuda.device(index):
-            status = fn(*args, stream)
-    _build.check_status(name.removesuffix("_launch"), status)
 
 
 def _check_cuda(bits: torch.Tensor, device: torch.device) -> None:
@@ -67,8 +51,8 @@ def bitset_intersections(bits: torch.Tensor, valid: int) -> torch.Tensor:
     out = bits.new_empty((B, G, G))
     if out.numel() == 0:
         return out
-    _launch("bitset_intersections_launch", device.index, bits.data_ptr(),
-            out.data_ptr(), B, G, W, valid)
+    _build.launch("bitset_intersections_launch", device.index,
+                  bits.data_ptr(), out.data_ptr(), B, G, W, valid)
     LAUNCHES += 1
     return out
 
@@ -93,7 +77,7 @@ def pairwise_intersections(bits: torch.Tensor) -> torch.Tensor:
     if sms is None:
         sms = _SMS[index] = torch.cuda.get_device_properties(
             index).multi_processor_count
-    _launch("pairwise_intersections_launch", index, bits.data_ptr(),
-            out.data_ptr(), G, W, sms)
+    _build.launch("pairwise_intersections_launch", index, bits.data_ptr(),
+                  out.data_ptr(), G, W, sms)
     PAIRWISE_LAUNCHES += 1
     return out

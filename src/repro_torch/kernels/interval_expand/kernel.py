@@ -3,7 +3,9 @@ interval-membership counts of the batched summary queries.
 
 Dispatch is by the tensor's device and nothing else: a CUDA tensor
 launches the kernel (a failed launch raises), a CPU tensor takes the plain
-version in `ref.py`. ``LAUNCHES`` counts kernel launches only.
+version in `ref.py`. ``LAUNCHES`` counts kernel launches only. The launch
+path is `_build.launch` (launcher looked up once, raw stream, no device
+switch on the current device); the output comes from `new_empty`.
 """
 from __future__ import annotations
 
@@ -38,15 +40,11 @@ def interval_counts(lo: torch.Tensor, hi: torch.Tensor, sign: torch.Tensor,
         raise ValueError(f"unsupported device {lo.device}")
     if not all(t.is_contiguous() for t in (lo, hi, sign, pos)):
         raise ValueError("lo, hi, sign and pos must be contiguous")
-    lib = _build.load_library()
-    out = torch.empty((B, P), dtype=torch.int32, device=lo.device)
+    out = pos.new_empty((B, P))
     if out.numel() == 0:
         return out
-    with torch.cuda.device(lo.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.interval_count_launch(
-            lo.data_ptr(), hi.data_ptr(), sign.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), B, E, P, stream)
-    _build.check_status("interval_count", status)
+    _build.launch("interval_count_launch", lo.device.index, lo.data_ptr(),
+                  hi.data_ptr(), sign.data_ptr(), pos.data_ptr(),
+                  out.data_ptr(), B, E, P)
     LAUNCHES += 1
     return out

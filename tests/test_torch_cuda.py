@@ -159,14 +159,22 @@ def _fold_instr(B, G, W, P, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,G,W,J", [(3, 2, 3, 1), (64, 8, 2, 7),
-                                     (64, 16, 8, 15), (37, 32, 5, 16),
-                                     (64, 128, 256, 16), (5, 128, 4, 16)])
+@pytest.mark.parametrize("B,G,W,J", [
+    (3, 2, 3, 1), (64, 8, 2, 7), (64, 16, 8, 15), (37, 32, 5, 16),
+    (64, 128, 256, 16), (5, 128, 4, 16),
+    # the resident main path's largest calls (G = 8, 16 at 2 words)
+    (32768, 8, 2, 7), (32768, 16, 2, 15),
+    # the regime edges (G <= 32 one lane per pair, G > 32 the b1 tile),
+    # J = G - 1, ragged and empty word counts
+    (9, 2, 2, 1), (7, 31, 5, 30), (6, 32, 3, 31), (5, 33, 3, 32),
+    (3, 33, 300, 16), (4, 128, 256, 127), (3, 100, 37, 99), (5, 17, 0, 16),
+    (2, 64, 0, 63)])
 def test_cuda_topj_matches_plain(B, G, W, J):
     _need_card()
     bits = _bits((B, G, W), seed=G + W).cuda()
     rng = np.random.default_rng(G)
     alive = torch.from_numpy((rng.random((B, G)) < 0.8).astype(np.int8))
+    alive[-1] = 0  # an all-dead group
     alive = alive.cuda()
     n = fold_kernel.TOPJ_LAUNCHES
     got = fold_kernel.jaccard_topj(bits, alive, J)
@@ -210,28 +218,57 @@ def test_cuda_resident_summarize_matches_batched():
     assert resident.validate_lossless(g)
 
 
-def _intervals(B, E, P, seed):
-    """Intervals and probes over a DFS range of 10,000 positions, about a
-    quarter of each padded (lo == hi == 0 with sign 0; probes -1)."""
+def _intervals(B, E, P, seed, layout="random"):
+    """``random``: intervals and probes over a DFS range of 10,000
+    positions, about a quarter of each padded (lo == hi == 0 with sign 0;
+    probes -1). ``serving``: row 0 holds E real intervals, every other row
+    1..16, slots past a row's count (0, 0, 0), and the probes are the
+    row's sorted boundaries (P = 2E), as serving builds its tiles.
+    ``edge``: lo >= hi for about a third, negative positions, signs of ±1,
+    ±3 and 0, and row 0 wholly real (a hub past one shared-memory chunk
+    when E > 4,096)."""
     rng = np.random.default_rng(seed)
-    lo = rng.integers(0, 10_000, size=(B, E)).astype(np.int32)
-    hi = lo + rng.integers(0, 2_000, size=(B, E)).astype(np.int32)
-    sg = rng.choice([-1, 1], size=(B, E)).astype(np.int32)
-    pad = rng.random((B, E)) < 0.25
-    lo[pad] = hi[pad] = sg[pad] = 0
-    pos = rng.integers(0, 12_000, size=(B, P)).astype(np.int32)
-    pos[rng.random((B, P)) < 0.25] = -1
-    return [torch.from_numpy(a).cuda() for a in (lo, hi, sg, pos)]
+    if layout == "serving":
+        n = rng.integers(1, 17, size=B)
+        n[0] = E
+        real = np.arange(E)[None, :] < n[:, None]
+        lo = np.where(real, rng.integers(0, 1 << 14, size=(B, E)), 0)
+        hi = np.where(real, lo + rng.integers(1, 512, size=(B, E)), 0)
+        sg = np.where(real, rng.choice([-1, 1], size=(B, E)), 0)
+        pos = np.sort(np.concatenate([lo, hi], axis=1), axis=1)[:, :P]
+    elif layout == "edge":
+        lo = rng.integers(-5_000, 5_000, size=(B, E))
+        hi = lo + rng.integers(-2_500, 5_000, size=(B, E))
+        sg = rng.choice([-3, -1, 0, 1, 3], size=(B, E))
+        hi[0] = lo[0] + rng.integers(1, 5_000, size=E)
+        sg[0] = rng.choice([-3, -1, 1, 3], size=E)
+        pos = rng.integers(-10_000, 10_000, size=(B, P))
+    else:
+        lo = rng.integers(0, 10_000, size=(B, E))
+        hi = lo + rng.integers(0, 2_000, size=(B, E))
+        sg = rng.choice([-1, 1], size=(B, E))
+        pad = rng.random((B, E)) < 0.25
+        lo[pad] = hi[pad] = sg[pad] = 0
+        pos = rng.integers(0, 12_000, size=(B, P))
+        pos[rng.random((B, P)) < 0.25] = -1
+    return [torch.from_numpy(a.astype(np.int32)).cuda()
+            for a in (lo, hi, sg, pos)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,E,P", [(256, 8, 16), (256, 128, 256),
-                                   (256, 512, 1024), (3, 1000, 70_000),
-                                   (256, 512, 1), (5, 3, 1), (7, 0, 4),
-                                   (9, 33, 2)])
-def test_cuda_interval_counts_match_plain(B, E, P):
+@pytest.mark.parametrize("B,E,P,layout", [
+    (256, 8, 16, "random"), (256, 128, 256, "random"),
+    (256, 512, 1024, "random"), (3, 1000, 70_000, "random"),
+    (256, 512, 1, "random"), (5, 3, 1, "random"), (7, 0, 4, "random"),
+    (9, 33, 2, "random"),
+    # serving's widest tile: one hub row, probes the sorted boundaries
+    (256, 4096, 8192, "serving"), (256, 16, 32, "serving"),
+    # any int32 input; hub rows past one shared-memory chunk (4,096)
+    (64, 1000, 3000, "edge"), (3, 20_000, 3000, "edge"),
+    (2, 8193, 5000, "edge"), (4, 40, 1, "edge")])
+def test_cuda_interval_counts_match_plain(B, E, P, layout):
     _need_card()
-    lo, hi, sg, pos = _intervals(B, E, P, seed=B + E + P)
+    lo, hi, sg, pos = _intervals(B, E, P, seed=B + E + P, layout=layout)
     n = interval_kernel.LAUNCHES
     got = interval_kernel.interval_counts(lo, hi, sg, pos)
     torch.cuda.synchronize()

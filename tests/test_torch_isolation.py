@@ -1,7 +1,7 @@
 """The port stands alone: `src/repro_torch`, `chip_smoke.py`,
-`flash_bench.py` and `popc_bench.py` import neither jax nor the JAX package, entry points
-default to the CUDA card and refuse to fall back to the CPU, and the
-unported paths say so."""
+`flash_bench.py`, `popc_bench.py` and `rank_count_bench.py` import neither
+jax nor the JAX package, entry points default to the CUDA card and refuse
+to fall back to the CPU, and the unported paths say so."""
 import ast
 import os
 import subprocess
@@ -17,7 +17,8 @@ from repro_torch.graphs import generators as PG
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "flash_bench.py", ROOT / "popc_bench.py"]
+    ROOT / "chip_smoke.py", ROOT / "flash_bench.py", ROOT / "popc_bench.py",
+    ROOT / "rank_count_bench.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -60,7 +61,8 @@ def test_port_files_exist():
                  "src/repro_torch/kernels/flash_attn/ops.py",
                  "src/repro_torch/kernels/flash_attn/ref.py",
                  "src/repro_torch/interop.py",
-                 "chip_smoke.py", "flash_bench.py", "popc_bench.py"):
+                 "chip_smoke.py", "flash_bench.py", "popc_bench.py",
+                 "rank_count_bench.py"):
         assert want in names
     csrc = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")}
     assert {"interval_count.cu", "rowmin_hash.cu",
@@ -173,6 +175,18 @@ def test_popc_bench_fails_without_a_card():
                          timeout=300)
     assert out.returncode != 0
     assert "kernel_ms" not in out.stdout
+
+
+@pytest.mark.parametrize("args", [[], ["--split"]], ids=["ab", "split"])
+def test_rank_count_bench_fails_without_a_card(args):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: rank_count_bench.py would run")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "rank_count_bench.py", *args],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0
+    assert "kernel_ms" not in out.stdout and "split" not in out.stdout
 
 
 def test_chip_smoke_fails_outside_a_checkout(tmp_path):
