@@ -8,31 +8,36 @@ Phases, each printing one JSON line with its seconds:
 
   device   the card's name and count, and its power limit from nvidia-smi
   build    the CUDA kernels built from `src/repro_torch/csrc` (nvcc, sm_90a);
-           the flash, the two intersection, the top-J and the
-           interval-count kernels' ptxas resources (registers, spills,
-           shared memory) and `cuobjdump -sass` of the library: raises
-           unless every bf16 flash kernel holds tensor-core instructions
-           (HMMA or HGMMA) and the f32 one none, and unless every
-           intersection kernel holds the binary MMA (BMMA); reports their
-           POPC, BMMA and IMMA counts
+           the flash, the two intersection, the top-J, the interval-count,
+           the fold and the histogram kernels' ptxas resources (registers,
+           spills, shared memory) and `cuobjdump -sass` of the library:
+           raises unless every bf16 flash kernel holds tensor-core
+           instructions (HMMA or HGMMA) and the f32 one none, unless every
+           intersection kernel holds the binary MMA (BMMA), and unless the
+           fold and histogram kernels have no stack frame and no spills;
+           reports the intersection kernels' POPC, BMMA and IMMA counts
   kernels  each kernel against its plain PyTorch version on the card, at
            fixed shapes (the widest, and the resident path's largest top-J
-           calls, included; the interval count also at serving's hub tile
+           and fold calls, included; the interval count also at serving's hub tile
            and on inputs past serving's: lo >= hi, negative positions,
            signs of ±3): exact equality, CUDA-event times of the kernel,
            the plain version and, where one exists, a one-call PyTorch
            yardstick
   main     `summarize(caveman(20000, 11, 0.03), backend="batched")` — the
            1.1M-edge graph at T=20 — lossless, with the launch counts of
-           all four kernels read from a run that started them at 0
+           all four kernels read from a run that started them at 0, and
+           what each histogram call was handed (E, S, padding share,
+           distinct ids, runs of equal ids and the longest)
   parity   the host oracle `backend="numpy"` on the same graph, and both
            backends on `rmat(14, 8)`: parent and edges equal bit for bit
   resident the same graph through `backend="resident"`, counts at 0 before
            it: lossless and equal bit for bit to the batched summary, top-J
            and fold launched, stage walls, the per-phase transfer ledger of
            every iteration (steady-state `upload` 0 B after iteration 1),
-           peak device memory; then `rmat(14, 8)` resident equal to its
-           batched run (the wide group buckets)
+           peak device memory, top-J and fold calls by shape (the fold's
+           with their valid pairs, the groups holding a pair and the
+           groups holding each number of pairs); then `rmat(14, 8)`
+           resident equal to its batched run (the wide group buckets)
   serve    each summary (caveman 1.1M batched, then rmat(14, 8)) packed,
            its `.npz` saved under `build/` and loaded back, and 16,384
            `make_queries` queries drained through `SummaryQueryServer` on
@@ -103,13 +108,19 @@ POPC_LANES_PER_SM = 16
 
 INTER_SHAPES = [(64, g, w, 64) for g in (8, 16, 32, 64, 128)
                 for w in (8, 64, 256)] + [(64, 16, 8, 37)]
-HIST_SHAPES = [((1 << 17), (1 << 18)), ((1 << 20), (1 << 15))]
-# (B, G, Wp, J) and (B, G, Wp, P): small, main-path-like, the resident
-# main path's two largest calls (G = 8 and 16 at 2 words, J = G - 1) and
-# the widest
+# (E, S): wide random ids, many ids a bin, and the batched main path's
+# largest call
+HIST_SHAPES = [((1 << 17), (1 << 18)), ((1 << 20), (1 << 15)),
+               ((1 << 21), (1 << 17))]
+# (B, G, Wp, J): small, main-path-like, the resident main path's two
+# largest calls (G = 8 and 16 at 2 words, J = G - 1) and the widest
 TOPJ_SHAPES = [(3, 2, 2, 1), (4096, 16, 2, 15), (32768, 8, 2, 7),
                (32768, 16, 2, 15), (64, 128, 256, 16)]
-FOLD_SHAPES = [(7, 32, 2, 16), (4096, 16, 2, 8), (64, 128, 256, 64)]
+# (B, G, Wp, P) of the fold: the narrow regime (G <= 32, W <= 8) at the
+# resident path's largest calls, and the wide one with its bitmap staged in
+# shared memory (G*(W+1) words <= 192 KB) and past that, in global memory
+FOLD_SHAPES = [(7, 32, 2, 16), (4096, 16, 2, 8), (32768, 8, 2, 4),
+               (32768, 16, 2, 8), (64, 128, 256, 64), (16, 128, 384, 32)]
 # (layout, B, E, P): random tiles (`interval_input`: caveman-like, wide,
 # the widest and the one-probe `edge_exists` tile); serving's hub tile
 # (`interval_serving_input`: one row of E real intervals, the rest of at
@@ -354,6 +365,29 @@ def hist_bound_s(ids, S, rates):
     n_valid = int((ids >= 0).sum())
     return ((E * 4 + S * 4) / rates["hbm_bytes_per_s"],
             (2 * E + n_valid) / rates["int32_ops_per_s"])
+
+
+def hist_call_stats(ids, S):
+    """What one histogram call was handed: E, S, the padding share (ids
+    outside [0, S)), distinct ids, runs of equal consecutive ids among the
+    counted ones (one atomic each in the kernel's run folding, but for
+    runs cut at a warp's 128-id span), the longest run, and the distinct
+    ids of each 128-id span summed (the atomics a group-by over a warp's
+    span would leave)."""
+    import torch
+
+    E = int(ids.numel())
+    counted = (ids >= 0) & (ids < S)
+    vals, lens = torch.unique_consecutive(ids, return_counts=True)
+    keep = (vals >= 0) & (vals < S)
+    n = int(counted.sum())
+    span = torch.arange(E, device=ids.device)[counted] // 128
+    return {"E": E, "S": S, "padding_share": 1 - n / E if E else 0.0,
+            "distinct": int(torch.unique(ids[counted]).numel()),
+            "runs": int(keep.sum()),
+            "longest_run": int(lens[keep].max()) if n else 0,
+            "span_distinct": int(torch.unique(
+                span * S + ids[counted].to(torch.int64)).numel())}
 
 
 def inter_library(bits):
@@ -835,20 +869,21 @@ INTER_OP = "BMMA"
 def ptxas_resources(ptxas, names, arg="vec"):
     """ptxas resources (registers, spill bytes, stack, static shared
     memory) of each entry function whose mangled name holds one of
-    ``names``, keyed by that name and, for a template, its first argument
-    (``<{arg}N>``; the intersection kernels' ``vecN`` is the copy width in
-    words)."""
+    ``names``, keyed by that name and, for a template, its arguments
+    (``<{arg}N>``, ``<{arg}N,M>``; the intersection kernels' ``vecN`` is
+    the copy width in words)."""
     import re
 
     out, cur = {}, None
     for ln in ptxas:
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            k = re.search(r"(%s)(?:ILi(\d+)E)?" % "|".join(names),
+            k = re.search(r"(%s)((?:I(?:L[bi]\d+E)+E)?)" % "|".join(names),
                           m.group(1))
             cur = None
             if k:
-                cur = k.group(1) + (f"<{arg}{k.group(2)}>" if k.group(2)
+                targs = re.findall(r"L[bi](\d+)E", k.group(2))
+                cur = k.group(1) + (f"<{arg}{','.join(targs)}>" if targs
                                     else "")
                 out[cur] = {}
             continue
@@ -895,14 +930,36 @@ def inter_build_report(ptxas, path):
 # (sort-and-search, and the one-probe warp kernel)
 RANK_COUNT_KERNELS = ("jaccard_topj_narrow_kernel", "jaccard_topj_wide_kernel",
                       "interval_count_kernel", "interval_probe_kernel")
+# the fold kernels (narrow: G <= 32 and W <= 8, by segment width and register
+# words; wide, by whether the bitmap is staged in shared memory) and the
+# histogram kernel
+FOLD_KERNELS = ("bitset_fold_narrow_kernel", "bitset_fold_wide_kernel")
+HIST_KERNELS = ("segment_histogram_kernel",)
+FOLD_HIST_KERNELS = FOLD_KERNELS + HIST_KERNELS
+
+
+def fold_hist_report(ptxas):
+    """The fold's (narrow by segment width S and register words WM, and
+    wide) and the histogram's ptxas resources. Raises unless every one was
+    compiled and none has a stack frame or spills (the narrow fold's row
+    words must stay in registers)."""
+    out = ptxas_resources(ptxas, FOLD_HIST_KERNELS, arg="")
+    bad = {k: v for k, v in out.items()
+           if v.get("stack_bytes", 1) or v.get("spill_store_bytes", 1)
+           or v.get("spill_load_bytes", 1)}
+    if bad or not all(any(k.startswith(n) for k in out)
+                      for n in FOLD_HIST_KERNELS):
+        raise AssertionError(f"fold/histogram kernels with a stack frame, "
+                             f"spills or missing: {bad or out}")
+    return out
 
 
 def phase_build():
     """Builds every kernel from the sources; reports the flash, the
-    intersection, the top-J and the interval-count kernels' ptxas
-    resources and proves from the SASS that the bf16 flash kernel runs on
-    the tensor cores and the intersection kernels on the shipped design's
-    instruction."""
+    intersection, the top-J, the interval-count, the fold and the
+    histogram kernels' ptxas resources and proves from the SASS that the
+    bf16 flash kernel runs on the tensor cores and the intersection
+    kernels on the shipped design's instruction."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -912,7 +969,8 @@ def phase_build():
          flash_sass_hmma=flash_sass_hmma(info["path"]),
          intersections=inter_build_report(info["ptxas"], info["path"]),
          rank_count_ptxas=ptxas_resources(info["ptxas"], RANK_COUNT_KERNELS,
-                                          arg=""))
+                                          arg=""),
+         fold_hist_ptxas=fold_hist_report(info["ptxas"]))
 
 
 def phase_kernels(rng, rates):
@@ -979,6 +1037,7 @@ def phase_kernels(rng, rates):
         bb, bo = fold_bound_s(B, G, W, P, 1, n_valid, touched, rates)
         rows.append({
             "kernel": "bitset_fold", "shape": [B, G, W, P],
+            "regime": "narrow" if G <= 32 and W <= 8 else "wide",
             "valid_pairs": n_valid, "max_abs_err": err,
             "kernel_ms": cuda_ms(lambda: K3.bitset_fold(x, alive, instr), 20),
             "plain_ms": cuda_ms(lambda: R3.fold_pairs(x, alive, instr), 2),
@@ -1027,12 +1086,16 @@ def fold_error(x, alive, instr):
 
 class CallRecorder:
     """Records the shapes (and the histogram's ids, and what top-J and the
-    fold need of their data: `topj_work`, `fold_work`) of every kernel
-    call a path makes, by wrapping the names the ops modules call. The
-    kernels' own launch counters are untouched by it, and it adds no host
-    sync: the work counts stay on the card until `close`."""
+    fold need of their data: `topj_work`, `fold_work`, the fold's pairs a
+    group) of every kernel call a path makes, by wrapping the names the
+    ops modules call. The kernels' own launch counters are untouched by
+    it, and it adds no host sync: the work counts stay on the card until
+    `close`. ``keep_fold=True`` also keeps a copy of every fold call's
+    inputs, as the call is handed them (`fold_inputs`), for replay."""
 
-    def __init__(self):
+    def __init__(self, keep_fold=False):
+        import torch
+
         from repro_torch.kernels.bitset_fold import ops as O3
         from repro_torch.kernels.bitset_jaccard import ops as O1
         from repro_torch.kernels.seghist import ops as O2
@@ -1043,6 +1106,9 @@ class CallRecorder:
         self.topj = Counter()
         self.topj_work: dict = {}  # (B, G, W, J) -> summed `topj_work`
         self.fold: list = []  # ((B, G, W, P), valid pairs, touched words)
+        # per fold call: groups holding k valid pairs, k = 0..P
+        self.fold_groups: list = []
+        self.fold_inputs: list = []  # (bits, alive, instr), if keep_fold
         self._topj_work: list = []
         self._fold_work: list = []
         self._orig = (O1.bitset_intersections, O2.segment_histogram,
@@ -1065,6 +1131,12 @@ class CallRecorder:
         def fold(bits, alive, instr, _f=self._orig[3]):
             self.fold.append((*bits.shape, int(instr.shape[1])))
             self._fold_work.append(fold_work(instr, *bits.shape[1:]))
+            self.fold_groups.append(torch.bincount(
+                (instr[..., 6] > 0).sum(dim=1),
+                minlength=int(instr.shape[1]) + 1))
+            if keep_fold:
+                self.fold_inputs.append((bits.clone(), alive.clone(),
+                                         instr.clone()))
             return _f(bits, alive, instr)
 
         O1.bitset_intersections, O2.segment_histogram = inter, hist
@@ -1078,6 +1150,7 @@ class CallRecorder:
         work = (torch.stack(self._fold_work).tolist()
                 if self._fold_work else [])
         self.fold = [(shape, n, t) for shape, (n, t) in zip(self.fold, work)]
+        self.fold_groups = [g.tolist() for g in self.fold_groups]
         for shape, w in self._topj_work:
             acc = self.topj_work.setdefault(shape, [0, 0, 0, 0])
             for k, v in enumerate(w.tolist()):
@@ -1145,7 +1218,9 @@ def phase_main(graph):
              [[*shape, n] for shape, n in Counter(
                  k[:3] for k in recorder.inter.elements()).items()],
              key=lambda r: -r[-1]),
-         histogram_calls=[[int(i.numel()), s] for i, s in recorder.hist])
+         histogram_calls=[[int(i.numel()), s] for i, s in recorder.hist],
+         histogram_call_stats=[hist_call_stats(i, s)
+                               for i, s in recorder.hist])
     return summary, launches, recorder
 
 
@@ -1254,12 +1329,32 @@ def phase_resident(graph, batched, rmat, rmat_batched):
          topj_calls_by_shape=sorted([[*k, n] for k, n in
                                      recorder.topj.items()],
                                     key=lambda r: -r[-1]),
+         fold_calls_by_shape=fold_calls_by_shape(recorder.fold,
+                                                 recorder.fold_groups),
          fold_calls=len(recorder.fold),
          fold_valid_pairs=sum(n for _, n, _ in recorder.fold),
          fold_touched_words=sum(t for _, _, t in recorder.fold),
          rmat={"n": rmat.n, "m": rmat.m, "wall_seconds": r2_wall,
                "equal_to_batched": True, "cost": r2.cost()})
     return launches, recorder
+
+
+def fold_calls_by_shape(fold, groups):
+    """The recorded fold calls by shape ``[B, G, W, P]``, the most called
+    first: calls, valid pairs, groups holding a pair, and
+    ``pairs_per_group[k]``, the groups holding k valid pairs (k = 1..P),
+    all summed over the shape's calls."""
+    by: dict = {}
+    for (shape, n_valid, _), per in zip(fold, groups):
+        acc = by.setdefault(tuple(shape), {
+            "shape": list(shape), "calls": 0, "valid_pairs": 0,
+            "groups_with_pairs": 0, "pairs_per_group": [0] * (len(per) - 1)})
+        acc["calls"] += 1
+        acc["valid_pairs"] += n_valid
+        acc["groups_with_pairs"] += sum(per[1:])
+        acc["pairs_per_group"] = [a + b for a, b in
+                                  zip(acc["pairs_per_group"], per[1:])]
+    return sorted(by.values(), key=lambda r: -r["calls"])
 
 
 def phase_trace(graph, backend, top=8):
@@ -1363,16 +1458,14 @@ def kernel_record(recorder, launches, res_recorder, res_launches, rng,
              ("bitset_intersections_kernel",)),
             ("segment_histogram", hist, launches,
              "src/repro_torch/csrc/segment_histogram.cu",
-             "src/repro/kernels/seghist/kernel.py:39",
-             ("segment_histogram_kernel",)),
+             "src/repro/kernels/seghist/kernel.py:39", HIST_KERNELS),
             ("jaccard_topj", topj, res_launches,
              "src/repro_torch/csrc/jaccard_topj.cu",
              "src/repro/kernels/bitset_fold/kernel.py:78",
              ("jaccard_topj_narrow_kernel", "jaccard_topj_wide_kernel")),
             ("bitset_fold", fold, res_launches,
              "src/repro_torch/csrc/bitset_fold.cu",
-             "src/repro/kernels/bitset_fold/kernel.py:129",
-             ("bitset_fold_kernel",))):
+             "src/repro/kernels/bitset_fold/kernel.py:129", FOLD_KERNELS)):
         out.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": n_launch[name],

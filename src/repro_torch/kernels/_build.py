@@ -40,7 +40,7 @@ _F32 = ctypes.c_float
 # ctypes never truncates them to 32 bits)
 LAUNCHERS = {
     "bitset_intersections_launch": (_P, _P, _I64, _I64, _I64, _I64, _P),
-    "segment_histogram_launch": (_P, _P, _I64, _I64, _P),
+    "segment_histogram_launch": (_P, _P, _I64, _I64, _I64, _P),
     "jaccard_topj_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _P),
     "bitset_fold_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _P),
     "interval_count_launch": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
@@ -59,6 +59,7 @@ _LOCK = threading.Lock()
 _LIB = None
 BUILD_INFO: dict = {}
 _LAUNCHERS: dict = {}  # launcher name -> the library's ctypes function
+_SMS: dict = {}  # device index -> its SM count
 
 
 def pow2(x: int, floor: int = 8) -> int:
@@ -173,6 +174,16 @@ def check_status(name: str, status: int):
         what = _LIB.repro_torch_error_string(status).decode()
         raise RuntimeError(f"{name} failed to launch: cudaError_t {status} "
                            f"({what})")
+
+
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``, read once (launchers that
+    size their grid by it take it as an argument)."""
+    sms = _SMS.get(index)
+    if sms is None:
+        sms = _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return sms
 
 
 def launch(name: str, index: int, *args) -> None:

@@ -66,7 +66,9 @@ def bitset_fold(bits: torch.Tensor, alive: torch.Tensor,
                 instr: torch.Tensor) -> None:
     """Fold one round's accepted pairs into ``bits`` ``(B, G, W)`` int32 and
     ``alive`` ``(B, G)`` int8 IN PLACE; ``instr`` ``(B, P, 8)`` int32 rows
-    ``[a, z, wa, ba, wz, bz, valid, _]``, applied in order per group."""
+    ``[a, z, wa, ba, wz, bz, valid, _]``, applied in order per group. No
+    group, no instruction row or no word (W = 0) is a no-op on either
+    device."""
     global FOLD_LAUNCHES
     _check_bits(bits, alive)
     B, G, W = bits.shape
@@ -75,13 +77,13 @@ def bitset_fold(bits: torch.Tensor, alive: torch.Tensor,
         raise ValueError(f"instr must be a ({B}, P, 8) int32 tensor on "
                          f"{bits.device}, got {tuple(instr.shape)} "
                          f"{instr.dtype} on {instr.device}")
+    if B == 0 or W == 0 or instr.shape[1] == 0:
+        return  # nothing to fold (no valid row can name a word of W = 0)
     if bits.device.type == "cpu":
         ref.fold_pairs(bits, alive, instr)
         return
     if not instr.is_contiguous():
         raise ValueError("instr must be contiguous")
-    if B == 0 or instr.shape[1] == 0:
-        return
     _build.launch("bitset_fold_launch", bits.device.index, bits.data_ptr(),
                   alive.data_ptr(), instr.data_ptr(), B, G, W,
                   instr.shape[1])

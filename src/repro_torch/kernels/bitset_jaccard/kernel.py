@@ -24,7 +24,6 @@ from repro_torch.kernels.bitset_jaccard import ref
 
 LAUNCHES = 0
 PAIRWISE_LAUNCHES = 0
-_SMS: dict = {}  # device index -> its SM count
 
 
 def _check_cuda(bits: torch.Tensor, device: torch.device) -> None:
@@ -73,11 +72,7 @@ def pairwise_intersections(bits: torch.Tensor) -> torch.Tensor:
     if G == 0:
         return out
     index = device.index
-    sms = _SMS.get(index)
-    if sms is None:
-        sms = _SMS[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
     _build.launch("pairwise_intersections_launch", index, bits.data_ptr(),
-                  out.data_ptr(), G, W, sms)
+                  out.data_ptr(), G, W, _build.sm_count(index))
     PAIRWISE_LAUNCHES += 1
     return out

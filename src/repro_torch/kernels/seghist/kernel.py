@@ -3,7 +3,11 @@ per-subedge state ids for the batched emission DP.
 
 Dispatch is by the tensor's device and nothing else: a CUDA tensor
 launches the kernel (a failed launch raises), a CPU tensor takes the plain
-version in `ref.py`. ``LAUNCHES`` counts kernel launches only.
+version in `ref.py`. ``LAUNCHES`` counts kernel launches only. The emission
+DP calls it once a tree level, so the launch path is `_build.launch`
+(launcher looked up once, raw stream, no device switch on the current
+device, the SM count read once) and the zeroed output comes from
+`new_zeros`.
 """
 from __future__ import annotations
 
@@ -31,14 +35,11 @@ def segment_histogram(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
         raise ValueError(f"unsupported device {ids.device}")
     if not ids.is_contiguous():
         raise ValueError("ids must be contiguous")
-    lib = _build.load_library()
-    out = torch.zeros(S, dtype=torch.int32, device=ids.device)
+    out = ids.new_zeros(S)
     if ids.numel() == 0 or S == 0:
         return out
-    with torch.cuda.device(ids.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.segment_histogram_launch(
-            ids.data_ptr(), out.data_ptr(), ids.numel(), S, stream)
-    _build.check_status("segment_histogram", status)
+    index = ids.device.index
+    _build.launch("segment_histogram_launch", index, ids.data_ptr(),
+                  out.data_ptr(), ids.numel(), S, _build.sm_count(index))
     LAUNCHES += 1
     return out

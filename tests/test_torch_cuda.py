@@ -95,12 +95,47 @@ def test_cuda_intersections_read_a_misaligned_base(G, W):
     assert torch.equal(pw, inter_ref.pairwise_intersection(bits[0]))
 
 
+def _hist_ids(E, S, kind, seed):
+    """"random": 20% padding; "runs": runs of equal ids in edge order, then
+    -1 padding to the end (the emission DP's); "pad": all -1; "outside":
+    ids past S and below -1 beside valid ones; "offset": random ids read
+    from one element past a 16-byte boundary (the 4-at-a-time loads start
+    after a scalar head)."""
+    rng = np.random.default_rng(seed)
+    if kind == "runs":
+        lens = rng.geometric(1 / 6, size=E)
+        ids = np.repeat(rng.integers(0, S, size=E), lens)[: E * 3 // 4]
+        ids = np.concatenate([ids, np.full(E - ids.size, -1)])
+        return torch.from_numpy(ids.astype(np.int32)).cuda()
+    if kind == "pad":
+        return torch.full((E,), -1, dtype=torch.int32, device="cuda")
+    if kind == "outside":
+        return torch.from_numpy(rng.integers(-3, 2 * S + 2, size=E).astype(
+            np.int32)).cuda()
+    if kind == "offset":
+        return _ids(E + 1, S, seed).cuda()[1:]
+    return _ids(E, S, seed).cuda()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("E,S", [(1 << 17, 1 << 18), (1 << 20, 1 << 15),
-                                 (1000, 700), (5, 1)])
-def test_cuda_histogram_matches_plain(E, S):
+@pytest.mark.parametrize("E,S,kind", [
+    (1 << 17, 1 << 18, "random"), (1 << 20, 1 << 15, "random"),
+    (1000, 700, "random"), (5, 1, "random"),
+    # the batched main path's largest calls, in its id order
+    (1 << 21, 1 << 17, "runs"), (1 << 18, 1 << 18, "runs"),
+    # many ids into few bins (every id of a bin on one L2 address), one
+    # bin, and a grid that strides (more 128-id spans than 8 blocks an SM
+    # of 8 warps take at once)
+    (1 << 21, 1 << 9, "random"), (1 << 21, 1 << 9, "runs"),
+    (1 << 22, 1, "random"), (1 << 24, 1 << 15, "runs"),
+    # E not a multiple of 4, a misaligned base, all -1, ids outside [0, S),
+    # one bin, fewer ids than one 16-byte load
+    (1003, 300, "runs"), (4097, 257, "offset"), (6, 5, "offset"),
+    (4096, 64, "pad"), (5001, 40, "outside"), (4099, 1, "runs"),
+    (3, 2, "random")])
+def test_cuda_histogram_matches_plain(E, S, kind):
     _need_card()
-    ids = _ids(E, S, seed=E).cuda()
+    ids = _hist_ids(E, S, kind, seed=E)
     n = hist_kernel.LAUNCHES
     got = hist_kernel.segment_histogram(ids, S)
     torch.cuda.synchronize()
@@ -142,20 +177,27 @@ def test_cuda_summarize_matches_host_oracle():
     assert on_card.validate_lossless(g)
 
 
-def _fold_instr(B, G, W, P, seed):
-    """Disjoint row pairs per group; member columns share 32-bit words and
-    hit bit 31; about one row in eight is padding (valid = 0)."""
+def _fold_instr(B, G, W, P, seed, kind="disjoint"):
+    """"disjoint": disjoint row pairs per group, member columns sharing
+    32-bit words and hitting bit 31, about one row in eight padding (valid
+    = 0); "sparse": the same with most groups holding no valid row (the
+    resident path's rounds); "chained": rows and columns drawn with repeats
+    (a == z and ca == cz included), so the order of the pairs matters."""
     rng = np.random.default_rng(seed)
-    instr = np.zeros((B, P, 8), dtype=np.int32)
-    for b in range(B):
-        rows = rng.permutation(G)
-        cols = rng.permutation(W * 32)[: 2 * P]
-        cols[:4] = [31, 30, 63 if W > 1 else 29, 0]
-        for p in range(P):
-            ca, cz = int(cols[2 * p]), int(cols[2 * p + 1])
-            instr[b, p] = [rows[2 * p], rows[2 * p + 1], ca >> 5, ca & 31,
-                           cz >> 5, cz & 31, int(rng.random() < 0.875), 0]
-    return torch.from_numpy(instr)
+    n = W * 32
+    rows = np.argsort(rng.random((B, G)), axis=1)[:, : 2 * P]
+    cols = np.argsort(rng.random((B, n)), axis=1)[:, : 2 * P]
+    cols[:, :4] = [31, 30, 63 if W > 1 else 29, 0][: min(4, 2 * P)]
+    valid = (rng.random((B, P)) < 0.875).astype(np.int32)
+    if kind == "chained":
+        rows = rng.integers(0, G, size=(B, 2 * P))
+        cols = rng.integers(0, n, size=(B, 2 * P))
+    if kind == "sparse":
+        valid[rng.random(B) < 0.85] = 0
+    ca, cz = cols[:, 0::2], cols[:, 1::2]
+    instr = np.stack([rows[:, 0::2], rows[:, 1::2], ca >> 5, ca & 31,
+                      cz >> 5, cz & 31, valid, np.zeros_like(valid)], axis=2)
+    return torch.from_numpy(instr.astype(np.int32))
 
 
 @pytest.mark.cuda
@@ -184,13 +226,30 @@ def test_cuda_topj_matches_plain(B, G, W, J):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,G,W,P", [(4, 8, 2, 4), (64, 16, 8, 8),
-                                     (64, 128, 256, 64), (7, 32, 1, 16)])
-def test_cuda_fold_matches_plain(B, G, W, P):
+@pytest.mark.parametrize("B,G,W,P,kind", [
+    (4, 8, 2, 4, "disjoint"), (64, 16, 8, 8, "disjoint"),
+    (64, 128, 256, 64, "disjoint"), (7, 32, 1, 16, "disjoint"),
+    # the resident main path's largest calls (G = 8, 16 at 2 words)
+    (32768, 8, 2, 4, "sparse"), (32768, 16, 2, 8, "sparse"),
+    # the regime edges (narrow: G <= 32 and W <= 8), P = 1, several
+    # segments of instruction rows, padding lanes (G = 3, 17), chains,
+    # staged rows not 16-byte aligned (W = 9, 5, 2 past G = 32)
+    (9, 32, 8, 16, "disjoint"), (9, 32, 9, 16, "disjoint"),
+    (5, 33, 2, 16, "disjoint"), (70, 8, 2, 1, "disjoint"),
+    (33, 4, 3, 9, "chained"), (40, 16, 2, 8, "chained"),
+    (6, 40, 5, 20, "chained"), (50, 3, 4, 1, "disjoint"),
+    (20, 17, 4, 8, "sparse"),
+    # the wide regime's bitmap in shared memory at its edge (128 rows of
+    # 383 words) and past it, in global memory (384 words); just past the
+    # default 48 KB of shared memory less the kernel's 4 KB of static
+    # (128 rows of 90 words: 46,592 bytes)
+    (3, 128, 383, 16, "chained"), (3, 128, 384, 16, "disjoint"),
+    (3, 128, 90, 16, "chained")])
+def test_cuda_fold_matches_plain(B, G, W, P, kind):
     _need_card()
     bits = _bits((B, G, W), seed=B + W).cuda()
     alive = torch.ones((B, G), dtype=torch.int8, device="cuda")
-    instr = _fold_instr(B, G, W, P, seed=G).cuda()
+    instr = _fold_instr(B, G, W, P, seed=G, kind=kind).cuda()
     want_bits, want_alive = bits.clone(), alive.clone()
     n = fold_kernel.FOLD_LAUNCHES
     fold_kernel.bitset_fold(bits, alive, instr)
@@ -199,6 +258,39 @@ def test_cuda_fold_matches_plain(B, G, W, P):
     fold_ref.fold_pairs(want_bits, want_alive, instr)
     assert torch.equal(bits, want_bits)
     assert torch.equal(alive, want_alive)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,W", [(16, 2), (64, 5)])
+def test_cuda_fold_reads_a_misaligned_slab(G, W):
+    """An instruction slab that starts off a 16-byte boundary (a view one
+    int32 into its storage) is read word by word, in both regimes."""
+    _need_card()
+    B, P = 40, 8
+    bits = _bits((B, G, W), seed=G).cuda()
+    alive = torch.ones((B, G), dtype=torch.int8, device="cuda")
+    slab = _fold_instr(B, G, W, P, seed=W, kind="chained").reshape(-1)
+    instr = torch.cat([slab[:1], slab]).cuda()[1:].view(B, P, 8)
+    assert instr.data_ptr() % 16 != 0
+    want_bits, want_alive = bits.clone(), alive.clone()
+    fold_kernel.bitset_fold(bits, alive, instr)
+    fold_ref.fold_pairs(want_bits, want_alive, instr)
+    assert torch.equal(bits, want_bits)
+    assert torch.equal(alive, want_alive)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,G,W,P", [(4, 8, 0, 2), (4, 8, 2, 0), (0, 8, 2, 2)])
+def test_cuda_fold_with_nothing_to_fold_launches_nothing(B, G, W, P):
+    _need_card()
+    bits = torch.zeros((B, G, W), dtype=torch.int32, device="cuda")
+    alive = torch.ones((B, G), dtype=torch.int8, device="cuda")
+    instr = torch.ones((B, P, 8), dtype=torch.int32, device="cuda")
+    n = fold_kernel.FOLD_LAUNCHES
+    fold_kernel.bitset_fold(bits, alive, instr)
+    torch.cuda.synchronize()
+    assert fold_kernel.FOLD_LAUNCHES == n
+    assert bool((alive == 1).all())
 
 
 @pytest.mark.cuda

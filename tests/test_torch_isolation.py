@@ -177,7 +177,9 @@ def test_popc_bench_fails_without_a_card():
     assert "kernel_ms" not in out.stdout
 
 
-@pytest.mark.parametrize("args", [[], ["--split"]], ids=["ab", "split"])
+@pytest.mark.parametrize("args", [
+    [], ["--split"], ["--kernels", "fold_hist"], ["--resident", "--emit"]],
+    ids=["ab", "split", "fold_hist", "stages"])
 def test_rank_count_bench_fails_without_a_card(args):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: rank_count_bench.py would run")
@@ -187,6 +189,7 @@ def test_rank_count_bench_fails_without_a_card(args):
                          timeout=300)
     assert out.returncode != 0
     assert "kernel_ms" not in out.stdout and "split" not in out.stdout
+    assert "stage" not in out.stdout
 
 
 def test_chip_smoke_fails_outside_a_checkout(tmp_path):
