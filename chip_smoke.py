@@ -38,6 +38,25 @@ Phases, each printing one JSON line with its seconds:
            with their valid pairs, the groups holding a pair and the
            groups holding each number of pairs); then `rmat(14, 8)`
            resident equal to its batched run (the wide group buckets)
+  partitioned  slices E1 and E2 on the same graph: (1) streamed ingestion,
+           `PartitionedGraph.from_edge_stream` in 2^18-edge chunks into 2
+           partitions with on-disk spill runs under `build/` — equal to the
+           graph, no run file left; seconds, the numpy/Python allocation
+           peak (tracemalloc) and the process RSS peak; (2) the resident
+           engine at `partitions=2, workers=2` on that streamed graph,
+           counts at 0 before it: lossless, equal bit for bit to the
+           batched summary, top-J and fold launched, steady-state upload
+           0 B, stage walls beside the resident `partitions=1` run's; (3)
+           `backend="batched", partitions=4, workers=4` with a plan-log
+           checkpoint, crashed by a `stages=` override at iteration 11,
+           then resumed under `backend="resident", partitions=1`: resumed
+           from iteration 10, equal to the batched summary, intersections
+           launched in the first run, top-J and fold in the second; the
+           commit seconds as a share of each run's merge wall; (4) the
+           completed log replayed under `backend="batched", partitions=4`
+           (resumed from 20: no merge round left), so the emission runs
+           per owner bucket: equal to the batched summary, the histogram
+           kernel launched
   serve    each summary (caveman 1.1M batched, then rmat(14, 8)) packed,
            its `.npz` saved under `build/` and loaded back, and 16,384
            `make_queries` queries drained through `SummaryQueryServer` on
@@ -132,6 +151,8 @@ INTERVAL_SHAPES = [("random", 256, 128, 256), ("random", 256, 512, 1024),
                    ("serving", 256, 4096, 8192), ("edge", 64, 1000, 3000)]
 ROWMIN_SHAPES = [(220000, 128), (1 << 20, 128), (4099, 1000)]  # (R, W)
 PAIRWISE_SHAPES = [(37, 5), (128, 128), (512, 6875)]  # (G, W)
+INGEST_CHUNK = 1 << 18  # edges a chunk of the streamed ingestion
+CRASH_AT = 11  # iteration the partitioned phase's checkpointed run dies in
 SERVE_QUERIES = 16384
 SERVE_SLOTS = 256
 SHINGLE_SEEDS = (0, 1, 2)
@@ -1209,9 +1230,7 @@ def phase_main(graph):
          wall_seconds=wall, lossless=lossless, merges=engine.stats["merges"],
          cost=summary.cost(), relative_size=summary.relative_size(graph),
          launches=launches, transfer=transfer,
-         stage_seconds={k: engine.stats[k] for k in (
-             "shingle", "group", "pack", "merge_round", "exchange", "emit",
-             "prune")},
+         stage_seconds=stage_seconds(engine),
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          distinct_intersection_shapes=len(recorder.inter),
          intersection_calls_by_shape=sorted(
@@ -1318,9 +1337,7 @@ def phase_resident(graph, batched, rmat, rmat_batched):
          wall_seconds=wall, lossless=True, equal_to_batched=True,
          merges=engine.stats["merges"], cost=summary.cost(),
          launches=launches, rounds=engine.stats["transfer"]["rounds"],
-         stage_seconds={k: engine.stats[k] for k in (
-             "shingle", "group", "pack", "merge_round", "exchange", "emit",
-             "prune")},
+         stage_seconds=stage_seconds(engine),
          transfer={k: engine.stats["transfer"][k] for k in (
              "bytes_h2d", "bytes_d2h", "rounds", "phases")},
          transfer_phases_by_iteration=[d["phases"] for d in iters],
@@ -1336,7 +1353,194 @@ def phase_resident(graph, batched, rmat, rmat_batched):
          fold_touched_words=sum(t for _, _, t in recorder.fold),
          rmat={"n": rmat.n, "m": rmat.m, "wall_seconds": r2_wall,
                "equal_to_batched": True, "cost": r2.cost()})
-    return launches, recorder
+    return launches, recorder, dict(stage_seconds(engine), wall=wall)
+
+
+STAGES = ("shingle", "group", "pack", "merge_round", "exchange", "emit",
+          "prune")
+
+
+def stage_seconds(engine):
+    return {k: engine.stats[k] for k in STAGES if k in engine.stats}
+
+
+class Crash(RuntimeError):
+    """The partitioned phase's deliberate crash."""
+
+
+def crash_at(iteration):
+    """A ``stages=`` override of merge_round that dies at ``iteration``
+    (before its sweeps), so the last committed checkpoint is the one
+    before it."""
+    from repro_torch.core.engine import SummarizerEngine
+
+    def merge_round(engine, ctx):
+        if ctx.t == iteration:
+            raise Crash(f"crashed at iteration {iteration}")
+        SummarizerEngine.stage_merge_round(engine, ctx)
+
+    return {"merge_round": merge_round}
+
+
+def checkpoint_share(engine):
+    """Commit seconds over the merge wall (the five stages + commits)."""
+    merge = sum(engine.stats[k] for k in STAGES[:5]) + \
+        engine.stats["checkpoint"]
+    return engine.stats["checkpoint"] / merge if merge else 0.0
+
+
+def phase_partitioned(graph, batched, res_stages):
+    """Slices E1 and E2 on the card: streamed ingestion with spill runs,
+    the resident engine on two partitions and two worker threads, a
+    batched four-partition run crashed and resumed under resident on one
+    partition, and the completed log replayed under batched on four
+    partitions (the owner-bucketed emission). Each engine run starts the
+    launch counts at 0."""
+    import resource
+    import shutil
+    import tracemalloc
+
+    import torch
+
+    from repro_torch.core.engine import SummarizerEngine
+    from repro_torch.core.transfer import GLOBAL as TRANSFER
+    from repro_torch.graphs import PartitionedGraph
+    from repro_torch.graphs import generators as GG
+
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "partitioned"
+    shutil.rmtree(work, ignore_errors=True)
+    spill, ckpt = work / "spill", work / "ckpt"
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    tracemalloc.start()
+    tw = time.perf_counter()
+    pg = PartitionedGraph.from_edge_stream(
+        graph.n, GG.stream_edges(graph, INGEST_CHUNK), n_parts=2,
+        spill_dir=str(spill))
+    ingest_s = time.perf_counter() - tw
+    traced_peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    left = sorted(p.name for p in spill.glob("run-*"))
+    if left:
+        raise AssertionError(f"ingestion left spill runs behind: {left}")
+    if pg._source is not None or pg.to_graph() != graph:
+        raise AssertionError("the streamed PartitionedGraph does not "
+                             "reassemble to the input graph")
+    ingestion = {"chunk_edges": INGEST_CHUNK, "n_parts": pg.n_parts,
+                 "seconds": ingest_s, "traced_peak_bytes": traced_peak,
+                 "process_max_rss_bytes_before": rss0,
+                 "process_max_rss_bytes_after": rss1,
+                 "shard_rows": [s.n_local for s in pg.shards],
+                 "shard_entries": [s.n_entries for s in pg.shards]}
+
+    TRANSFER.reset()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    engine = SummarizerEngine(backend="resident", partitions=2, workers=2,
+                              device="cuda")
+    tw = time.perf_counter()
+    summary = engine.run(pg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tw
+    launches = read_launches()
+    if not summary.validate_lossless(graph):
+        raise AssertionError("resident partitions=2 summary does not "
+                             "decompress to the input graph")
+    if not same_summary(summary, batched):
+        raise AssertionError("resident partitions=2 and batched "
+                             "partitions=1 summaries differ")
+    for name in ("jaccard_topj", "bitset_fold"):
+        if launches[name] <= 0:
+            raise AssertionError(f"resident partitions=2 never launched "
+                                 f"{name}")
+    iters = engine.stats["transfer_iters"]
+    steady_upload = [d["phases"].get("upload", 0) for d in iters[1:]]
+    if any(steady_upload) or engine._run_ctx.bank is None:
+        raise AssertionError(f"partitions=2 steady-state upload is not 0 B: "
+                             f"{steady_upload}")
+    resident2 = {"wall_seconds": wall, "launches": launches,
+                 "stage_seconds": stage_seconds(engine),
+                 "partitions_1_stage_seconds": res_stages,
+                 "rounds": engine.stats["transfer"]["rounds"],
+                 "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+    reset_launches()
+    crashed = SummarizerEngine(backend="batched", partitions=4, workers=4,
+                               device="cuda", stages=crash_at(CRASH_AT))
+    tw = time.perf_counter()
+    try:
+        crashed.run(graph, checkpoint_dir=str(ckpt))
+    except Crash:
+        pass
+    else:
+        raise AssertionError("the checkpointed batched run did not crash")
+    torch.cuda.synchronize()
+    crash_wall = time.perf_counter() - tw
+    crash_launches = read_launches()
+    if crash_launches["bitset_intersections"] <= 0:
+        raise AssertionError("batched partitions=4 never launched "
+                             "bitset_intersections")
+    reset_launches()
+    resumed = SummarizerEngine(backend="resident", partitions=1,
+                               device="cuda")
+    tw = time.perf_counter()
+    out = resumed.run(graph, checkpoint_dir=str(ckpt), resume=True)
+    torch.cuda.synchronize()
+    resume_wall = time.perf_counter() - tw
+    resume_launches = read_launches()
+    if resumed.stats.get("resumed_from") != CRASH_AT - 1:
+        raise AssertionError(f"resumed from "
+                             f"{resumed.stats.get('resumed_from')}, not "
+                             f"{CRASH_AT - 1}")
+    if not same_summary(out, batched):
+        raise AssertionError("the resumed summary differs from the "
+                             "uninterrupted batched one")
+    for name in ("jaccard_topj", "bitset_fold"):
+        if resume_launches[name] <= 0:
+            raise AssertionError(f"the resumed resident run never launched "
+                                 f"{name}")
+    reset_launches()
+    replayed = SummarizerEngine(backend="batched", partitions=4,
+                                device="cuda")
+    tw = time.perf_counter()
+    out = replayed.run(graph, checkpoint_dir=str(ckpt), resume=True)
+    torch.cuda.synchronize()
+    replay_wall = time.perf_counter() - tw
+    replay_launches = read_launches()
+    if replayed.stats.get("resumed_from") != 20:
+        raise AssertionError("the completed log did not replay to the end")
+    if not same_summary(out, batched):
+        raise AssertionError("the owner-bucketed batched emission differs "
+                             "from the batched summary")
+    if replay_launches["segment_histogram"] <= 0:
+        raise AssertionError("the owner-bucketed batched emission never "
+                             "launched segment_histogram")
+    shutil.rmtree(work, ignore_errors=True)
+    emit("partitioned", t0, graph={"n": graph.n, "m": graph.m}, T=20,
+         ingestion=ingestion, resident_partitions_2=dict(
+             resident2, lossless=True, equal_to_batched=True,
+             steady_upload_bytes=steady_upload),
+         crash={"backend": "batched", "partitions": 4, "workers": 4,
+                "crash_at": CRASH_AT, "wall_seconds": crash_wall,
+                "launches": crash_launches,
+                "stage_seconds": stage_seconds(crashed),
+                "checkpoint_seconds": crashed.stats["checkpoint"],
+                "checkpoint_share": checkpoint_share(crashed),
+                "merges": crashed.stats["merges"]},
+         resume={"backend": "resident", "partitions": 1,
+                 "resumed_from": resumed.stats["resumed_from"],
+                 "wall_seconds": resume_wall, "launches": resume_launches,
+                 "stage_seconds": stage_seconds(resumed),
+                 "checkpoint_seconds": resumed.stats["checkpoint"],
+                 "checkpoint_share": checkpoint_share(resumed),
+                 "merges": resumed.stats["merges"],
+                 "equal_to_batched": True},
+         replay={"backend": "batched", "partitions": 4,
+                 "resumed_from": replayed.stats["resumed_from"],
+                 "wall_seconds": replay_wall, "launches": replay_launches,
+                 "stage_seconds": stage_seconds(replayed),
+                 "equal_to_batched": True})
 
 
 def fold_calls_by_shape(fold, groups):
@@ -2187,8 +2391,9 @@ def main() -> int:
     emit("graph", t0, n=graph.n, m=graph.m)
     summary, launches, recorder = phase_main(graph)
     rmat, rmat_batched = phase_parity(graph, summary)
-    res_launches, res_recorder = phase_resident(graph, summary, rmat,
-                                                rmat_batched)
+    res_launches, res_recorder, res_stages = phase_resident(
+        graph, summary, rmat, rmat_batched)
+    phase_partitioned(graph, summary, res_stages)
     ps, queries, serve_calls, serve_launches = phase_serve(
         graph, summary, "caveman_1.1M")
     rmat_ps, rmat_queries, rmat_calls, rmat_launches = phase_serve(

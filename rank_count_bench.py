@@ -171,7 +171,7 @@ def stages_run(label: str, resident: bool, emit: bool, emits: int) -> None:
                                           device="cuda")
     folds = K3.FOLD_LAUNCHES
     tw = time.perf_counter()
-    state = engine.merge_forest(g)
+    state, _ = engine.merge_forest(g)
     torch.cuda.synchronize()
     wall = time.perf_counter() - tw
     if resident:
@@ -211,7 +211,7 @@ def main_calls():
     g = GG.caveman(*CAVEMAN, seed=0)
     recorder = CS.CallRecorder(keep_fold=True)
     try:
-        state = repro_torch.SummarizerEngine(
+        state, _ = repro_torch.SummarizerEngine(
             backend="resident", T=20, device="cuda").merge_forest(g)
         _emit_encoding(state, backend="batched", device="cuda")
     finally:

@@ -1,37 +1,50 @@
-"""Stage-based summarization engine (DESIGN.md §8).
+"""Partition-parallel, stage-based summarization engine (DESIGN.md §8).
 
 `SummarizerEngine` is the engine behind `slugger.summarize()`: each of the T
-iterations runs five explicit stages
+iterations runs five explicit, pluggable stages
 
     shingle → group → pack → merge_round → exchange
 
-followed by the emission DP and pruning. Candidate generation is global and
-seeded; candidate GROUPS are swept in record mode (`merging.MergePlan`)
-against the iteration-start snapshot, and the exchange stage replays every
-plan in canonical group order (`merging.apply_plans`), so the summary is a
-pure function of (graph, seed, config) — bit-identical to the JAX package's
-engine on the same inputs for every ported backend.
+over a `PartitionedGraph`, followed by the partition-aware emission DP and
+pruning. Candidate generation is global and seeded; candidate GROUPS are
+assigned to partitions by node ownership and swept in record mode
+(`merging.MergePlan`) against the iteration-start snapshot — on a thread
+pool when ``workers > 1`` — and the exchange stage replays every plan in
+canonical group order (`merging.apply_plans`). So the summary is a pure
+function of (graph, seed, config): ``partitions=k`` is bit-identical to
+``partitions=1`` for every backend and thread schedule, and to the JAX
+package's engine on the same inputs for every ported backend.
 
 Per-iteration randomness comes from `np.random.SeedSequence(seed).spawn(T)`
 — no arithmetic on raw seeds anywhere.
 
+With ``checkpoint_dir`` the applied plan log is committed after each
+iteration (`core/checkpoint.PlanCheckpointer`, the JAX package's format);
+``resume=True`` replays it — through the resident run context too — and
+continues, bit-identical to an uninterrupted run on any backend and
+partition count (DESIGN.md §11).
+
 Device work: ``backend="batched"`` ranks merge partners with the CUDA
 bitset-intersection kernel and counts emission-DP state membership with the
-CUDA segment-histogram kernel, both on ``device``. ``backend="resident"``
-keeps each workspace chunk's whole merge-round state on ``device``
-(`core/resident.py`): ranking (the CUDA top-J kernel), exact Saving and θ̂
-acceptance run there, the fold runs there (the CUDA bitset-fold kernel and
-the count phases), the adjacency bank carries every root's row across
-iterations so chunks are extracted on the device, and root shingles are
-computed there; its emission counts on the host. The engine resolves
+CUDA segment-histogram kernel (once a partition bucket), both on
+``device``. ``backend="resident"`` keeps each workspace chunk's whole
+merge-round state on ``device`` (`core/resident.py`): ranking (the CUDA
+top-J kernel), exact Saving and θ̂ acceptance run there, the fold runs
+there (the CUDA bitset-fold kernel and the count phases), the adjacency
+bank carries every root's row across iterations so chunks are extracted on
+the device, and root shingles are computed there; its emission counts on
+the host. Worker threads launch on the device's current stream, so their
+kernels serialize and only host work overlaps. The engine resolves
 ``device=None`` to the CUDA card and raises when there is none; a CPU
-device runs the kernels' plain versions. Partitions, meshes and
-checkpoints are not ported yet (ROADMAP slice E).
+device runs the kernels' plain versions. Meshes (ROADMAP slice E5) and
+fault injection with degradation (slice E3) are not ported yet.
 """
 from __future__ import annotations
 
 import logging
+import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -42,6 +55,7 @@ from repro_torch.core.pruning import prune
 from repro_torch.core.resident import ResidentBitmapArena, ResidentRunContext
 from repro_torch.core.slugger import SluggerState, _emit_encoding
 from repro_torch.core.transfer import GLOBAL as TRANSFER
+from repro_torch.graphs.partitioned import as_partitioned
 
 log = logging.getLogger("repro_torch.engine")
 
@@ -64,14 +78,15 @@ def resolve_device(device=None) -> torch.device:
 class IterationContext:
     """Mutable scratch shared by one iteration's stages."""
 
-    __slots__ = ("t", "theta", "state", "ss_groups", "ss_merge", "shingle_fn",
-                 "groups", "group_children", "group_seeds", "plans", "thunks",
-                 "merges")
+    __slots__ = ("t", "theta", "state", "pg", "ss_groups", "ss_merge",
+                 "shingle_fn", "groups", "group_children", "group_seeds",
+                 "plans", "thunks", "merges")
 
-    def __init__(self, t: int, theta: float, state):
+    def __init__(self, t: int, theta: float, state, pg):
         self.t = t
         self.theta = theta
         self.state = state
+        self.pg = pg
         self.shingle_fn = None
         self.groups = []
         self.group_children = []
@@ -84,14 +99,25 @@ class IterationContext:
 class SummarizerEngine:
     """Configured, reusable SLUGGER engine.
 
-    Parameters mirror `summarize()`. ``partitions`` must be 1 until ROADMAP
-    slice E lands; ``backend`` is ``"batched"``, ``"resident"``,
-    ``"numpy"`` or ``"loop"``.
+    Parameters mirror `summarize()` (``backend`` is ``"batched"``,
+    ``"resident"``, ``"numpy"`` or ``"loop"``) plus:
+
+    * ``partitions`` — number of node-ownership shards; ``1`` is the
+      monolithic special case and the semantics never depend on the value.
+    * ``workers`` — threads for the merge_round stage (record-mode sweeps
+      touch no shared state, so they parallelize safely). Defaults to
+      ``min(partitions, cpu count)``.
+    * ``stages`` — dict overriding any of the five stage callables (each
+      called as ``fn(engine, ctx)``); unknown names raise ``ValueError``.
+    * ``device`` — where the kernels run (`resolve_device`).
+
+    The JAX engine's ``mesh`` has no counterpart until ROADMAP slice E5.
     """
 
     def __init__(self, partitions: int = 1, backend: str = "batched",
                  T: int = 20, seed: int = 0, max_group: int = 500,
                  top_j: int = 16, height_bound=None, prune_steps=(1, 2, 3),
+                 workers: int | None = None, stages: dict | None = None,
                  device=None):
         if backend not in ("numpy", "batched", "resident", "loop"):
             raise ValueError(
@@ -99,10 +125,7 @@ class SummarizerEngine:
                 f"'numpy' or 'loop'")
         if partitions < 1:
             raise ValueError("partitions must be >= 1")
-        if partitions > 1:
-            raise NotImplementedError(
-                "partitions > 1 is not ported yet (ROADMAP slice E)")
-        self.partitions = 1
+        self.partitions = int(partitions)
         self.backend = backend
         self.T = int(T)
         self.seed = seed
@@ -110,6 +133,16 @@ class SummarizerEngine:
         self.top_j = top_j
         self.height_bound = height_bound
         self.prune_steps = tuple(prune_steps)
+        self.workers = (min(self.partitions, os.cpu_count() or 1)
+                        if workers is None else max(1, int(workers)))
+        self.stages = {name: getattr(type(self), f"stage_{name}")
+                       for name in STAGE_ORDER}
+        if stages:
+            unknown = set(stages) - set(STAGE_ORDER)
+            if unknown:
+                raise ValueError(f"unknown stages {sorted(unknown)}; "
+                                 f"valid: {STAGE_ORDER}")
+            self.stages.update(stages)
         self.device = resolve_device(device)
         self.stats: dict = {}
         self._shingle_provider = None
@@ -130,7 +163,9 @@ class SummarizerEngine:
     def _resident_arena(self, ws):
         """A chunk's arena: extracted on the device from the adjacency bank
         (``ws`` is then a shell), or uploaded from the host-built workspace
-        when the bank declined the graph."""
+        when the bank declined the graph. Called from the merge_round
+        workers: it only reads the bank and the root map, which nothing
+        writes before the exchange stage."""
         rc = self._run_ctx
         if rc.bank is not None:
             return ResidentBitmapArena.from_bank(rc.bank, ws, rc.res_map,
@@ -157,84 +192,179 @@ class SummarizerEngine:
                  for c in ctx.group_children], dtype=np.uint64)
 
     def stage_pack(self, ctx: IterationContext):
-        """Build the record-mode workspaces against the iteration-start
-        snapshot."""
-        ctx.plans, ctx.thunks = [], []
-        if not ctx.groups:
+        """Assign groups to partitions by node ownership and build their
+        record-mode workspaces against the iteration-start snapshot. Each
+        group keeps the RNG stream of its GLOBAL index."""
+        groups = ctx.groups
+        ctx.plans = [None] * len(groups)
+        ctx.thunks = []
+        if not groups:
             return
+        part_of_group = self._group_partitions(ctx)
         resident = self._run_ctx is not None
-        ctx.plans, ctx.thunks = build_merge_work(
-            ctx.state, ctx.groups, ctx.theta, group_seeds=ctx.group_seeds,
-            rng_of=lambda i: np.random.default_rng(ctx.group_children[i]),
-            top_j=self.top_j, height_bound=self.height_bound,
-            backend=self.backend, device=self.device,
-            resident_factory=self._resident_arena if resident else None,
-            shell_workspaces=resident and self._run_ctx.bank is not None)
+        for p in np.unique(part_of_group):
+            idxs = np.flatnonzero(part_of_group == p)
+            plans_p, thunks_p = build_merge_work(
+                ctx.state, [groups[i] for i in idxs], ctx.theta,
+                group_seeds=ctx.group_seeds[idxs],
+                rng_of=lambda li, idxs=idxs: np.random.default_rng(
+                    ctx.group_children[idxs[li]]),
+                top_j=self.top_j, height_bound=self.height_bound,
+                backend=self.backend, device=self.device,
+                resident_factory=self._resident_arena if resident else None,
+                shell_workspaces=resident and self._run_ctx.bank is not None)
+            for li, gi in enumerate(idxs):
+                ctx.plans[int(gi)] = plans_p[li]
+            ctx.thunks.extend(thunks_p)
 
     def stage_merge_round(self, ctx: IterationContext):
         """Run the sweeps (ranking on the device for ``"batched"``, whole
-        rounds on the device for ``"resident"``)."""
-        for thunk in ctx.thunks:
-            thunk()
+        rounds on the device for ``"resident"``) — serial, or on
+        ``workers`` threads; record mode makes the schedule irrelevant to
+        the outcome."""
+        if self.workers > 1 and len(ctx.thunks) > 1:
+            with ThreadPoolExecutor(max_workers=self.workers) as pool:
+                list(pool.map(lambda f: f(), ctx.thunks))
+        else:
+            for thunk in ctx.thunks:
+                thunk()
 
     def stage_exchange(self, ctx: IterationContext):
         """Replay all recorded merge rounds against the global state in
-        canonical group order. On the resident backend the applied
-        (A, Z, M) batches, with the minted rows' lengths ``row_len[M]``
-        (pristine exactly at the hook), also advance the run context's
-        root map and adjacency bank on the device."""
+        canonical group order — the only cross-partition communication."""
+        ctx.merges = self._replay_plans(ctx.state, ctx.plans)
+
+    def _replay_plans(self, state, plans: list) -> int:
+        """Apply recorded plans to the global state — shared by the
+        exchange stage and checkpoint-resume replay. On the resident
+        backend the applied (A, Z, M) batches, with the minted rows'
+        lengths ``row_len[M]`` (pristine exactly at the hook), also advance
+        the run context's root map and adjacency bank on the device."""
         if self._run_ctx is None:
-            ctx.merges = apply_plans(ctx.state, ctx.plans)
-            return
-        state = ctx.state
+            return apply_plans(state, plans)
         batches: list = []
-        ctx.merges = apply_plans(
-            state, ctx.plans, on_batch=lambda A, Z, M: batches.append(
+        merges = apply_plans(
+            state, plans, on_batch=lambda A, Z, M: batches.append(
                 (A, Z, M, state.row_len[M].copy())))
         self._run_ctx.advance(batches)
+        return merges
+
+    def _group_partitions(self, ctx: IterationContext) -> np.ndarray:
+        """Partition of each group = owner of its smallest member root's
+        smallest leaf (`SluggerState.root_min_leaf`, the same keying the
+        partition-aware emission uses)."""
+        n_groups = len(ctx.groups)
+        if self.partitions == 1:
+            return np.zeros(n_groups, dtype=np.int64)
+        min_leaf = ctx.state.root_min_leaf()
+        key_roots = np.array([int(g.min()) for g in ctx.groups],
+                             dtype=np.int64)
+        return ctx.pg.owner[min_leaf[key_roots]]
 
     # ------------------------------------------------------------------ run
-    def merge_forest(self, g) -> SluggerState:
-        """Run the T merge iterations only; returns the merge-forest state.
-        Per-stage wall seconds land in ``self.stats``, with the transfer
-        ledger per iteration (``transfer_iters``) and in total."""
-        state = SluggerState(g)
+    def _config(self) -> dict:
+        """JSON-safe config snapshot recorded in checkpoints — the JAX
+        engine's keys. `checkpoint.DECISION_KEYS` are resume-enforced;
+        backend/partitions are informational."""
+        height = self.height_bound
+        return {
+            "T": self.T,
+            "seed": int(self.seed),
+            "max_group": int(self.max_group),
+            "top_j": int(self.top_j),
+            "height_bound": None if height is None else int(height),
+            "prune_steps": list(self.prune_steps),
+            "backend": self.backend,
+            "partitions": self.partitions,
+        }
+
+    def merge_forest(self, g, checkpoint_dir=None, resume: bool = False,
+                     checkpoint_every: int = 1):
+        """Run the T merge iterations only over ``g`` (a `Graph` or a
+        `PartitionedGraph`); returns ``(state, pg)`` — the merge-forest
+        state and the partitioned graph. Per-stage wall seconds land in
+        ``self.stats``, with the transfer ledger per iteration
+        (``transfer_iters``) and in total.
+
+        With ``checkpoint_dir`` set, the plan log is committed atomically
+        after every ``checkpoint_every``-th iteration and the last
+        (``stats["checkpoint"]`` holds the commit seconds);
+        ``resume=True`` replays the newest committed log and continues
+        from the next iteration (``stats["resumed_from"]``)."""
+        pg = as_partitioned(g, self.partitions)
+        state = SluggerState(pg.to_graph())
         transfer0 = TRANSFER.snapshot()  # before setup: run-context init counts
-        self._setup_dispatches(g)
+        self._setup_dispatches(state.g)
         self.stats = {name: 0.0 for name in STAGE_ORDER}
         self.stats["merges"] = 0
+        self.stats["checkpoint"] = 0.0
         self.stats["transfer_iters"] = []
         transfer_prev = transfer0
+        ckpt = None
+        fingerprint = None
+        plan_log: list = []
+        t_start = 1
+        if checkpoint_dir is not None:
+            from repro_torch.core.checkpoint import (PlanCheckpointer,
+                                                     graph_fingerprint)
+            fingerprint = graph_fingerprint(state.g)
+            ckpt = PlanCheckpointer(checkpoint_dir)
+            if resume:
+                loaded = ckpt.load_latest(fingerprint, self._config())
+                if loaded is not None:
+                    t_done, plan_log = loaded
+                    t0 = time.perf_counter()
+                    for plans in plan_log:
+                        self.stats["merges"] += self._replay_plans(state,
+                                                                   plans)
+                    self.stats["exchange"] += time.perf_counter() - t0
+                    t_start = t_done + 1
+                    self.stats["resumed_from"] = t_done
+                    log.info("resumed from checkpoint at iter %d (%d plans "
+                             "replayed)", t_done,
+                             sum(len(p) for p in plan_log))
         iter_streams = np.random.SeedSequence(self.seed).spawn(max(self.T, 1))
-        for t in range(1, self.T + 1):
+        for t in range(t_start, self.T + 1):
             theta = 0.0 if t == self.T else 1.0 / (1 + t)
-            ctx = IterationContext(t, theta, state)
+            ctx = IterationContext(t, theta, state, pg)
             ctx.ss_groups, ctx.ss_merge = iter_streams[t - 1].spawn(2)
-            for name, stage in zip(STAGE_ORDER, (
-                    self.stage_shingle, self.stage_group, self.stage_pack,
-                    self.stage_merge_round, self.stage_exchange)):
+            for name in STAGE_ORDER:
                 t0 = time.perf_counter()
-                stage(ctx)
+                self.stages[name](self, ctx)
                 self.stats[name] += time.perf_counter() - t0
             self.stats["merges"] += ctx.merges
+            if ckpt is not None:
+                plan_log.append(ctx.plans)
+                if t % max(1, checkpoint_every) == 0 or t == self.T:
+                    t0 = time.perf_counter()
+                    ckpt.save(t, plan_log, fingerprint, self._config())
+                    self.stats["checkpoint"] += time.perf_counter() - t0
             snap = TRANSFER.snapshot()
             self.stats["transfer_iters"].append(
                 TRANSFER.delta_since(transfer_prev, now=snap))
             transfer_prev = snap
-            log.info("iter %3d: θ=%.3f groups=%d merges=%d roots=%d",
-                     t, theta, len(ctx.groups), ctx.merges, state.alive.size)
+            log.info(
+                "iter %3d: θ=%.3f groups=%d merges=%d roots=%d parts=%d",
+                t, theta, len(ctx.groups), ctx.merges, state.alive.size,
+                self.partitions)
         self.stats["transfer"] = TRANSFER.delta_since(transfer0)
-        return state
+        return state, pg
 
-    def run(self, g):
-        """Summarize end to end; returns the (pruned) `Summary`."""
-        state = self.merge_forest(g)
+    def run(self, g, checkpoint_dir=None, resume: bool = False,
+            checkpoint_every: int = 1):
+        """Summarize end to end; returns the (pruned) `Summary`. The
+        checkpoint arguments are `merge_forest`'s."""
+        state, pg = self.merge_forest(g, checkpoint_dir=checkpoint_dir,
+                                      resume=resume,
+                                      checkpoint_every=checkpoint_every)
+        owner = pg.owner if self.partitions > 1 else None
         t0 = time.perf_counter()
         summary = _emit_encoding(state, backend=self.backend,
-                                 device=self.device)
+                                 device=self.device, owner=owner)
         self.stats["emit"] = time.perf_counter() - t0
         if self.prune_steps:
             t0 = time.perf_counter()
-            summary = prune(summary, steps=self.prune_steps)
+            summary = prune(summary, steps=self.prune_steps,
+                            partition_map=owner)
             self.stats["prune"] = time.perf_counter() - t0
         return summary

@@ -174,6 +174,22 @@ class MergePlan:
     def n_merges(self) -> int:
         return sum(a.size for a, _ in self.rounds)
 
+    # -- checkpoint serialization (core/checkpoint.py) ---------------------
+    def to_state(self) -> dict:
+        """Plain-dict form for the plan-log checkpoint — decoupled from the
+        class layout so the on-disk format is versioned independently."""
+        return {"members0": self.members0,
+                "rounds": [(a, z) for a, z in self.rounds]}
+
+    @classmethod
+    def from_state(cls, state: dict) -> "MergePlan":
+        plan = cls(state["members0"])
+        for a, z in state["rounds"]:
+            plan.rounds.append((np.asarray(a, dtype=np.int64),
+                                np.asarray(z, dtype=np.int64)))
+        return plan
+
+
 def apply_plans(state, plans: list, on_batch=None) -> int:
     """Exchange stage: replay recorded merge rounds in canonical order.
 

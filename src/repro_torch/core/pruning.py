@@ -245,7 +245,7 @@ class _IRWork:
         np.add.at(delta, pc, contrib)
         return plo, phi, ps, pc
 
-    def step3(self) -> int:
+    def step3(self, partition_map=None) -> int:
         cap = self._cap()
         ir = SummaryIR(self.parent, self.n)
         nk = ir.n_children()
@@ -261,6 +261,10 @@ class _IRWork:
         ir.build_incidence(np.stack([bex, bey, bec], axis=1))
 
         # -- bulk pass: feasibility, plans, deltas against the entry state --
+        # Per-candidate outputs are independent, so the pass runs per
+        # partition bucket when a partition map is given (DESIGN.md §8):
+        # temporaries shrink to the bucket's plan size and the result is
+        # bit-identical to the monolithic pass.
         bad = np.abs(bec) != 1
         bad_ends = np.concatenate([bex[bad], bey[bad & (bex != bey)]])
         infeasible_cnt = np.bincount(bad_ends, minlength=cap)
@@ -268,8 +272,16 @@ class _IRWork:
         is_root0 = self.parent == -1
         delta = np.where(is_root0, -nk, -1).astype(np.int64)
         delta = delta - deg_all
-        plo, phi, ps, pc = self._step3_bulk(
-            ir, cands, nk, sizes, bex, bey, bec, delta)
+        if partition_map is None:
+            buckets = [cands]
+        else:
+            part_of_cand = np.asarray(partition_map, dtype=np.int64)[
+                ir.order[ir.first[cands]]]
+            buckets = [cands[part_of_cand == p]
+                       for p in np.unique(part_of_cand)]
+        bulk = [self._step3_bulk(ir, csub, nk, sizes, bex, bey, bec, delta)
+                for csub in buckets]
+        plo, phi, ps, pc = (np.concatenate(col) for col in zip(*bulk))
         # plan rows CSR by candidate (pc is emitted in ascending-candidate
         # runs per construction branch; re-sort to be safe)
         p_order = np.argsort(pc, kind="stable")
@@ -432,9 +444,12 @@ class _IRWork:
 PRUNE_ROUNDS = 3  # the reference's default; no caller sets another
 
 
-def prune(summary: Summary, steps=(1, 2, 3)) -> Summary:
+def prune(summary: Summary, steps=(1, 2, 3), partition_map=None) -> Summary:
     """Run the selected pruning substeps (repeated until fixpoint, at most
-    `PRUNE_ROUNDS` times) on the flat-array implementation."""
+    `PRUNE_ROUNDS` times) on the flat-array implementation.
+    ``partition_map`` (node → partition, DESIGN.md §8) makes the step-3
+    bulk pass run per partition bucket — bounded temporaries, bit-identical
+    output."""
     w = _IRWork(summary)
     for _ in range(PRUNE_ROUNDS):
         changed = 0
@@ -443,7 +458,7 @@ def prune(summary: Summary, steps=(1, 2, 3)) -> Summary:
         if 2 in steps:
             changed += w.step2()
         if 3 in steps:
-            changed += w.step3()
+            changed += w.step3(partition_map=partition_map)
         if not changed:
             break
     return w.to_summary()

@@ -143,6 +143,15 @@ class SluggerState:
     def alive(self) -> np.ndarray:
         return np.flatnonzero(self.alive_mask[: self.n_ids])
 
+    def root_min_leaf(self) -> np.ndarray:
+        """Smallest leaf id owned by each root (n for leafless ids) — THE
+        partition key of a root (DESIGN.md §8.1). The engine's group
+        assignment and the partition-aware emission both key through this
+        one method so their bucketing can never drift apart."""
+        ml = np.full(self.n_ids, self.g.n, dtype=np.int64)
+        np.minimum.at(ml, self.root_of, np.arange(self.g.n, dtype=np.int64))
+        return ml
+
     # -- adjacency reads ---------------------------------------------------
     def gather_rows(self, roots: np.ndarray):
         """Resolved, per-root-aggregated adjacency of distinct ``roots``.
@@ -311,7 +320,7 @@ def _emit_encoding_reference(state: SluggerState) -> Summary:
 
 
 def _emit_encoding(state: SluggerState, backend: str = "numpy",
-                   device=None) -> Summary:
+                   device=None, owner=None) -> Summary:
     """Exact hierarchical encoding of the input graph over the current merge
     forest (plays the paper's 'update of encoding' role).
 
@@ -320,7 +329,12 @@ def _emit_encoding(state: SluggerState, backend: str = "numpy",
     (`core/encode_batched.py`), with the per-level membership counts
     dispatched through the CUDA seghist kernel on ``device`` for
     ``backend="batched"``. Both produce bit-identical canonical edge arrays.
-    """
+
+    ``owner`` (node → partition, DESIGN.md §8) buckets the root pairs by
+    partition and emits each bucket separately, each on ``device``:
+    per-pair encodings are independent and the export is canonical-sorted,
+    so the result is bit-identical to the monolithic emission for any
+    ownership map."""
     g = state.g
     if g.n == 0:
         return Summary(n_leaves=0, parent=np.zeros(0, dtype=np.int64),
@@ -334,7 +348,22 @@ def _emit_encoding(state: SluggerState, backend: str = "numpy",
     el = g.edge_list()
     u = el[:, 0] if el.size else np.zeros(0, dtype=np.int64)
     v = el[:, 1] if el.size else np.zeros(0, dtype=np.int64)
-    _, edges = encode_forest(ir, u, v, backend=backend, device=device)
+    if owner is None or u.size == 0:
+        _, edges = encode_forest(ir, u, v, backend=backend, device=device)
+        return Summary(n_leaves=g.n, parent=parent, edges=edges)
+    # partition-aware emission: a root pair belongs to the partition owning
+    # the smaller root's smallest leaf; buckets encode independently
+    root_of = state.root_of
+    min_leaf = state.root_min_leaf()
+    key_root = np.minimum(root_of[u], root_of[v])
+    part = np.asarray(owner, dtype=np.int64)[min_leaf[key_root]]
+    chunks = []
+    for p in np.unique(part):
+        sel = part == p
+        _, e_p = encode_forest(ir, u[sel], v[sel], backend=backend,
+                               device=device)
+        chunks.append(e_p)
+    edges = canon_edges(np.concatenate(chunks, axis=0))
     return Summary(n_leaves=g.n, parent=parent, edges=edges)
 
 
@@ -358,8 +387,10 @@ def summarize(
     ``device`` is where the kernels run: ``None`` means the CUDA card and
     raises ``RuntimeError`` when there is none; ``"cpu"`` runs the kernels'
     plain versions. This is a thin wrapper over
-    `repro_torch.core.engine.SummarizerEngine`. ``verbose`` raises the
-    engine logger to INFO."""
+    `repro_torch.core.engine.SummarizerEngine`, the stage-based
+    partition-parallel engine (DESIGN.md §8): ``partitions`` shards the
+    work by node ownership and the result is bit-identical for every
+    value. ``verbose`` raises the engine logger to INFO."""
     from repro_torch.core.engine import SummarizerEngine  # circular-safe
 
     engine = SummarizerEngine(

@@ -84,6 +84,12 @@ class Graph:
         i = np.searchsorted(row, v)
         return bool(i < row.shape[0] and row[i] == v)
 
+    def partitioned(self, n_parts: int = 1, owner=None):
+        """This graph as shards — `Graph` is the one-partition special case
+        of `PartitionedGraph` (DESIGN.md §8)."""
+        from repro_torch.graphs.partitioned import PartitionedGraph
+        return PartitionedGraph.from_graph(self, n_parts, owner=owner)
+
     def subgraph(self, nodes: np.ndarray) -> "Graph":
         """Induced subgraph with nodes relabeled 0..len(nodes)-1."""
         nodes = np.asarray(nodes, dtype=np.int64)

@@ -143,6 +143,20 @@ def star_of_cliques(n_hubs: int, sat_per_hub: int, seed: int = 0) -> Graph:
     return Graph.from_edges(node, np.array(edges, dtype=np.int64))
 
 
+def bipartite_nested(n_left: int, n_right: int, levels: int = 3, seed: int = 0) -> Graph:
+    """Nested (hierarchically complete) bipartite graph — the Theorem-1 regime
+    where hierarchical encodings are asymptotically smaller than flat ones."""
+    edges = []
+    # right node j at "depth" d(j) connects to the left prefix [0, n_left >> d(j));
+    # prefixes are nested, so the hierarchical model encodes each right-depth
+    # class with O(1) p-edges while the flat model needs per-node corrections.
+    for j in range(n_right):
+        depth = min(levels - 1, int(np.log2(j + 1)))
+        for u in range(n_left >> depth):
+            edges.append((u, n_left + j))
+    return Graph.from_edges(n_left + n_right, np.array(edges, dtype=np.int64))
+
+
 # Named serving-scale graphs, the same presets the JAX package's serving
 # launcher uses. Keys name the edge count.
 SERVING_GRAPHS = {
@@ -150,3 +164,57 @@ SERVING_GRAPHS = {
     "55k": lambda: caveman(1000, 11, 0.03, seed=0),
     "220k": lambda: caveman(4000, 11, 0.03, seed=0),
 }
+
+
+def sample_subgraph(g: Graph, n_nodes: int, seed: int = 0) -> Graph:
+    """Random induced subgraph (used for the Fig. 1(b) scalability series)."""
+    rng = np.random.default_rng(seed)
+    nodes = rng.choice(g.n, size=min(n_nodes, g.n), replace=False)
+    return g.subgraph(np.sort(nodes))
+
+
+# ---------------------------------------------------------------------------
+# Streamed emission (bounded-memory ingestion, DESIGN.md §8)
+# ---------------------------------------------------------------------------
+def as_chunks(edges: np.ndarray, chunk_edges: int = 1 << 18):
+    """Yield an in-memory (m, 2) edge array in bounded chunks — the adapter
+    that lets any eager generator feed `PartitionedGraph.from_edge_stream`."""
+    edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+    for s in range(0, edges.shape[0], chunk_edges):
+        yield edges[s:s + chunk_edges]
+
+
+def stream_edges(g: Graph, chunk_edges: int = 1 << 18):
+    """Yield a built graph's undirected edge list in chunks (tests/replay)."""
+    yield from as_chunks(g.edge_list(), chunk_edges)
+
+
+def rmat_stream(scale: int, edge_factor: int = 8, a=0.57, b=0.19, c=0.19,
+                seed: int = 0, chunk_edges: int = 1 << 18):
+    """Streamed R-MAT: emit the edge list in bounded chunks without ever
+    materializing it whole. Each chunk draws from its own `SeedSequence`
+    child, so the stream is deterministic per (seed, chunk_edges) and chunks
+    can in principle be generated independently (out-of-core / parallel
+    ingestion). Dedup/symmetrization is the consumer's job —
+    `PartitionedGraph.from_edge_stream` applies the same cleaning as
+    `Graph.from_edges`.
+    """
+    n = 1 << scale
+    m = n * edge_factor
+    d = 1.0 - a - b - c
+    n_chunks = (m + chunk_edges - 1) // chunk_edges
+    children = np.random.SeedSequence(seed).spawn(max(n_chunks, 1))
+    for ci in range(n_chunks):
+        k = min(chunk_edges, m - ci * chunk_edges)
+        rng = np.random.default_rng(children[ci])
+        src = np.zeros(k, dtype=np.int64)
+        dst = np.zeros(k, dtype=np.int64)
+        for _ in range(scale):
+            r = rng.random(k)
+            bit_src = (r >= a + b).astype(np.int64)
+            r2 = rng.random(k)
+            p_right = np.where(bit_src == 0, b / (a + b), d / (c + d))
+            bit_dst = (r2 < p_right).astype(np.int64)
+            src = src * 2 + bit_src
+            dst = dst * 2 + bit_dst
+        yield np.stack([src, dst], axis=1)

@@ -11,6 +11,8 @@ switch on the current device) and outputs come from `new_empty`.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels import _build
@@ -18,6 +20,7 @@ from repro_torch.kernels.bitset_fold import ref
 
 TOPJ_LAUNCHES = 0
 FOLD_LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()  # wrappers also run on worker threads
 MAX_G = 128  # the merge engine's largest batched group
 
 
@@ -58,7 +61,8 @@ def jaccard_topj(bits: torch.Tensor, alive: torch.Tensor,
         return out
     _build.launch("jaccard_topj_launch", bits.device.index, bits.data_ptr(),
                   alive.data_ptr(), out.data_ptr(), B, G, W, J)
-    TOPJ_LAUNCHES += 1
+    with _COUNT_LOCK:
+        TOPJ_LAUNCHES += 1
     return out
 
 
@@ -87,4 +91,5 @@ def bitset_fold(bits: torch.Tensor, alive: torch.Tensor,
     _build.launch("bitset_fold_launch", bits.device.index, bits.data_ptr(),
                   alive.data_ptr(), instr.data_ptr(), B, G, W,
                   instr.shape[1])
-    FOLD_LAUNCHES += 1
+    with _COUNT_LOCK:
+        FOLD_LAUNCHES += 1

@@ -17,6 +17,8 @@ SM count (read once a device) instead of asking the runtime.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels import _build
@@ -24,6 +26,7 @@ from repro_torch.kernels.bitset_jaccard import ref
 
 LAUNCHES = 0
 PAIRWISE_LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()  # wrappers also run on worker threads
 
 
 def _check_cuda(bits: torch.Tensor, device: torch.device) -> None:
@@ -52,7 +55,8 @@ def bitset_intersections(bits: torch.Tensor, valid: int) -> torch.Tensor:
         return out
     _build.launch("bitset_intersections_launch", device.index,
                   bits.data_ptr(), out.data_ptr(), B, G, W, valid)
-    LAUNCHES += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
     return out
 
 
@@ -74,5 +78,6 @@ def pairwise_intersections(bits: torch.Tensor) -> torch.Tensor:
     index = device.index
     _build.launch("pairwise_intersections_launch", index, bits.data_ptr(),
                   out.data_ptr(), G, W, _build.sm_count(index))
-    PAIRWISE_LAUNCHES += 1
+    with _COUNT_LOCK:
+        PAIRWISE_LAUNCHES += 1
     return out

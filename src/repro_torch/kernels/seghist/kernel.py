@@ -11,12 +11,15 @@ device, the SM count read once) and the zeroed output comes from
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.seghist import ref
 
 LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()  # wrappers also run on worker threads
 
 
 def segment_histogram(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -41,5 +44,6 @@ def segment_histogram(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     index = ids.device.index
     _build.launch("segment_histogram_launch", index, ids.data_ptr(),
                   out.data_ptr(), ids.numel(), S, _build.sm_count(index))
-    LAUNCHES += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
     return out

@@ -310,6 +310,50 @@ def test_cuda_resident_summarize_matches_batched():
     assert resident.validate_lossless(g)
 
 
+@pytest.mark.cuda
+def test_cuda_resident_partitions_on_threads_count_every_launch(monkeypatch):
+    """Resident ``partitions=2, workers=2`` on the card equals
+    ``partitions=1``, and the kernels' counters equal the wrapper calls
+    that launch, counted under a lock around the ops' names."""
+    _need_card()
+    import threading
+
+    import repro_torch
+    from repro_torch.graphs import generators as GG
+    from repro_torch.kernels.bitset_fold import ops as fold_ops
+
+    lock = threading.Lock()
+    calls = {"topj": 0, "fold": 0}
+    topj, fold = fold_ops.jaccard_topj, fold_ops.bitset_fold
+
+    def counted_topj(bits, alive, J):
+        if bits.shape[0]:
+            with lock:
+                calls["topj"] += 1
+        return topj(bits, alive, J)
+
+    def counted_fold(bits, alive, instr):
+        if bits.shape[0] and bits.shape[2] and instr.shape[1]:
+            with lock:
+                calls["fold"] += 1
+        return fold(bits, alive, instr)
+
+    monkeypatch.setattr(fold_ops, "jaccard_topj", counted_topj)
+    monkeypatch.setattr(fold_ops, "bitset_fold", counted_fold)
+    g = GG.caveman(200, 8, 0.05, seed=0)
+    n = (fold_kernel.TOPJ_LAUNCHES, fold_kernel.FOLD_LAUNCHES)
+    two = repro_torch.SummarizerEngine(backend="resident", partitions=2,
+                                       workers=2, T=5).run(g)
+    torch.cuda.synchronize()
+    assert calls["topj"] > 0 and calls["fold"] > 0
+    assert fold_kernel.TOPJ_LAUNCHES - n[0] == calls["topj"]
+    assert fold_kernel.FOLD_LAUNCHES - n[1] == calls["fold"]
+    one = repro_torch.SummarizerEngine(backend="resident", T=5).run(g)
+    np.testing.assert_array_equal(two.parent, one.parent)
+    np.testing.assert_array_equal(two.edges, one.edges)
+    assert two.validate_lossless(g)
+
+
 def _intervals(B, E, P, seed, layout="random"):
     """``random``: intervals and probes over a DFS range of 10,000
     positions, about a quarter of each padded (lo == hi == 0 with sign 0;

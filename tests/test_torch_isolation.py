@@ -61,6 +61,8 @@ def test_port_files_exist():
                  "src/repro_torch/kernels/flash_attn/ops.py",
                  "src/repro_torch/kernels/flash_attn/ref.py",
                  "src/repro_torch/interop.py",
+                 "src/repro_torch/graphs/partitioned.py",
+                 "src/repro_torch/core/checkpoint.py",
                  "chip_smoke.py", "flash_bench.py", "popc_bench.py",
                  "rank_count_bench.py"):
         assert want in names
@@ -115,12 +117,20 @@ def test_default_backend_is_batched():
     assert engine.device == torch.device("cpu")
 
 
+@pytest.mark.parametrize("kwargs", [
+    {"backend": "resident", "partitions": 2},
+    {"partitions": 2},
+])
+def test_partitions_construct(kwargs):
+    engine = repro_torch.SummarizerEngine(device="cpu", **kwargs)
+    assert engine.partitions == 2
+
+
 @pytest.mark.parametrize("kwargs,exc,match", [
-    ({"backend": "resident", "partitions": 2}, NotImplementedError,
-     "slice E"),
-    ({"partitions": 2}, NotImplementedError, "slice E"),
     ({"backend": "bogus"}, ValueError, "unknown backend"),
     ({"partitions": 0}, ValueError, "partitions"),
+    ({"stages": {"bogus": lambda engine, ctx: None}}, ValueError,
+     "unknown stages"),
 ])
 def test_unported_and_invalid_options_raise(kwargs, exc, match):
     with pytest.raises(exc, match=match):

@@ -267,11 +267,9 @@ def test_engine_lockstep_every_iteration():
     """After EVERY exchange stage the device root map equals the host
     ``root_of`` and the bank's rows equal ``gather_rows``."""
     g = PG.caveman(10, 6, 0.05, seed=3)
-    e = repro_torch.SummarizerEngine(backend="resident", T=6, seed=2,
-                                     device="cpu")
     checked = []
 
-    def stage_exchange(ctx):
+    def stage_exchange(e, ctx):
         port_engine.SummarizerEngine.stage_exchange(e, ctx)
         rc = e._run_ctx
         np.testing.assert_array_equal(rc.root_of_host(), ctx.state.root_of)
@@ -280,7 +278,9 @@ def test_engine_lockstep_every_iteration():
                                                             // 16)]))
         checked.append(ctx.merges)
 
-    e.stage_exchange = stage_exchange
+    e = repro_torch.SummarizerEngine(backend="resident", T=6, seed=2,
+                                     device="cpu",
+                                     stages={"exchange": stage_exchange})
     e.merge_forest(g)
     assert len(checked) == 6 and sum(m > 0 for m in checked) >= 3
 
@@ -311,7 +311,7 @@ def test_engine_transfer_phases_and_zero_steady_upload():
 def test_engine_edgeless_run_keeps_resident_state_consistent():
     g = PortGraph.from_edges(6, np.zeros((0, 2), dtype=np.int64))
     e = repro_torch.SummarizerEngine(backend="resident", T=3, device="cpu")
-    state = e.merge_forest(g)
+    state, _ = e.merge_forest(g)
     assert e.stats["merges"] == 0 and len(e.stats["transfer_iters"]) == 3
     np.testing.assert_array_equal(e._run_ctx.root_of_host(), state.root_of)
 
@@ -322,7 +322,7 @@ def test_groups_dying_mid_run_match_numpy():
                                  device="cpu")
     e = repro_torch.SummarizerEngine(backend="resident", T=8, seed=6,
                                      device="cpu")
-    state = e.merge_forest(g)
+    state, _ = e.merge_forest(g)
     got = repro_torch.summarize(g, T=8, seed=6, backend="resident",
                                 device="cpu")
     np.testing.assert_array_equal(want.parent, got.parent)
