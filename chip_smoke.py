@@ -48,15 +48,36 @@ Phases, each printing one JSON line with its seconds:
            batched summary, top-J and fold launched, steady-state upload
            0 B, stage walls beside the resident `partitions=1` run's; (3)
            `backend="batched", partitions=4, workers=4` with a plan-log
-           checkpoint, crashed by a `stages=` override at iteration 11,
-           then resumed under `backend="resident", partitions=1`: resumed
-           from iteration 10, equal to the batched summary, intersections
+           checkpoint, killed by `faults.inject("engine.merge_round",
+           iteration=11)` (the site fires after that iteration's
+           merge_round, before its commit), then resumed under
+           `backend="resident", partitions=1`: resumed from iteration 10, equal to the batched summary, intersections
            launched in the first run, top-J and fold in the second; the
            commit seconds as a share of each run's merge wall; (4) the
            completed log replayed under `backend="batched", partitions=4`
            (resumed from 20: no merge round left), so the emission runs
            per owner bucket: equal to the batched summary, the histogram
            kernel launched
+  faults   slices E3 and E4, each engine run with counts at 0 and exactly
+           one degradation, equal bit for bit to its clean run: (1)
+           resident under `faults.inject("kernel.bitset_fold.round",
+           hit=2)` — the arena retries on the plain versions, top-J and
+           fold still launched (counts beside the clean 67 / 39); (2)
+           resident under `"resident.bank.advance"` — the run context
+           dropped at iteration 1's exchange, top-J and fold launched after
+           it on host-uploaded arenas, `upload` bytes by iteration; then
+           rmat(12, 8) batched, clean, its launches and rank dispatches
+           (`bitset_jaccard.ops.DISPATCHES`) counted, and against it (3)
+           rmat(12, 8) resident under `"resident.bank.extract"` — kernels
+           launched after it; (4) rmat(12, 8) batched under
+           `"kernel.bitset_jaccard.intersections"` at half the clean run's
+           rank dispatches — fewer intersection launches than the clean
+           run, none zero; (5) `launch.chaos`: five stage kills and
+           bit-identical resumes, and its kernel fault on the card; (6)
+           `datasets.load_remote("email-Enron", opener=...)` over the main
+           graph written as gzipped SNAP text under `build/`, after an
+           injected `datasets.fetch` fault that must leave no file: equal
+           to the graph; load seconds and file bytes
   serve    each summary (caveman 1.1M batched, then rmat(14, 8)) packed,
            its `.npz` saved under `build/` and loaded back, and 16,384
            `make_queries` queries drained through `SummaryQueryServer` on
@@ -95,8 +116,10 @@ the histogram, resident for top-J and the fold, both serve drains for the
 interval count, the shingles phase for the row-min hash and the pairwise
 intersections, the LM drain for flash attention), its times are sums over
 every call that run made (each call, or each distinct call shape, checked
-against the plain version, timed, and weighted by its call count). The
-last line is
+against the plain version, timed, and weighted by its call count).
+Every engine run outside the injected ones must report
+``stats["degradations"] == 0``: a kernel that failed and fell back to its
+plain version fails the script. The last line is
 ``{"ok": true, "device": {...}}``. Any failure raises: the script then
 exits non-zero without that line. Without a card, or outside a checkout,
 it exits non-zero at once.
@@ -1218,6 +1241,7 @@ def phase_main(graph):
     finally:
         recorder.close()
     launches = read_launches()
+    no_degradation(engine, "main batched")
     transfer = TRANSFER.snapshot()
     lossless = summary.validate_lossless(graph)
     if not lossless:
@@ -1245,19 +1269,15 @@ def phase_main(graph):
 
 def phase_parity(graph, batched):
     import numpy as np
-    import torch
 
-    import repro_torch
     from repro_torch.graphs import generators as GG
 
     t0 = time.perf_counter()
     checks = []
 
     def timed(g, backend):
-        tw = time.perf_counter()
-        s = repro_torch.summarize(g, backend=backend, device="cuda")
-        torch.cuda.synchronize()
-        return s, time.perf_counter() - tw
+        _, s, wall = run_clean(g, backend, f"parity {backend}")
+        return s, wall
 
     def same(a, b, what, walls):
         ok = (np.array_equal(a.parent, b.parent)
@@ -1310,6 +1330,7 @@ def phase_resident(graph, batched, rmat, rmat_batched):
     finally:
         recorder.close()
     launches = read_launches()
+    no_degradation(engine, "main resident")
     peak = torch.cuda.max_memory_allocated()
     if not summary.validate_lossless(graph):
         raise AssertionError("resident summary does not decompress to the "
@@ -1326,10 +1347,7 @@ def phase_resident(graph, batched, rmat, rmat_batched):
         raise AssertionError(f"steady-state upload is not 0 B (bank live: "
                              f"{engine._run_ctx.bank is not None}): "
                              f"{steady_upload}")
-    tw = time.perf_counter()
-    r2 = repro_torch.summarize(rmat, backend="resident", device="cuda")
-    torch.cuda.synchronize()
-    r2_wall = time.perf_counter() - tw
+    _, r2, r2_wall = run_clean(rmat, "resident", "rmat(14, 8) resident")
     if not same_summary(r2, rmat_batched):
         raise AssertionError("rmat(14, 8): resident and batched summaries "
                              "differ")
@@ -1364,22 +1382,33 @@ def stage_seconds(engine):
     return {k: engine.stats[k] for k in STAGES if k in engine.stats}
 
 
-class Crash(RuntimeError):
-    """The partitioned phase's deliberate crash."""
+def no_degradation(engine, what):
+    """Every engine run outside the injected ones: a kernel or the bank
+    that failed and fell back would show in ``stats["degradations"]``."""
+    from repro_torch import faults
+
+    n = engine.stats["degradations"]
+    if n:
+        events = faults.DEGRADATIONS.events_since(
+            faults.DEGRADATIONS.count() - n)
+        raise AssertionError(f"{what}: {n} degradation(s) on a clean run: "
+                             f"{events}")
 
 
-def crash_at(iteration):
-    """A ``stages=`` override of merge_round that dies at ``iteration``
-    (before its sweeps), so the last committed checkpoint is the one
-    before it."""
+def run_clean(graph, backend, what, **kw):
+    """One engine run on the card that must not degrade; returns the
+    engine, the summary and the wall (ending in a synchronize)."""
+    import torch
+
     from repro_torch.core.engine import SummarizerEngine
 
-    def merge_round(engine, ctx):
-        if ctx.t == iteration:
-            raise Crash(f"crashed at iteration {iteration}")
-        SummarizerEngine.stage_merge_round(engine, ctx)
-
-    return {"merge_round": merge_round}
+    engine = SummarizerEngine(backend=backend, device="cuda", **kw)
+    tw = time.perf_counter()
+    summary = engine.run(graph)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tw
+    no_degradation(engine, what)
+    return engine, summary, wall
 
 
 def checkpoint_share(engine):
@@ -1402,6 +1431,7 @@ def phase_partitioned(graph, batched, res_stages):
 
     import torch
 
+    from repro_torch import faults
     from repro_torch.core.engine import SummarizerEngine
     from repro_torch.core.transfer import GLOBAL as TRANSFER
     from repro_torch.graphs import PartitionedGraph
@@ -1444,6 +1474,7 @@ def phase_partitioned(graph, batched, res_stages):
     torch.cuda.synchronize()
     wall = time.perf_counter() - tw
     launches = read_launches()
+    no_degradation(engine, "resident partitions=2")
     if not summary.validate_lossless(graph):
         raise AssertionError("resident partitions=2 summary does not "
                              "decompress to the input graph")
@@ -1467,11 +1498,14 @@ def phase_partitioned(graph, batched, res_stages):
 
     reset_launches()
     crashed = SummarizerEngine(backend="batched", partitions=4, workers=4,
-                               device="cuda", stages=crash_at(CRASH_AT))
+                               device="cuda")
     tw = time.perf_counter()
     try:
-        crashed.run(graph, checkpoint_dir=str(ckpt))
-    except Crash:
+        # the site is checked after iteration CRASH_AT's merge_round; the
+        # commit comes after its exchange, so the resume starts at 10
+        with faults.inject("engine.merge_round", iteration=CRASH_AT):
+            crashed.run(graph, checkpoint_dir=str(ckpt))
+    except faults.InjectedFault:
         pass
     else:
         raise AssertionError("the checkpointed batched run did not crash")
@@ -1489,6 +1523,7 @@ def phase_partitioned(graph, batched, res_stages):
     torch.cuda.synchronize()
     resume_wall = time.perf_counter() - tw
     resume_launches = read_launches()
+    no_degradation(resumed, "the resumed resident run")
     if resumed.stats.get("resumed_from") != CRASH_AT - 1:
         raise AssertionError(f"resumed from "
                              f"{resumed.stats.get('resumed_from')}, not "
@@ -1508,6 +1543,7 @@ def phase_partitioned(graph, batched, res_stages):
     torch.cuda.synchronize()
     replay_wall = time.perf_counter() - tw
     replay_launches = read_launches()
+    no_degradation(replayed, "the replayed batched run")
     if replayed.stats.get("resumed_from") != 20:
         raise AssertionError("the completed log did not replay to the end")
     if not same_summary(out, batched):
@@ -1543,6 +1579,257 @@ def phase_partitioned(graph, batched, res_stages):
                  "equal_to_batched": True})
 
 
+class DegradationWatch:
+    """The launch counts at each degradation the engine logs (a handler on
+    the ``repro_torch.engine`` logger, where every fallback warns): what a
+    run launched after it is its final counts less these."""
+
+    def __init__(self):
+        import logging
+
+        class Handler(logging.Handler):
+            def emit(handler, record):
+                self.at.append(read_launches())
+
+        self.at = []
+        self.handler = Handler(logging.WARNING)
+        self.logger = logging.getLogger("repro_torch.engine")
+        self.logger.addHandler(self.handler)
+
+    def after(self, launches):
+        if len(self.at) != 1:
+            raise AssertionError(f"{len(self.at)} degradations logged, not 1")
+        return {k: v - self.at[0][k] for k, v in launches.items()}
+
+    def close(self):
+        self.logger.removeHandler(self.handler)
+
+
+def injected_run(graph, backend, want, what, site, **plan):
+    """One engine run on the card under ``faults.inject(site, **plan)``:
+    equal bit for bit to ``want``, lossless, exactly one degradation.
+    Counts start at 0; returns the engine, its wall, its launches and the
+    launches after the degradation."""
+    import torch
+
+    from repro_torch import faults
+    from repro_torch.core.engine import SummarizerEngine
+    from repro_torch.core.transfer import GLOBAL as TRANSFER
+
+    TRANSFER.reset()
+    reset_launches()
+    watch = DegradationWatch()
+    try:
+        engine = SummarizerEngine(backend=backend, device="cuda")
+        tw = time.perf_counter()
+        with faults.inject(site, **plan):
+            summary = engine.run(graph)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tw
+        launches = read_launches()
+        after = watch.after(launches)
+    finally:
+        watch.close()
+    if engine.stats["degradations"] != 1:
+        raise AssertionError(f"{what}: {engine.stats['degradations']} "
+                             f"degradations, not 1")
+    if not same_summary(summary, want):
+        raise AssertionError(f"{what}: the summary differs from the clean "
+                             f"run's")
+    if not summary.validate_lossless(graph):
+        raise AssertionError(f"{what}: the summary is not lossless")
+    return engine, wall, launches, after
+
+
+def write_snap_text(graph, path):
+    """``graph`` as gzipped SNAP edge-list text, each edge once (u < v)."""
+    import gzip
+
+    import numpy as np
+
+    src = np.repeat(np.arange(graph.n), np.diff(graph.indptr))
+    keep = src < graph.indices
+    pairs = np.stack([src[keep], graph.indices[keep]], axis=1)
+    lines = "\n".join(f"{u}\t{v}" for u, v in pairs.tolist())
+    text = (f"# Undirected graph: caveman(20000, 11, 0.03)\n"
+            f"# Nodes: {graph.n} Edges: {pairs.shape[0]}\n"
+            f"# FromNodeId\tToNodeId\n{lines}\n").encode()
+    path.write_bytes(gzip.compress(text, compresslevel=6))
+    return len(text), int(pairs.shape[0])
+
+
+def phase_faults(graph, batched, res_launches):
+    """Slices E3 and E4 on the card: a kernel-dispatch, a bank-advance and
+    a bank-extract fault in resident runs and a rank-dispatch fault in a
+    batched run, each finishing equal to its clean run with exactly one
+    degradation and its kernels still launched; the chaos driver's stage
+    kills and kernel fault; and the dataset cache over the main graph
+    written as SNAP text. The extract and rank-dispatch faults run on
+    rmat(12, 8) (parity's rmat(14, 8) takes ≈ 30 s a run on the host's
+    sequential sweep of its wide groups). Each engine run starts the
+    counts at 0."""
+    import shutil
+
+    import torch
+
+    from repro_torch import faults
+    from repro_torch.graphs import datasets
+    from repro_torch.graphs import generators as GG
+    from repro_torch.kernels.bitset_jaccard import ops as jaccard_ops
+    from repro_torch.launch import chaos
+
+    t0 = time.perf_counter()
+    out = {}
+
+    # 1. resident, a kernel-dispatch fault: the arena retries on the plain
+    # versions and keeps them for its life; the other arenas run kernels
+    _, wall, launches, after = injected_run(
+        graph, "resident", batched, "kernel-dispatch fault",
+        "kernel.bitset_fold.round", hit=2)
+    for name in ("jaccard_topj", "bitset_fold"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel-dispatch fault: {name} never "
+                                 f"launched")
+    out["kernel_round"] = {
+        "site": "kernel.bitset_fold.round", "hit": 2, "wall_seconds": wall,
+        "launches": launches, "launches_after_degradation": after,
+        "clean_launches": {k: res_launches[k] for k in
+                           ("jaccard_topj", "bitset_fold")},
+        "degradations": 1, "equal_to_batched": True, "lossless": True}
+
+    # 2. resident, a bank-advance fault at iteration 1's exchange: the run
+    # context goes, later iterations upload host-built workspaces to
+    # arenas that keep their kernels
+    engine, wall, launches, after = injected_run(
+        graph, "resident", batched, "bank-advance fault",
+        "resident.bank.advance")
+    upload = [d["phases"].get("upload", 0)
+              for d in engine.stats["transfer_iters"]]
+    if engine._run_ctx is not None:
+        raise AssertionError("bank-advance fault: the run context survived")
+    for name in ("jaccard_topj", "bitset_fold"):
+        if after[name] <= 0:
+            raise AssertionError(f"bank-advance fault: {name} never "
+                                 f"launched after the degradation")
+    if not any(upload[1:]):
+        raise AssertionError(f"bank-advance fault: no workspace uploaded "
+                             f"after iteration 1: {upload}")
+    out["bank_advance"] = {
+        "site": "resident.bank.advance", "wall_seconds": wall,
+        "launches": launches, "launches_after_degradation": after,
+        "upload_bytes_by_iteration": upload,
+        "stage_seconds": stage_seconds(engine), "degradations": 1,
+        "equal_to_batched": True, "lossless": True}
+
+    # the clean batched run that parts 3 and 4 are held to, its rank
+    # dispatches counted for part 4's hit
+    rmat = GG.rmat(12, 8, seed=0)
+    reset_launches()
+    jaccard_ops.DISPATCHES = 0
+    _, rmat_batched, clean_wall = run_clean(rmat, "batched",
+                                            "rmat(12, 8) batched")
+    dispatches = jaccard_ops.DISPATCHES
+    clean_launches = read_launches()
+    if not rmat_batched.validate_lossless(rmat):
+        raise AssertionError("rmat(12, 8) batched summary is not lossless")
+    out["rmat_clean"] = {"graph": "rmat(12, 8)", "n": rmat.n, "m": rmat.m,
+                         "wall_seconds": clean_wall,
+                         "dispatches": dispatches,
+                         "launches": clean_launches}
+
+    # 3. resident on rmat(12, 8), a bank-extract fault in iteration 1's
+    # merge_round: pack and merge_round rebuild on host workspaces
+    engine, wall, launches, after = injected_run(
+        rmat, "resident", rmat_batched, "bank-extract fault",
+        "resident.bank.extract")
+    if engine._run_ctx is not None:
+        raise AssertionError("bank-extract fault: the run context survived")
+    for name in ("jaccard_topj", "bitset_fold"):
+        if after[name] <= 0:
+            raise AssertionError(f"bank-extract fault: {name} never "
+                                 f"launched after the degradation")
+    out["bank_extract"] = {
+        "graph": "rmat(12, 8)", "site": "resident.bank.extract",
+        "wall_seconds": wall, "launches": launches,
+        "launches_after_degradation": after, "degradations": 1,
+        "equal_to_batched": True, "lossless": True}
+
+    # 4. batched on rmat(12, 8), a rank-dispatch fault at half the clean
+    # run's dispatches: that chunk ranks on the host popcount for the rest
+    # of its sweep
+    if dispatches < 2:
+        raise AssertionError(f"the clean batched run made {dispatches} rank "
+                             f"dispatches")
+    hit = dispatches // 2
+    _, wall, launches, after = injected_run(
+        rmat, "batched", rmat_batched, "rank-dispatch fault",
+        "kernel.bitset_jaccard.intersections", hit=hit)
+    inter = launches["bitset_intersections"]
+    if not 0 < inter < clean_launches["bitset_intersections"]:
+        raise AssertionError(f"rank-dispatch fault: {inter} intersection "
+                             f"launches against the clean run's "
+                             f"{clean_launches['bitset_intersections']}")
+    out["rank_dispatch"] = {
+        "graph": "rmat(12, 8)", "site": "kernel.bitset_jaccard.intersections",
+        "hit": hit, "clean_dispatches": dispatches, "wall_seconds": wall,
+        "launches": launches,
+        "clean_launches": clean_launches,
+        "launches_after_degradation": after, "degradations": 1,
+        "equal_to_batched": True, "lossless": True}
+
+    # 5. the chaos driver on the card
+    tw = time.perf_counter()
+    chaos.run_stage_kills()
+    kills_wall = time.perf_counter() - tw
+    reset_launches()
+    tw = time.perf_counter()
+    chaos.run_kernel_fault(device="cuda")
+    out["chaos"] = {"stage_kills": 5, "stage_kills_seconds": kills_wall,
+                    "kernel_fault_seconds": time.perf_counter() - tw,
+                    "kernel_fault_launches": read_launches()}
+
+    # 6. the dataset cache over the main graph as SNAP text, served by an
+    # opener that reads the local file: nothing fetches
+    work = ROOT / "build" / "datasets"
+    shutil.rmtree(work, ignore_errors=True)
+    cache = work / "cache"
+    work.mkdir(parents=True)
+    source = work / "source.txt.gz"
+    text_bytes, edges = write_snap_text(graph, source)
+
+    def opener(url):
+        return open(source, "rb")
+
+    try:
+        with faults.inject("datasets.fetch"):
+            datasets.fetch("email-Enron", cache=str(cache), opener=opener)
+    except faults.InjectedFault:
+        pass
+    else:
+        raise AssertionError("the injected datasets.fetch fault never fired")
+    left = sorted(p.name for p in cache.iterdir())
+    if left:
+        raise AssertionError(f"the failed fetch left files behind: {left}")
+    tw = time.perf_counter()
+    loaded = datasets.load_remote("email-Enron", cache=str(cache),
+                                  opener=opener)
+    load_s = time.perf_counter() - tw
+    if loaded != graph:
+        raise AssertionError("load_remote of the SNAP text differs from the "
+                             "graph")
+    cached = sorted(p.name for p in cache.iterdir())
+    if cached != ["email-Enron.txt.gz", "email-Enron.txt.gz.sha256"]:
+        raise AssertionError(f"unexpected cache contents: {cached}")
+    out["datasets"] = {"name": "email-Enron", "edges": edges,
+                       "text_bytes": text_bytes,
+                       "file_bytes": source.stat().st_size,
+                       "load_seconds": load_s, "equal_to_graph": True,
+                       "fault_left_files": 0}
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.synchronize()
+    emit("faults", t0, graph={"n": graph.n, "m": graph.m}, T=20, **out)
+
+
 def fold_calls_by_shape(fold, groups):
     """The recorded fold calls by shape ``[B, G, W, P]``, the most called
     first: calls, valid pairs, groups holding a pair, and
@@ -1566,11 +1853,12 @@ def phase_trace(graph, backend, top=8):
     time by kernel, copy and torch op, against the run's wall time.
     Reported, not asserted: the wall of this run includes the profiler's
     own cost."""
-    import repro_torch
+    from repro_torch.core.engine import SummarizerEngine
 
     t0 = time.perf_counter()
-    wall, by_name = traced(lambda: repro_torch.summarize(
-        graph, backend=backend, device="cuda"))
+    engine = SummarizerEngine(backend=backend, device="cuda")
+    wall, by_name = traced(lambda: engine.run(graph))
+    no_degradation(engine, f"traced {backend}")
     emit_trace(t0, backend, wall, by_name, top=top)
     return by_name
 
@@ -2394,6 +2682,7 @@ def main() -> int:
     res_launches, res_recorder, res_stages = phase_resident(
         graph, summary, rmat, rmat_batched)
     phase_partitioned(graph, summary, res_stages)
+    phase_faults(graph, summary, res_launches)
     ps, queries, serve_calls, serve_launches = phase_serve(
         graph, summary, "caveman_1.1M")
     rmat_ps, rmat_queries, rmat_calls, rmat_launches = phase_serve(

@@ -36,8 +36,23 @@ the device, and root shingles are computed there; its emission counts on
 the host. Worker threads launch on the device's current stream, so their
 kernels serialize and only host work overlaps. The engine resolves
 ``device=None`` to the CUDA card and raises when there is none; a CPU
-device runs the kernels' plain versions. Meshes (ROADMAP slice E5) and
-fault injection with degradation (slice E3) are not ported yet.
+device runs the kernels' plain versions. Meshes (ROADMAP slice E5) are not
+ported yet.
+
+Faults and degradation (DESIGN.md §11, `repro_torch.faults`): after every
+stage the engine checks the site ``engine.<stage>`` with the iteration, so
+an injected fault kills a run at an exact stage boundary. An injected
+fault (`faults.InjectedFault`) at a device site degrades the run instead
+of ending it, where the summary cannot change: a kernel op retries once on
+its plain version (`core/resident.py`), a rank dispatch of ``"batched"``
+falls to the host popcount (`merging.HostRankSource`), and a bank
+extraction (wrapped as `faults.BankFault`) or bank advance drops the run
+context — the bank, the device root map and the device shingles — for the
+rest of the run: the shingles come from the host twin and each chunk
+uploads its host-built workspace to an arena that still runs the kernels.
+Every degradation is recorded, and ``stats["degradations"]`` counts those
+of the run. Any other failure raises: a kernel that fails to build or
+launch on the card ends the run rather than finishing on a plain version.
 """
 from __future__ import annotations
 
@@ -49,6 +64,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from repro_torch import faults
 from repro_torch.core.merging import apply_plans, build_merge_work
 from repro_torch.core.minhash import candidate_groups, host_shingle_provider
 from repro_torch.core.pruning import prune
@@ -163,13 +179,19 @@ class SummarizerEngine:
     def _resident_arena(self, ws):
         """A chunk's arena: extracted on the device from the adjacency bank
         (``ws`` is then a shell), or uploaded from the host-built workspace
-        when the bank declined the graph. Called from the merge_round
-        workers: it only reads the bank and the root map, which nothing
-        writes before the exchange stage."""
+        when the bank declined the graph or the run context was dropped.
+        Called from the merge_round workers: it only reads the bank and the
+        root map, which nothing writes before the exchange stage. A failed
+        extraction raises `faults.BankFault`: the shell carries no tensors,
+        so only the stage loop's rebuild can recover. Only an injected fault
+        is wrapped; any other failure raises as it is."""
         rc = self._run_ctx
-        if rc.bank is not None:
-            return ResidentBitmapArena.from_bank(rc.bank, ws, rc.res_map,
-                                                 top_j=self.top_j)
+        if rc is not None and rc.bank is not None:
+            try:
+                return ResidentBitmapArena.from_bank(rc.bank, ws, rc.res_map,
+                                                     top_j=self.top_j)
+            except faults.InjectedFault as e:
+                raise faults.BankFault(f"bank extract failed: {e!r}") from e
         return ResidentBitmapArena.from_workspace(ws, top_j=self.top_j,
                                                   device=self.device)
 
@@ -201,7 +223,8 @@ class SummarizerEngine:
         if not groups:
             return
         part_of_group = self._group_partitions(ctx)
-        resident = self._run_ctx is not None
+        resident = self.backend == "resident"
+        shell = self._run_ctx is not None and self._run_ctx.bank is not None
         for p in np.unique(part_of_group):
             idxs = np.flatnonzero(part_of_group == p)
             plans_p, thunks_p = build_merge_work(
@@ -212,7 +235,7 @@ class SummarizerEngine:
                 top_j=self.top_j, height_bound=self.height_bound,
                 backend=self.backend, device=self.device,
                 resident_factory=self._resident_arena if resident else None,
-                shell_workspaces=resident and self._run_ctx.bank is not None)
+                shell_workspaces=shell)
             for li, gi in enumerate(idxs):
                 ctx.plans[int(gi)] = plans_p[li]
             ctx.thunks.extend(thunks_p)
@@ -239,15 +262,33 @@ class SummarizerEngine:
         exchange stage and checkpoint-resume replay. On the resident
         backend the applied (A, Z, M) batches, with the minted rows'
         lengths ``row_len[M]`` (pristine exactly at the hook), also advance
-        the run context's root map and adjacency bank on the device."""
+        the run context's root map and adjacency bank on the device. The
+        plans are applied to the global state first, so an injected fault
+        in the advance degrades the run (`_degrade_to_host`) instead of
+        ending it; any other failure raises."""
         if self._run_ctx is None:
             return apply_plans(state, plans)
         batches: list = []
         merges = apply_plans(
             state, plans, on_batch=lambda A, Z, M: batches.append(
                 (A, Z, M, state.row_len[M].copy())))
-        self._run_ctx.advance(batches)
+        try:
+            self._run_ctx.advance(batches)
+        except faults.InjectedFault as e:
+            self._degrade_to_host(state, "resident.bank.advance", e)
         return merges
+
+    def _degrade_to_host(self, state, site: str, exc) -> None:
+        """Drop the resident run context (bank, device root map, device
+        shingles) and finish the run with host shingles and host-built
+        workspaces uploaded to arenas that keep their kernels: the same
+        integers, so the same summary. Recorded in the degradation
+        ledger."""
+        faults.DEGRADATIONS.record(site, exc)
+        log.warning("degrading to host workspace path after %s fault: %r",
+                    site, exc)
+        self._run_ctx = None
+        self._shingle_provider = host_shingle_provider(state.g)
 
     def _group_partitions(self, ctx: IterationContext) -> np.ndarray:
         """Partition of each group = owner of its smallest member root's
@@ -290,7 +331,8 @@ class SummarizerEngine:
         after every ``checkpoint_every``-th iteration and the last
         (``stats["checkpoint"]`` holds the commit seconds);
         ``resume=True`` replays the newest committed log and continues
-        from the next iteration (``stats["resumed_from"]``)."""
+        from the next iteration (``stats["resumed_from"]``).
+        ``stats["degradations"]`` counts the ledger's events of the run."""
         pg = as_partitioned(g, self.partitions)
         state = SluggerState(pg.to_graph())
         transfer0 = TRANSFER.snapshot()  # before setup: run-context init counts
@@ -299,6 +341,7 @@ class SummarizerEngine:
         self.stats["merges"] = 0
         self.stats["checkpoint"] = 0.0
         self.stats["transfer_iters"] = []
+        deg_mark = faults.DEGRADATIONS.count()
         transfer_prev = transfer0
         ckpt = None
         fingerprint = None
@@ -330,8 +373,20 @@ class SummarizerEngine:
             ctx.ss_groups, ctx.ss_merge = iter_streams[t - 1].spawn(2)
             for name in STAGE_ORDER:
                 t0 = time.perf_counter()
-                self.stages[name](self, ctx)
+                try:
+                    self.stages[name](self, ctx)
+                except faults.BankFault as e:
+                    # the bank failed mid-stage: the workspaces built for it
+                    # are shells. Degrade, then rebuild from pack against
+                    # the same iteration-start snapshot and streams — pure
+                    # functions, so the same decisions
+                    self._degrade_to_host(ctx.state, "resident.bank.extract",
+                                          e)
+                    self.stages["pack"](self, ctx)
+                    if name == "merge_round":
+                        self.stages["merge_round"](self, ctx)
                 self.stats[name] += time.perf_counter() - t0
+                faults.check(f"engine.{name}", iteration=t)
             self.stats["merges"] += ctx.merges
             if ckpt is not None:
                 plan_log.append(ctx.plans)
@@ -348,6 +403,7 @@ class SummarizerEngine:
                 t, theta, len(ctx.groups), ctx.merges, state.alive.size,
                 self.partitions)
         self.stats["transfer"] = TRANSFER.delta_since(transfer0)
+        self.stats["degradations"] = faults.DEGRADATIONS.count() - deg_mark
         return state, pg
 
     def run(self, g, checkpoint_dir=None, resume: bool = False,

@@ -27,9 +27,11 @@ makes every engine lossless by construction regardless of merge order.
 from __future__ import annotations
 
 import functools
+import logging
 
 import numpy as np
 
+from repro_torch import faults
 from repro_torch.core.bitops import popcount
 
 
@@ -451,10 +453,13 @@ class HostRankSource:
     """Per-round candidate ranking over the workspace's host-folded bitmaps.
 
     ``dispatch`` (optional) computes the (B, G, G) intersection tensor on a
-    device — the CUDA kernel ops (`_default_intersections_dispatch`); a
-    failed dispatch raises. Without it the intersections come from a
-    chunked host popcount restricted to the dirty rows. Either way the
-    integer intersections — and therefore the ranked order — are identical.
+    device — the CUDA kernel ops (`_default_intersections_dispatch`).
+    Without it the intersections come from a chunked host popcount
+    restricted to the dirty rows. Either way the integer intersections —
+    and therefore the ranked order — are identical, so a dispatch failed by
+    an injected fault (`faults.InjectedFault`) degrades (DESIGN.md §11):
+    it is recorded as ``"rank.dispatch"`` and the source ranks on the host
+    popcount for the rest of its life. Any other failure raises.
     """
 
     def __init__(self, dispatch=None):
@@ -462,7 +467,14 @@ class HostRankSource:
 
     def ranked(self, ws, rb, rr, j_max):
         if self.dispatch is not None:
-            inter_all = self.dispatch(ws.bits.view(np.uint32))  # (B, G, G)
+            try:
+                inter_all = self.dispatch(ws.bits.view(np.uint32))  # (B, G, G)
+            except faults.InjectedFault as e:
+                faults.DEGRADATIONS.record("rank.dispatch", e)
+                logging.getLogger("repro_torch.engine").warning(
+                    "rank dispatch failed, degrading to host popcount: %r", e)
+                self.dispatch = None
+        if self.dispatch is not None:
             deg = np.diagonal(inter_all, axis1=1, axis2=2)
             inter = inter_all[rb, rr]
         else:
@@ -890,7 +902,9 @@ _BATCH_MAX_GROUP = 128  # larger groups amortize row-level vectorization alone
 def _default_intersections_dispatch(device):
     """The device path of ``backend="batched"``: the CUDA intersection
     kernel ops on ``device`` (the kernel's plain version when it is the
-    CPU). It never falls back to the host popcount: a failure raises."""
+    CPU). It never falls back itself: a failure raises to
+    `HostRankSource.ranked`, which degrades to the host popcount on an
+    injected fault and re-raises anything else."""
     from repro_torch.kernels.bitset_jaccard.ops import (
         batched_pairwise_intersections)
     return functools.partial(batched_pairwise_intersections, device=device)

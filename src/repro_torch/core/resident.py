@@ -28,14 +28,30 @@ Every transfer reports to `core.transfer.GLOBAL` under its phase (``init``,
 ``upload``, ``rank``, ``fold``, ``carry``, ``candgen``, ``bank``,
 ``extract``, ``sync``); each proposal round-trip ticks the round counter.
 The ``host_*``/``sync_rows`` downloads are the verification contract: the
-engine never calls them. Nothing here retries on the host: a failure
-raises.
+engine never calls them. The v1 protocol (`topj_rows` ranking and the
+bitmap-only `fold`) stays for tests and tools.
+
+Degradation (DESIGN.md §11): every round op goes through `_run_round_op`.
+An op failed by an injected fault (`faults.InjectedFault`, raised at the
+op's site before any device work, so the state is intact) is recorded in
+`faults.DEGRADATIONS`, the arena drops ``use_kernel`` for its life and
+retries the op once on the kernels' plain versions on the same device,
+which give the same integers. Any other failure raises: an op that failed
+part-way may have written the state, and a kernel that fails on the card
+must not finish on its plain version. The bank's fault sites
+(``resident.bank.extract`` at the top of `from_bank`,
+``resident.bank.advance`` before the bank changes at all) raise to the
+engine, which drops the run context and goes on with host-built
+workspaces.
 """
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
 
+from repro_torch import faults
 from repro_torch.core.minhash import u32_seed_consts
 from repro_torch.core.transfer import GLOBAL as TRANSFER
 from repro_torch.kernels._build import pow2
@@ -43,6 +59,8 @@ from repro_torch.kernels.bitset_fold import carry, ops
 from repro_torch.kernels.bitset_fold.rounds import C_CLAMP
 
 _COUNT_KEYS = ("CNT", "colsize", "memcol", "s", "selfc", "nd", "hgt", "cost")
+
+log = logging.getLogger("repro_torch.engine")
 
 
 def _put(arr: np.ndarray, device) -> torch.Tensor:
@@ -56,6 +74,24 @@ def _slots(b: np.ndarray):
     starts = np.flatnonzero(head)
     counts = np.diff(np.concatenate([starts, [b.size]]))
     return np.arange(b.size) - np.repeat(starts, counts), int(counts.max())
+
+
+def _run_round_op(arena, site: str, op):
+    """Run one round op, ``op(use_kernel)``. An injected fault with the
+    kernels live is recorded, drops ``arena.use_kernel`` for the arena's
+    life and retries once on the plain versions — the same integers, so
+    the same summary. Any other failure, and any on the plain versions,
+    raises."""
+    try:
+        return op(arena.use_kernel)
+    except faults.InjectedFault as e:
+        if not arena.use_kernel:
+            raise
+        faults.DEGRADATIONS.record(site, e)
+        log.warning("kernel dispatch %s failed; retrying on the plain "
+                    "versions: %r", site, e)
+        arena.use_kernel = False
+        return op(False)
 
 
 class ResidentBitmapArena:
@@ -76,6 +112,7 @@ class ResidentBitmapArena:
         self.Rp = int(state["CNT"].shape[2])
         self.J = max(1, min(int(top_j), self.G - 1))
         self.rounds = 0
+        self.use_kernel = True  # dropped for good by a failed round op
 
     @classmethod
     def from_workspace(cls, ws, *, top_j: int = 16, device,
@@ -120,6 +157,7 @@ class ResidentBitmapArena:
         ``R``) is read. The only upload is the ``(Bp, G)`` member/row
         pointer/row length slab (int32, phase ``extract``). The extracted
         state equals `from_workspace` of a host-built chunk bit for bit."""
+        faults.check("resident.bank.extract")
         B, G, R = int(ws.B), int(ws.G), int(ws.R)
         Bp = pow2(B, floor=1)
         live = ws.members >= 0
@@ -131,7 +169,7 @@ class ResidentBitmapArena:
         slab[2, :B] = np.where(live, bank.len_host[mem_c], 0)
         counter.add_h2d(slab.nbytes, phase="extract")
         members, ptr, lens = _put(slab, bank.device).to(torch.int64)
-        state = carry.bank_extract(
+        state = ops.extract(
             bank.state, res_map, members, ptr, lens,
             int(slab[2].sum(dtype=np.int64)), R, pow2(R, floor=8),
             pow2(2 * max((R + 63) // 64, 1), floor=2))
@@ -147,7 +185,10 @@ class ResidentBitmapArena:
         host arrays of length ``rb.size``. The op ranks J = min(top_j,
         G − 1) columns and masks each row to its group's alive count.
         """
-        rows, ok, z = ops.propose(self.state, self.J, theta_p, height_bound)
+        rows, ok, z = _run_round_op(
+            self, "kernel.bitset_fold.round",
+            lambda uk: ops.propose(self.state, self.J, theta_p, height_bound,
+                                   use_kernel=uk))
         if rows.shape[0] != rb.size:
             raise RuntimeError(
                 f"device dirty queue holds {rows.shape[0]} rows, the host's "
@@ -171,7 +212,57 @@ class ResidentBitmapArena:
         up = np.stack([b, slot, a, z]).astype(np.int32)
         self.counter.add_h2d(up.nbytes, phase="fold")
         t = _put(up, self.device).to(torch.int64)
-        ops.fold(self.state, t[0], t[1], t[2], t[3], P)
+        _run_round_op(self, "kernel.bitset_fold.fold_counts",
+                      lambda uk: ops.fold(self.state, t[0], t[1], t[2], t[3],
+                                          P, use_kernel=uk))
+
+    # ------------------------------------------------------- v1 round ops
+    def topj_rows(self, rb: np.ndarray, rr: np.ndarray) -> np.ndarray:
+        """Ranked top-J candidate columns of rows (rb[i], rr[i]) over the
+        resident bitmaps: the `jaccard_topj` output gathered on the device,
+        ``(n, J)`` int64 on the host. The rows go up padded to a power of
+        two ≥ 64 as int32 pairs and the columns come down as int8, as in
+        the JAX package's ledger."""
+        n = rb.size
+        n_pad = pow2(n, floor=64)
+        rows = np.zeros((n_pad, 2), dtype=np.int32)
+        rows[:n, 0] = rb
+        rows[:n, 1] = rr
+        self.counter.add_h2d(rows.nbytes, phase="rank")
+        t = _put(rows, self.device).to(torch.int64)
+        out = _run_round_op(
+            self, "kernel.bitset_fold.topj",
+            lambda uk: ops.topj(self.state, t, self.J, use_kernel=uk))
+        out = out.to(torch.int8).cpu().numpy()
+        self.counter.add_d2h(out.nbytes, phase="rank")
+        self.counter.tick_round()
+        self.rounds += 1
+        return out[:n].astype(np.int64)
+
+    def fold(self, b: np.ndarray, a: np.ndarray, z: np.ndarray,
+             ca: np.ndarray, cz: np.ndarray):
+        """Fold one round's accepted pairs (rows z into rows a of groups b,
+        b ascending, member columns ca/cz from the host) into the resident
+        bitmaps and liveness, in place. The ``(Bp, P, 8)`` slab is built on
+        the host and goes up as int16 while word indices fit (Wp ≤ 2^13),
+        else int32."""
+        if b.size == 0:
+            return
+        slot, fullest = _slots(b)
+        P = min(pow2(fullest, floor=2), max(self.G // 2, 1))
+        dtype = np.int16 if self.Wp <= (1 << 13) else np.int32
+        instr = np.zeros((self.Bp, P, 8), dtype=dtype)
+        instr[b, slot, 0] = a
+        instr[b, slot, 1] = z
+        instr[b, slot, 2] = ca >> 5
+        instr[b, slot, 3] = ca & 31
+        instr[b, slot, 4] = cz >> 5
+        instr[b, slot, 5] = cz & 31
+        instr[b, slot, 6] = 1
+        self.counter.add_h2d(instr.nbytes, phase="fold")
+        t = _put(instr, self.device).to(torch.int32)
+        _run_round_op(self, "kernel.bitset_fold.fold",
+                      lambda uk: ops.fold_bits(self.state, t, use_kernel=uk))
 
     # --------------------------------------------------- sync-back contract
     def _download(self, key):
@@ -258,7 +349,10 @@ class ResidentAdjacencyBank:
         resolves gids through the same pre-batch root map the host
         `merge_batch` used; ``res_map`` advances in place. Per batch the
         only upload is the (8, m) int32 instruction slab (32 B per pair,
-        phase ``bank``); regrows stay on the device."""
+        phase ``bank``); regrows stay on the device. The fault site
+        ``resident.bank.advance`` is checked before anything changes, so a
+        fault leaves the bank and ``res_map`` untouched."""
+        faults.check("resident.bank.advance")
         for A, Z, M, lens in batches:
             m = int(A.size)
             if m == 0:

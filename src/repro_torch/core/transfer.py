@@ -17,12 +17,17 @@ slabs) and ``sync`` (verification downloads) — so a bytes regression
 localizes to the stage that caused it. With the adjacency bank live,
 ``upload`` stays zero.
 
+Every crossing is also a fault site (``transfer.h2d``/``transfer.d2h``,
+`faults.check`), checked before it is counted.
+
 Thread safety: all mutation happens under one lock, so concurrent sweeps
 never lose counts.
 """
 from __future__ import annotations
 
 import threading
+
+from repro_torch import faults
 
 
 class TransferCounter:
@@ -51,11 +56,13 @@ class TransferCounter:
             self.phases[phase] = self.phases.get(phase, 0) + int(nbytes)
 
     def add_h2d(self, nbytes: int, phase: str | None = None):
+        faults.check("transfer.h2d")
         with self._lock:
             self.bytes_h2d += int(nbytes)
             self._phase_add(phase, nbytes)
 
     def add_d2h(self, nbytes: int, phase: str | None = None):
+        faults.check("transfer.d2h")
         with self._lock:
             self.bytes_d2h += int(nbytes)
             self._phase_add(phase, nbytes)

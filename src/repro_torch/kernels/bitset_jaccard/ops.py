@@ -9,7 +9,12 @@ and all pairwise intersection popcounts come back from ONE launch of
 the kernel receives the valid row count and writes zeros for padding rows.
 Per-group degrees are read off the diagonal (popcount(x & x) = |x|). Every
 dispatch reports its h2d/d2h bytes and ticks a ranking round on
-`core.transfer.GLOBAL`, entry for entry as the JAX package does.
+`core.transfer.GLOBAL`, entry for entry as the JAX package does. The
+fault site ``kernel.bitset_jaccard.intersections`` is checked before any
+tile goes up, so a failed dispatch leaves the batch untouched and the
+merge engine's `HostRankSource` can rank on the host popcount instead.
+``DISPATCHES`` counts the dispatches that passed that site, from every
+thread (a run's count picks a fault's ``hit`` within it).
 
 `group_jaccard` is the float similarity view of one wide group: all
 pairwise intersections from `kernel.pairwise_intersections` (whose diagonal
@@ -17,15 +22,20 @@ is each row's popcount), then the Jaccard matrix.
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
+from repro_torch import faults
 from repro_torch.core.transfer import GLOBAL as TRANSFER
 from repro_torch.kernels._build import pow2
 from repro_torch.kernels.bitset_jaccard.kernel import (bitset_intersections,
                                                        pairwise_intersections)
 
 TILE_B = 64  # rows per launch; the JAX package's tile, for ledger parity
+DISPATCHES = 0
+_COUNT_LOCK = threading.Lock()  # dispatches also run on worker threads
 
 
 def pack_bitsets(sets: list, universe: int) -> np.ndarray:
@@ -66,6 +76,10 @@ def batched_pairwise_intersections(bits: np.ndarray,
     """
     if device is None:
         raise ValueError("the intersection dispatch needs a device")
+    global DISPATCHES
+    faults.check("kernel.bitset_jaccard.intersections")
+    with _COUNT_LOCK:
+        DISPATCHES += 1
     B, G, W = bits.shape
     Wp = pow2(W)
     out = np.empty((B, G, G), dtype=np.int64)

@@ -2,13 +2,15 @@
 package.
 
 The inputs are those of `tests/test_checkpoint_resume.py`; each package
-builds its own graph from the same generator and seed. The port crashes a
-run with a ``stages=`` override that raises after a stage of iteration
-``KILL_AT`` (the reference with `repro.faults.inject`, which fires at the
-same point); a resume from the newest committed checkpoint must give the
-uninterrupted summary bit for bit, on every port backend and partition
-count, across backend and partition changes, and across the two packages
-in both directions. The reference's resident backend stays out of the
+builds its own graph from the same generator and seed. The port is killed
+after a stage of iteration ``KILL_AT`` in two ways: by its own
+`repro_torch.faults.inject` (the reference's cases, the ``engine.<stage>``
+site checked after every stage) and by a ``stages=`` override that raises
+at the same point (the override API's cases); the reference is killed with
+`repro.faults.inject`. A resume from the newest committed checkpoint must
+give the uninterrupted summary bit for bit, on every port backend and
+partition count, across backend and partition changes, and across the two
+packages in both directions. The reference's resident backend stays out of the
 cross-package cases (it jit-compiles per shape on the CPU).
 """
 from __future__ import annotations
@@ -25,6 +27,7 @@ from repro.core import checkpoint as ref_ckpt
 from repro.core import merging as ref_merging
 from repro.core.engine import SummarizerEngine as RefEngine
 from repro.graphs import generators as RG
+from repro_torch import faults as port_faults
 from repro_torch.core import checkpoint as ckpt_mod
 from repro_torch.core.checkpoint import (CheckpointMismatch,
                                          PlanCheckpointer, graph_fingerprint,
@@ -112,6 +115,33 @@ def test_crash_at_every_stage_boundary_resumes_bit_identical(
         got = eng.run(G, checkpoint_dir=ckpt, resume=True)
         assert eng.stats["resumed_from"] == KILL_AT - 1, stage
         assert_same(got, want)
+
+
+@pytest.mark.parametrize("backend,partitions", [
+    ("numpy", 1), ("numpy", 2), ("numpy", 4),
+    ("batched", 1), ("batched", 2), ("batched", 4),
+    ("resident", 1), ("resident", 2), ("resident", 4),
+])
+def test_injected_kill_at_every_stage_boundary_resumes_bit_identical(
+        backend, partitions, want, tmp_path):
+    """The reference's kill-and-resume cases, killed by the port's own
+    fault sites."""
+    for stage in STAGE_ORDER:
+        ckpt = str(tmp_path / f"ckpt-{stage}")
+        with pytest.raises(port_faults.InjectedFault) as ei:
+            with port_faults.inject(f"engine.{stage}", iteration=KILL_AT):
+                engine(backend, partitions, workers=2).run(
+                    G, checkpoint_dir=ckpt)
+        assert (ei.value.site, ei.value.iteration) == (f"engine.{stage}",
+                                                       KILL_AT)
+        eng = engine(backend, partitions, workers=2)
+        got = eng.run(G, checkpoint_dir=ckpt, resume=True)
+        # the commit lands after the iteration's stages: a kill anywhere
+        # inside iteration KILL_AT resumes from KILL_AT - 1
+        assert eng.stats["resumed_from"] == KILL_AT - 1, stage
+        assert eng.stats["degradations"] == 0
+        assert_same(got, want)
+        assert got.validate_lossless(G)
 
 
 @pytest.mark.parametrize("writer", ["numpy", "batched"])

@@ -354,6 +354,117 @@ def test_cuda_resident_partitions_on_threads_count_every_launch(monkeypatch):
     assert two.validate_lossless(g)
 
 
+def _card_arena(seed=0):
+    """A resident arena on the card over one batched chunk of a caveman
+    graph, and the chunk's dirty rows."""
+    from repro_torch.core import merging as PM
+    from repro_torch.core.resident import ResidentBitmapArena
+    from repro_torch.core.slugger import SluggerState
+    from repro_torch.core.transfer import TransferCounter
+    from repro_torch.graphs import generators as GG
+
+    st = SluggerState(GG.caveman(40, 6, 0.1, seed=seed))
+    roots = np.unique(st.root_of)
+    groups = [roots[i:i + 8] for i in range(0, roots.size, 8)]
+    plans = [PM.MergePlan(g) for g in groups]
+    ws = PM.BatchedGroupWorkspace.build_bucket(
+        st, groups, 8, plans, np.arange(len(groups), dtype=np.uint64))[0]
+    arena = ResidentBitmapArena.from_workspace(
+        ws, top_j=4, device=torch.device("cuda"), counter=TransferCounter())
+    return arena, ws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", ["kernel.bitset_fold.round",
+                                  "kernel.bitset_fold.fold_counts"])
+def test_cuda_twin_retry_equals_the_kernel_path(site):
+    """A fault forced into a round op on the card: the arena retries on the
+    plain versions (recorded once, ``use_kernel`` dropped) and its verdicts
+    and folded state equal a clean arena's kernel path."""
+    _need_card()
+    from repro_torch import faults
+    from repro_torch.core.merging import theta_to_p
+
+    clean, ws = _card_arena()
+    hurt, _ = _card_arena()
+    rb, rr = np.nonzero(ws.alive)
+    theta_p = theta_to_p(0.0)
+    n = (fold_kernel.TOPJ_LAUNCHES, fold_kernel.FOLD_LAUNCHES)
+    want = clean.propose_rows(rb, theta_p, None)
+    b, a, z = rb[want[0]], rr[want[0]], want[1][want[0]]
+    first = np.concatenate([[True], b[1:] != b[:-1]])
+    b, a, z = b[first], a[first], z[first]
+    assert b.size > 0
+    clean.fold_counts(b, a, z)
+    torch.cuda.synchronize()
+    assert fold_kernel.TOPJ_LAUNCHES > n[0] and fold_kernel.FOLD_LAUNCHES > n[1]
+    mark = faults.DEGRADATIONS.count()
+    with faults.inject(site):
+        got = hurt.propose_rows(rb, theta_p, None)
+        hurt.fold_counts(b, a, z)
+    torch.cuda.synchronize()
+    assert faults.DEGRADATIONS.count() - mark == 1
+    assert clean.use_kernel and not hurt.use_kernel
+    for g_, w_ in zip(got, want):
+        np.testing.assert_array_equal(g_, w_)
+    for k in clean.state:
+        assert torch.equal(clean.state[k], hurt.state[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_plain_ops_launch_no_kernel():
+    """``use_kernel=False`` runs the plain versions on card tensors: the
+    same integers, and no launch."""
+    _need_card()
+    from repro_torch.kernels.bitset_fold import ops as fold_ops
+
+    arena, _ = _card_arena(seed=1)
+    state = {k: v.clone() for k, v in arena.state.items()}
+    rows = torch.nonzero(state["alive"] > 0)
+    n = (fold_kernel.TOPJ_LAUNCHES, fold_kernel.FOLD_LAUNCHES)
+    plain = fold_ops.topj(state, rows, arena.J, use_kernel=False)
+    rows_p, ok_p, z_p = fold_ops.propose(state, arena.J, 0, None,
+                                         use_kernel=False)
+    torch.cuda.synchronize()
+    assert (fold_kernel.TOPJ_LAUNCHES, fold_kernel.FOLD_LAUNCHES) == n
+    assert plain.is_cuda
+    assert torch.equal(plain, fold_ops.topj(arena.state, rows, arena.J))
+    assert fold_kernel.TOPJ_LAUNCHES == n[0] + 1
+    rows_k, ok_k, z_k = fold_ops.propose(arena.state, arena.J, 0, None)
+    assert torch.equal(rows_p, rows_k) and torch.equal(ok_p, ok_k)
+    assert torch.equal(z_p, z_k)
+    b, a, z = rows_k[ok_k, 0], rows_k[ok_k, 1], z_k[ok_k]
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=b.device),
+                       b[1:] != b[:-1]])
+    b, a, z = b[first], a[first], z[first]
+    slot = torch.zeros_like(b)
+    n_fold = fold_kernel.FOLD_LAUNCHES
+    fold_ops.fold(state, b, slot, a, z, 2, use_kernel=False)
+    assert fold_kernel.FOLD_LAUNCHES == n_fold
+    fold_ops.fold(arena.state, b, slot, a, z, 2)
+    assert fold_kernel.FOLD_LAUNCHES == n_fold + 1
+    for k in state:
+        assert torch.equal(state[k], arena.state[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["batched", "resident"])
+def test_cuda_clean_run_reports_zero_degradations(backend):
+    """A clean run on the card records no degradation: no kernel failed
+    and fell back to its plain version unseen."""
+    _need_card()
+    import repro_torch
+    from repro_torch.graphs import generators as GG
+
+    g = GG.caveman(200, 8, 0.05, seed=0)
+    eng = repro_torch.SummarizerEngine(backend=backend, T=5)
+    s = eng.run(g)
+    assert eng.stats["degradations"] == 0
+    assert s.validate_lossless(g)
+    if backend == "resident":
+        assert eng._run_ctx is not None and eng._run_ctx.bank is not None
+
+
 def _intervals(B, E, P, seed, layout="random"):
     """``random``: intervals and probes over a DFS range of 10,000
     positions, about a quarter of each padded (lo == hi == 0 with sign 0;

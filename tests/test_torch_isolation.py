@@ -63,6 +63,9 @@ def test_port_files_exist():
                  "src/repro_torch/interop.py",
                  "src/repro_torch/graphs/partitioned.py",
                  "src/repro_torch/core/checkpoint.py",
+                 "src/repro_torch/faults.py",
+                 "src/repro_torch/launch/chaos.py",
+                 "src/repro_torch/graphs/datasets.py",
                  "chip_smoke.py", "flash_bench.py", "popc_bench.py",
                  "rank_count_bench.py"):
         assert want in names
