@@ -102,19 +102,43 @@ Phases, each printing one JSON line with its seconds:
            drains, the shingle calls and the LM drain once more each under
            `torch.profiler`: device busy time by kernel, copy and torch op
            against each run's wall time
+  lm_mla_moe  slices F2 + F3, after the traces, qwen2.5-3b's weights gone
+           from the card: deepseek-v2-lite-16b (MLA + 64 routed and 2
+           shared experts, top-6) at full width and all 27 layers in bf16,
+           16,210,324,992 random parameters from `torch.Generator(seed=0)`:
+           16 prompts of 1,024 tokens through `BatchServer(batch_slots=8)`,
+           32 greedy tokens each, capacity factor 1.25; flash launches
+           counted from 0 (27 × 2 prefills, all on the bf16 tensor-core
+           kernel, every call at q/k width 192 and v width 128), dropped
+           pairs per prefill, the serving metrics of `lm_serve`; checks
+           (a) flash vs the chunked twin, the flash run's MoE routing
+           pinned to the twin's (the free run's flipped choices
+           reported), in bf16 at full depth (clear greedy tokens) and in
+           f32 on the first 4 layers, (c) 8 decode steps of one prompt vs
+           a teacher-forced forward at capacity factor n_experts in f32
+           on those 4 layers, (d) `mla_decode_absorbed` vs `mla_decode`
+           on one layer in f32, both timed, and the served model's decode
+           ms/step under each; one batch (prefill and 8 decode steps)
+           traced; then qwen3-moe-235b-a22b at full width cut to 2 of its
+           94 layers: 8 prompts × 1,024, 8 greedy tokens, 2 flash
+           launches, check (a) in f32 at those 2 layers
 
 The kernels phase also holds the flash-attention kernel to its plain
-version (f32, TF32 off) within the reference's tolerances at five fixed
-shapes, beside SDPA's time, each row naming the variant its counters saw
-launch (bf16 on the tensor cores, f32 on the CUDA cores); and once more
-at the serving call through `ops.flash_attention` on the model's
-``(b, s, hkv, g, hd)`` tensors, which the kernel reads by strides.
+version (f32, TF32 off) within the reference's tolerances at seven fixed
+shapes, two of them with v narrower than q and k (MLA's prefill call,
+D 192 and Dv 128, in bf16, and MLA's widths on ragged f32 tiles), beside
+SDPA's time where SDPA takes the call, each row naming the variant its
+counters saw launch (bf16 on the tensor cores, f32 on the CUDA cores);
+and once more at the two serving calls through `ops.flash_attention` on
+the model's tensors, which the kernel reads by strides (MLA's v a view
+of its expansion).
 
 The line before the last is the per-kernel record; each kernel's launches
 come from its own path's counted run (batched for the intersections and
 the histogram, resident for top-J and the fold, both serve drains for the
 interval count, the shingles phase for the row-min hash and the pairwise
-intersections, the LM drain for flash attention), its times are sums over
+intersections, the two LM drains, qwen2.5-3b's and deepseek's, for flash
+attention), its times are sums over
 every call that run made (each call, or each distinct call shape, checked
 against the plain version, timed, and weighted by its call count).
 Every engine run outside the injected ones must report
@@ -189,14 +213,19 @@ JACCARD_ROWS = 512
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 INT8_OPS_PER_S = 1.979e15
 B1_OPS_PER_S = 8 * INT8_OPS_PER_S
-# (B, H, Hkv, Sq, Sk, D, dtype, causal, window): the serving prefill's call
-# (qwen2.5-3b, 8 prompts of 1,024), one long prompt, danube's heads past its
-# window, non-causal Sq != Sk, and ragged f32 tiles
-FLASH_SHAPES = [(8, 16, 2, 1024, 1024, 128, "bfloat16", True, 0),
-                (1, 16, 2, 4096, 4096, 128, "bfloat16", True, 0),
-                (1, 32, 8, 6144, 6144, 80, "bfloat16", True, 4096),
-                (2, 12, 12, 256, 1536, 64, "bfloat16", False, 0),
-                (2, 4, 2, 300, 300, 32, "float32", True, 64)]
+# (B, H, Hkv, Sq, Sk, D, Dv, dtype, causal, window): the serving prefill's
+# call (qwen2.5-3b, 8 prompts of 1,024), one long prompt, danube's heads past
+# its window, non-causal Sq != Sk, ragged f32 tiles; MLA's prefill call
+# (deepseek-v2-lite-16b, 8 prompts of 1,024: q/k 192 wide, v 128) and MLA's
+# widths on ragged f32 tiles
+FLASH_SHAPES = [(8, 16, 2, 1024, 1024, 128, 128, "bfloat16", True, 0),
+                (1, 16, 2, 4096, 4096, 128, 128, "bfloat16", True, 0),
+                (1, 32, 8, 6144, 6144, 80, 80, "bfloat16", True, 4096),
+                (2, 12, 12, 256, 1536, 64, 64, "bfloat16", False, 0),
+                (2, 4, 2, 300, 300, 32, 32, "float32", True, 64),
+                (8, 16, 16, 1024, 1024, 192, 128, "bfloat16", True, 0),
+                (2, 16, 16, 300, 300, 192, 128, "float32", True, 0)]
+MLA_SHAPE = FLASH_SHAPES[5]
 # the reference's tolerances (tests/test_flash_attn_kernel.py:21)
 FLASH_ATOL = {"bfloat16": 2e-2, "float32": 2e-5}
 FLASH_RTOL = 1e-2
@@ -204,6 +233,15 @@ LM_ARCH = "qwen2.5-3b"
 LM_PROMPTS, LM_PROMPT_LEN, LM_GEN, LM_SLOTS = 16, 1024, 32, 8
 LM_F32_ATOL, LM_F32_RTOL = 2e-4, 1e-3  # tests/test_flash_attn_kernel.py:68
 LM_DECODE_CHECK = 8   # decode steps held to the teacher-forced forward
+MLA_MOE_ARCH = "deepseek-v2-lite-16b"
+MLA_MOE_F32_LAYERS = 4    # depth of the f32 checks (the f32 copy's cut)
+# prompts of check (c): at capacity factor n_experts every expert's buffer
+# holds all of a row's pairs (cap 6,144 at 1,024 tokens), 3.2 GB a row of
+# f32 buffer per layer
+MLA_MOE_C_ROWS = 1
+MLA_MOE_TRACE_GEN = 9     # traced batch: prefill + 8 decode steps
+GQA_MOE_ARCH, GQA_MOE_LAYERS = "qwen3-moe-235b-a22b", 2  # 12.4 GB of 470
+GQA_MOE_GEN = 8
 
 
 def emit(phase: str, t0: float, **fields):
@@ -650,31 +688,32 @@ def flash_pairs(Sq, Sk, causal, window):
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
-def flash_bound_s(B, H, Hkv, Sq, Sk, D, dtype, causal, window):
-    """Bytes: q, k, v read once and o written once. Operations: 4·D per
-    visible (query, key) pair (q·k and p·v, a multiply-add each), at the
-    card's dense peak for the inputs' type."""
+def flash_bound_s(B, H, Hkv, Sq, Sk, D, Dv, dtype, causal, window):
+    """Bytes: q, k (D wide), v and o (Dv wide) read or written once.
+    Operations: 2·(D + Dv) per visible (query, key) pair (q·k and p·v, a
+    multiply-add each), at the card's dense peak for the inputs' type."""
     size = 2 if dtype == "bfloat16" else 4
-    by_bytes = (2 * B * H * Sq * D + 2 * B * Hkv * Sk * D) * size \
+    by_bytes = (B * H * Sq * (D + Dv) + B * Hkv * Sk * (D + Dv)) * size \
         / HBM_BYTES_PER_S
-    flops = 4 * D * flash_pairs(Sq, Sk, causal, window) * B * H
+    flops = 2 * (D + Dv) * flash_pairs(Sq, Sk, causal, window) * B * H
     return by_bytes, flops / PEAK_FLOPS[dtype]
 
 
-def flash_input(B, H, Hkv, Sq, Sk, D, dtype, rng):
+def flash_input(B, H, Hkv, Sq, Sk, D, Dv, dtype, rng):
     import numpy as np
     import torch
 
     dt = getattr(torch, dtype)
     return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
             .to(dt).cuda() for s in ((B, H, Sq, D), (B, Hkv, Sk, D),
-                                     (B, Hkv, Sk, D))]
+                                     (B, Hkv, Sk, Dv))]
 
 
 def flash_library(q, k, v, causal, window):
     """One `scaled_dot_product_attention` call of the same function (GQA
-    by ``enable_gqa``; a window as a boolean mask). Timed, never used by
-    the port."""
+    by ``enable_gqa``; a window as a boolean mask), or None with the
+    reason when SDPA refuses the call (v narrower than q and k). Timed,
+    never used by the port."""
     import torch
     import torch.nn.functional as F
 
@@ -684,8 +723,26 @@ def flash_library(q, k, v, causal, window):
         kpos = torch.arange(k.shape[2], device=q.device)[None, :]
         mask = (kpos <= qpos) & (kpos > qpos - window)
     is_causal = causal and not window
-    return lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, is_causal=is_causal, enable_gqa=True)
+
+    def call():
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=is_causal, enable_gqa=True)
+
+    try:
+        call()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, f"SDPA refuses E {q.shape[-1]}, Ev {v.shape[-1]}: " \
+            f"{str(e).splitlines()[0][:160]}"
+    return call, None
+
+
+def library_fields(q, k, v, causal, window, reps=10):
+    """``library_ms`` of `flash_library`, and its note when it has none."""
+    call, why = flash_library(q, k, v, causal, window)
+    if call is None:
+        return {"library_ms": None, "library_note": why}
+    return {"library_ms": cuda_ms(call, reps)}
 
 
 def flash_error(q, k, v, causal, window):
@@ -732,34 +789,37 @@ def flash_rows(rng):
     from repro_torch.kernels.flash_attn import kernel as KF, ref as RF
 
     rows = []
-    for B, H, Hkv, Sq, Sk, D, dtype, causal, window in FLASH_SHAPES:
-        q, k, v = flash_input(B, H, Hkv, Sq, Sk, D, dtype, rng)
+    for B, H, Hkv, Sq, Sk, D, Dv, dtype, causal, window in FLASH_SHAPES:
+        q, k, v = flash_input(B, H, Hkv, Sq, Sk, D, Dv, dtype, rng)
         err, ran = flash_variant_ran(
             lambda: flash_error(q, k, v, causal, window))
         if ran != KF.variant(q.dtype):
             raise AssertionError(f"{dtype} flash ran {ran}, not "
                                  f"{KF.variant(q.dtype)}")
         rows.append({
-            "kernel": "flash_attention", "shape": [B, H, Hkv, Sq, Sk, D],
+            "kernel": "flash_attention", "shape": [B, H, Hkv, Sq, Sk, D, Dv],
             "dtype": dtype, "causal": causal, "window": window,
             "variant": ran, "max_abs_err": err,
             "kernel_ms": cuda_ms(lambda: KF.flash_attention_bhsd(
                 q, k, v, causal=causal, window=window), 5),
             "plain_ms": cuda_ms(lambda: RF.attention_ref(
                 q, k, v, causal=causal, window=window), 2),
-            "library_ms": cuda_ms(flash_library(q, k, v, causal, window), 10),
-            **bound_fields(*flash_bound_s(B, H, Hkv, Sq, Sk, D, dtype,
+            **library_fields(q, k, v, causal, window),
+            **bound_fields(*flash_bound_s(B, H, Hkv, Sq, Sk, D, Dv, dtype,
                                           causal, window))})
     rows.append(flash_ops_row(rng, *FLASH_SHAPES[0]))
+    rows.append(flash_ops_row(rng, *MLA_SHAPE))
     return rows
 
 
-def flash_ops_row(rng, B, H, Hkv, Sq, Sk, D, dtype, causal, window):
+def flash_ops_row(rng, B, H, Hkv, Sq, Sk, D, Dv, dtype, causal, window):
     """One call through `ops.flash_attention` on the model's layout, as
-    `gqa_full` makes it: q (b, s, hkv, g, hd) and k, v (b, s, hkv, hd),
-    dense. The kernel reads them by strides and writes its output in
-    place, so the result is dense in the model's layout (no copy); it is
-    held to the plain version on the same data made (B, H, S, D)."""
+    `gqa_full` and `mla_full` make it: q (b, s, hkv, g, hd) and k (b, s,
+    hkv, hd) dense; v (b, s, hkv, vd) dense when vd = hd, else MLA's view
+    ``kv[..., 128:]`` of a (b, s, hkv, 128 + vd) expansion. The kernel
+    reads them by strides and writes its output in place, so the result
+    is dense in the model's layout (no copy); it is held to the plain
+    version on the same data made (B, H, S, ·)."""
     import numpy as np
     import torch
 
@@ -767,19 +827,21 @@ def flash_ops_row(rng, B, H, Hkv, Sq, Sk, D, dtype, causal, window):
 
     g = H // Hkv
     dt = getattr(torch, dtype)
-    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
-               .to(dt).cuda() for s in ((B, Sq, Hkv, g, D), (B, Sk, Hkv, D),
-                                        (B, Sk, Hkv, D)))
+    lead = 0 if Dv == D else 128
+    q, k, kv = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                .to(dt).cuda() for s in ((B, Sq, Hkv, g, D), (B, Sk, Hkv, D),
+                                         (B, Sk, Hkv, lead + Dv)))
+    v = kv[..., lead:]
     got, ran = flash_variant_ran(
         lambda: OF.flash_attention(q, k, v, causal=causal, window=window))
-    if not got.is_contiguous() or got.shape != q.shape:
+    if not got.is_contiguous() or got.shape != (B, Sq, Hkv, g, Dv):
         raise AssertionError(f"ops.flash_attention gave {tuple(got.shape)}, "
                              f"strides {got.stride()}: not dense in the "
                              f"model's layout")
     qh = q.permute(0, 2, 3, 1, 4).reshape(B, H, Sq, D).contiguous()
     kh, vh = (t.permute(0, 2, 1, 3).contiguous() for t in (k, v))
     want = RF.attention_ref(qh, kh, vh, causal=causal, window=window)
-    got = got.permute(0, 2, 3, 1, 4).reshape(B, H, Sq, D)
+    got = got.permute(0, 2, 3, 1, 4).reshape(B, H, Sq, Dv)
     diff = (got.float() - want.float()).abs()
     if not bool((diff <= FLASH_ATOL[dtype] + FLASH_RTOL
                  * want.float().abs()).all()):
@@ -787,15 +849,17 @@ def flash_ops_row(rng, B, H, Hkv, Sq, Sk, D, dtype, causal, window):
                              f"|kernel − plain| = {diff.max().item()}")
     return {
         "kernel": "flash_attention", "path": "ops.flash_attention",
-        "layout": "model (b, s, hkv, g, hd)", "shape": [B, H, Hkv, Sq, Sk, D],
+        "layout": "model (b, s, hkv, g, hd)" + (
+            "" if Dv == D else ", v a view of (b, s, hkv, 128 + vd)"),
+        "shape": [B, H, Hkv, Sq, Sk, D, Dv],
         "dtype": dtype, "causal": causal, "window": window, "variant": ran,
         "max_abs_err": diff.max().item(),
         "kernel_ms": cuda_ms(lambda: OF.flash_attention(
             q, k, v, causal=causal, window=window), 10),
         "plain_ms": cuda_ms(lambda: RF.attention_ref(
             qh, kh, vh, causal=causal, window=window), 2),
-        "library_ms": cuda_ms(flash_library(qh, kh, vh, causal, window), 10),
-        **bound_fields(*flash_bound_s(B, H, Hkv, Sq, Sk, D, dtype, causal,
+        **library_fields(qh, kh, vh, causal, window),
+        **bound_fields(*flash_bound_s(B, H, Hkv, Sq, Sk, D, Dv, dtype, causal,
                                       window))}
 
 
@@ -2167,8 +2231,8 @@ class FlashRecorder:
 
         def rec(q, k, v, *, causal=True, window=0, _f=self._orig):
             key = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
-                   q.shape[3], str(q.dtype).split(".")[-1], bool(causal),
-                   int(window))
+                   q.shape[3], v.shape[3], str(q.dtype).split(".")[-1],
+                   bool(causal), int(window))
             self.calls[key] += 1
             if key not in self.inputs:
                 self.inputs[key] = (q.clone(), k.clone(), v.clone())
@@ -2194,8 +2258,6 @@ def phase_lm_serve():
     ends in a synchronize, as a streaming server's would, so its wall is
     what the user waits. Then, on the same card, checks (a)–(c) of
     `lm_checks`."""
-    import dataclasses
-
     import numpy as np
     import torch
 
@@ -2221,45 +2283,18 @@ def phase_lm_serve():
     prompts = [rng.integers(0, cfg.vocab, size=LM_PROMPT_LEN)
                for _ in range(LM_PROMPTS)]
     server = BatchServer(cfg, params, batch_slots=LM_SLOTS, device="cuda")
-    api, decode = server.api, server.decode
-    prefill_s, decode_s, first_logits = [], [], []
-
-    def timed_prefill(*a, **k):
-        tw = time.perf_counter()
-        logits, cache = api.prefill(*a, **k)
-        torch.argmax(logits[:, -1], dim=-1).cpu()  # the first token, on host
-        prefill_s.append(time.perf_counter() - tw)
-        if len(prefill_s) == 1:
-            first_logits.append(logits[:, -1].clone())
-        return logits, cache
-
-    def timed_decode(*a):
-        tw = time.perf_counter()
-        logits, cache = decode(*a)
-        torch.argmax(logits[:, -1], dim=-1).cpu()
-        decode_s.append(time.perf_counter() - tw)
-        if len(prefill_s) == 1 and len(first_logits) < LM_DECODE_CHECK:
-            first_logits.append(logits[:, -1].clone())
-        return logits, cache
-
-    server.api = dataclasses.replace(api, prefill=timed_prefill)
-    server.decode = timed_decode
     recorder = FlashRecorder()
     torch.cuda.reset_peak_memory_stats()
-    KF.LAUNCHES = 0
-    for name in KF.LAUNCHES_BY:
-        KF.LAUNCHES_BY[name] = 0
+    reset_flash_launches()
     try:
-        tw = time.perf_counter()
-        outs = server.run(prompts, gen_tokens=LM_GEN)
-        torch.cuda.synchronize()
-        drain_s = time.perf_counter() - tw
+        d = timed_drain(server, prompts, LM_GEN)
     finally:
         recorder.close()
+    outs, prefill_s, decode_s = d["outs"], d["prefill_s"], d["decode_s"]
+    first_logits, drain_s = d["first_logits"], d["drain_s"]
     launches = KF.LAUNCHES
     launches_by = dict(KF.LAUNCHES_BY)
     peak = torch.cuda.max_memory_allocated()
-    server.api, server.decode = api, decode
     want_launches = cfg.n_layers * (LM_PROMPTS // LM_SLOTS)
     if launches != want_launches:
         raise AssertionError(f"lm_serve launched flash_attention {launches} "
@@ -2268,12 +2303,7 @@ def phase_lm_serve():
         raise AssertionError(f"lm_serve's flash launches by variant are "
                              f"{launches_by}: not all on the bf16 "
                              f"tensor-core kernel")
-    for o in outs:
-        if not (isinstance(o, np.ndarray) and o.shape == (LM_GEN,)
-                and o.dtype == np.int32 and 0 <= o.min()
-                and o.max() < cfg.vocab):
-            raise AssertionError(f"lm_serve answer {o!r} is not {LM_GEN} "
-                                 f"tokens in [0, {cfg.vocab})")
+    check_answers("lm_serve", outs, LM_GEN, cfg.vocab)
     batch = torch.from_numpy(np.stack(prompts[:LM_SLOTS])).cuda()
     gen = torch.from_numpy(np.stack(outs[:LM_SLOTS])).cuda().long()
     checks = lm_checks(cfg, params, batch, gen, first_logits)
@@ -2293,6 +2323,469 @@ def phase_lm_serve():
          checks=checks)
     return {"server": server, "prompts": prompts, "launches": launches,
             "recorder": recorder}
+
+
+def free_card():
+    """Give back to the card what dropped objects held. A `BatchServer`
+    keeps a lambda that refers to the server: a reference cycle, which
+    only the cycle collector frees, and with it the weights it holds."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def reset_flash_launches():
+    from repro_torch.kernels.flash_attn import kernel as KF
+
+    KF.LAUNCHES = 0
+    for name in KF.LAUNCHES_BY:
+        KF.LAUNCHES_BY[name] = 0
+
+
+def timed_drain(server, prompts, gen, keep=LM_DECODE_CHECK):
+    """``server.run(prompts, gen)`` with each prefill and decode step ending
+    in a synchronize, as a streaming server's would, so its wall is what
+    the user waits. Returns the answers, the prefill and decode walls, the
+    drain's wall and the first batch's logits (its prefill's, then its
+    first decode steps', ``keep`` in all)."""
+    import dataclasses
+
+    import torch
+
+    api, decode = server.api, server.decode
+    prefill_s, decode_s, first_logits = [], [], []
+
+    def timed_prefill(*a, **k):
+        tw = time.perf_counter()
+        logits, cache = api.prefill(*a, **k)
+        torch.argmax(logits[:, -1], dim=-1).cpu()  # the first token, on host
+        prefill_s.append(time.perf_counter() - tw)
+        if len(prefill_s) == 1:
+            first_logits.append(logits[:, -1].clone())
+        return logits, cache
+
+    def timed_decode(*a):
+        tw = time.perf_counter()
+        logits, cache = decode(*a)
+        torch.argmax(logits[:, -1], dim=-1).cpu()
+        decode_s.append(time.perf_counter() - tw)
+        if len(prefill_s) == 1 and len(first_logits) < keep:
+            first_logits.append(logits[:, -1].clone())
+        return logits, cache
+
+    server.api = dataclasses.replace(api, prefill=timed_prefill)
+    server.decode = timed_decode
+    try:
+        tw = time.perf_counter()
+        outs = server.run(prompts, gen_tokens=gen)
+        torch.cuda.synchronize()
+        drain_s = time.perf_counter() - tw
+    finally:
+        server.api, server.decode = api, decode
+    return {"outs": outs, "prefill_s": prefill_s, "decode_s": decode_s,
+            "first_logits": first_logits, "drain_s": drain_s}
+
+
+def check_answers(what, outs, gen, vocab):
+    import numpy as np
+
+    for o in outs:
+        if not (isinstance(o, np.ndarray) and o.shape == (gen,)
+                and o.dtype == np.int32 and 0 <= o.min()
+                and o.max() < vocab):
+            raise AssertionError(f"{what} answer {o!r} is not {gen} tokens "
+                                 f"in [0, {vocab})")
+
+
+class DropRecorder:
+    """Keeps each MoE routing's dropped-pair count (a device tensor: no
+    sync while serving) for calls of more than one token a row (prefill),
+    by wrapping the name `moe.moe_ffn` calls."""
+
+    def __init__(self):
+        from repro_torch.models import moe as M
+
+        self.M = M
+        self.counts = []
+        self._orig = M.route
+
+        def rec(p, cfg, x, _f=self._orig):
+            r = _f(p, cfg, x)
+            if x.shape[1] > 1:
+                self.counts.append(r.dropped)
+            return r
+
+        M.route = rec
+
+    def per_prefill(self, n_layers):
+        """Dropped pairs summed over the layers of each prefill."""
+        counts = [int(c) for c in self.counts]
+        return [sum(counts[i:i + n_layers])
+                for i in range(0, len(counts), n_layers)]
+
+    def close(self):
+        self.M.route = self._orig
+
+
+class RoutingPin:
+    """Pins the MoE routing of one forward to another's: `record` keeps
+    each layer's `moe.route` result, `pin` then runs with each layer's
+    expert choices, ranks and slots taken from the record (its weights
+    renormalised from this run's own probabilities) and counts the
+    (token, k) choices that this run would have made otherwise. Top-k is
+    a discrete choice: two right computations that differ in the last
+    bits pick another expert for a token whose two candidates' weights
+    nearly tie, and that moves the logits past any float tolerance, so a
+    kernel is held to its twin with the routing pinned, and the flips are
+    reported."""
+
+    def __init__(self):
+        from repro_torch.models import moe as M
+
+        self.M, self._orig = M, M.route
+        self.recorded, self.flips, self._i = [], 0, 0
+
+    @contextlib.contextmanager
+    def record(self):
+        def rec(p, cfg, x):
+            r = self._orig(p, cfg, x)
+            self.recorded.append(r)
+            return r
+
+        with self._patched(rec):
+            yield
+
+    @contextlib.contextmanager
+    def pin(self):
+        def pinned(p, cfg, x):
+            r = self._orig(p, cfg, x)
+            want = self.recorded[self._i]
+            self._i += 1
+            self.flips += int((r.top_e != want.top_e).sum())
+            top_p = r.probs.gather(-1, want.top_e)
+            top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+            return r._replace(top_p=top_p, top_e=want.top_e, rank=want.rank,
+                              slot=want.slot, dropped=want.dropped)
+
+        self._i, self.flips = 0, 0
+        with self._patched(pinned):
+            yield
+        if self._i != len(self.recorded):
+            raise AssertionError(f"pinned {self._i} routings of "
+                                 f"{len(self.recorded)} recorded")
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        self.M.route = fn
+        try:
+            yield
+        finally:
+            self.M.route = self._orig
+
+
+def pinned_logits(params, cfg, batch):
+    """Prefill's last-position logits through the chunked twin and through
+    the flash kernel, the flash run's routing pinned to the chunked run's,
+    and the flash run's own (free) logits: (chunked, pinned, free, flips
+    of the free run against the chunked one)."""
+    pin = RoutingPin()
+    with pin.record():
+        chunked = last_logits(params, cfg, batch, "xla_chunked")
+    with pin.pin():
+        pinned = last_logits(params, cfg, batch, "pallas_flash")
+    free = last_logits(params, cfg, batch, "pallas_flash")
+    return chunked, pinned, free, pin.flips
+
+
+def free_fields(free, chunked, flips):
+    """What the flash run gave with its own routing: the choices that
+    flipped against the chunked run's, and its logits' distance."""
+    return {"free_routing_flips": flips,
+            "free_rel_l2": rel_l2(free, chunked),
+            "free_max_abs_diff": (free.float() - chunked.float()).abs().max()
+            .item()}
+
+
+def first_layers(params, n):
+    """The served weights cut to their first ``n`` layers, cast to f32."""
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        return tree[:n].float()
+
+    return {k: cut(v) if k == "layers" else v.float()
+            for k, v in params.items()}
+
+
+def phase_lm_mla_moe():
+    """Slices F2 + F3 on the card. (1) deepseek-v2-lite-16b at full width
+    and all 27 layers in bf16 (MLA + MoE, 16.2B parameters), weights from
+    `torch.Generator(seed=0)`: 16 prompts of 1,024 tokens through
+    `BatchServer(batch_slots=8)`, 32 greedy tokens each, at the config's
+    capacity factor 1.25; flash launches counted from 0 (27 × 2 prefills,
+    all `tc_bf16` at q/k width 192 and v width 128 by the recorded call
+    shapes); dropped pairs per prefill. (2) Checks on the same weights:
+    (a) prefill logits, flash kernel vs the chunked twin with the flash
+    run's routing pinned to the twin's (`RoutingPin`; the free run's
+    flips reported), in bf16 at full depth (clear-margin greedy tokens)
+    and in f32 on the first 4 layers (atol 2e-4, rtol 1e-3); (c) at
+    ``capacity_factor = n_experts`` in f32 on those 4 layers, 8 decode
+    steps of one prompt vs a teacher-forced forward; (d)
+    `mla_decode_absorbed` vs `mla_decode` on one layer in f32, and the
+    served model's decode ms/step under each. (4) One batch (prefill and 8
+    decode steps) traced. (3) qwen3-moe-235b-a22b at full width cut to 2
+    of its 94 layers: one batch of 8 × 1,024, 8 greedy tokens, 2 flash
+    launches at its GQA shape, check (a) in f32 at those 2 layers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attn import kernel as KF
+    from repro_torch.launch.serve import BatchServer
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(MLA_MOE_ARCH)
+    if cfg.attn_impl != "pallas_flash":
+        raise AssertionError(f"the port's default attn_impl is "
+                             f"{cfg.attn_impl!r}, not the flash kernel")
+    free_card()
+    tw = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - tw
+    n_params = sum(t.numel() for t in tensor_leaves(params))
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tensor_leaves(params))
+    torch.cuda.reset_peak_memory_stats()  # the drain's peak, not init's
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, size=LM_PROMPT_LEN)
+               for _ in range(LM_PROMPTS)]
+    server = BatchServer(cfg, params, batch_slots=LM_SLOTS, device="cuda")
+    recorder, drops = FlashRecorder(), DropRecorder()
+    reset_flash_launches()
+    try:
+        d = timed_drain(server, prompts, LM_GEN)
+    finally:
+        recorder.close()
+        drops.close()
+    launches, launches_by = KF.LAUNCHES, dict(KF.LAUNCHES_BY)
+    peak = torch.cuda.max_memory_allocated()
+    m = cfg.mla
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    want_launches = cfg.n_layers * (LM_PROMPTS // LM_SLOTS)
+    shapes = {k[5:7] for k in recorder.calls}
+    if launches != want_launches or launches_by["tc_bf16"] != launches \
+            or shapes != {(qk, m.v_head_dim)}:
+        raise AssertionError(
+            f"lm_mla_moe launched flash {launches} times ({launches_by}), "
+            f"at (D, Dv) {shapes}: expected {want_launches}, all tc_bf16, "
+            f"all at ({qk}, {m.v_head_dim})")
+    check_answers("lm_mla_moe", d["outs"], LM_GEN, cfg.vocab)
+    batch = torch.from_numpy(np.stack(prompts[:LM_SLOTS])).cuda()
+    gen = torch.from_numpy(np.stack(d["outs"][:LM_SLOTS])).cuda().long()
+    checks = mla_moe_checks(cfg, params, batch, gen, server, prompts)
+    tw = time.perf_counter()
+    wall, by_name = traced(lambda: server.run(prompts[:LM_SLOTS],
+                                              gen_tokens=MLA_MOE_TRACE_GEN),
+                           warmup=True)
+    emit_trace(tw, "lm-mla-moe", wall, by_name, top=16)
+    prompt_tokens = LM_PROMPTS * LM_PROMPT_LEN
+    fields = dict( arch=MLA_MOE_ARCH, layers=cfg.n_layers,
+         d_model=cfg.d_model, params=n_params, weight_bytes=weight_bytes,
+         dtype=cfg.dtype, attn_impl=cfg.attn_impl, init_seconds=init_s,
+         capacity_factor=cfg.moe.capacity_factor, prompts=LM_PROMPTS,
+         prompt_len=LM_PROMPT_LEN, gen_tokens=LM_GEN, slots=LM_SLOTS,
+         drain_seconds=d["drain_s"],
+         prefill_tokens_per_s=prompt_tokens / sum(d["prefill_s"]),
+         ttft_seconds=d["prefill_s"],
+         decode_ms_per_step=1e3 * sum(d["decode_s"]) / len(d["decode_s"]),
+         decode_steps=len(d["decode_s"]),
+         generated_tokens_per_s=LM_PROMPTS * LM_GEN / d["drain_s"],
+         max_memory_allocated=peak,
+         dropped_pairs_per_prefill=drops.per_prefill(cfg.n_layers),
+         routed_pairs_per_prefill=cfg.n_layers * LM_SLOTS * LM_PROMPT_LEN
+         * cfg.moe.top_k,
+         flash_launches=launches, flash_launches_by_variant=launches_by,
+         flash_calls=[[*k, c] for k, c in recorder.calls.items()],
+         checks=checks)
+    del server, params, batch, gen, d
+    free_card()
+    emit("lm_mla_moe", t0, **fields, gqa_moe_cut=gqa_moe_cut())
+    return {"launches": launches, "recorder": recorder, "device_us": by_name}
+
+
+def mla_moe_checks(cfg, params, batch, gen, server, prompts):
+    """Checks (a), (c) and (d) of `phase_lm_mla_moe` on the served
+    weights. The bf16 gate is greedy-token agreement where the margin is
+    clear (the ≈ 2% bf16 floor of a random deep model, `lm_checks`); the
+    numerical gates run in f32 on the first 4 layers of the same weights,
+    because an f32 copy of all 27 (64.8 GB) does not fit beside them."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+
+    checks, failed = {}, []
+    chunked, flash, free, flips = pinned_logits(params, cfg, batch)
+    diff = (flash.float() - chunked.float()).abs().max().item()
+    clear, clear_ok, agree = clear_tokens_agree(flash, chunked, diff)
+    checks["a_bf16"] = {"rel_l2": rel_l2(flash, chunked),
+                        "max_abs_diff": diff, "tokens_clear": clear,
+                        "tokens_clear_agree": clear_ok, "tokens_agree": agree,
+                        **free_fields(free, chunked, flips)}
+    if clear_ok != clear:
+        failed.append("a_bf16: a clear greedy token differs")
+    del flash, chunked, free
+    n = MLA_MOE_F32_LAYERS
+    cfg4 = dataclasses.replace(cfg, dtype="float32", n_layers=n)
+    p4 = first_layers(params, n)
+    chunked4, flash4, free4, flips4 = pinned_logits(p4, cfg4, batch)
+    checks["a_f32_4_layers"] = {
+        "rel_l2": rel_l2(flash4, chunked4),
+        "max_abs_diff": (flash4 - chunked4).abs().max().item(),
+        **free_fields(free4, chunked4, flips4)}
+    # (c): capacity for every pair, so decode is the forward's row
+    full = dataclasses.replace(cfg4, moe=dataclasses.replace(
+        cfg4.moe, capacity_factor=float(cfg4.moe.n_experts)))
+    steps, rows = LM_DECODE_CHECK, MLA_MOE_C_ROWS
+    logits, cache = T.prefill(p4, full, batch[:rows],
+                              cache_len=batch.shape[1] + steps)
+    stepped = [logits[:, -1]]
+    for g in range(steps - 1):
+        logits, cache = T.decode_step(p4, full, cache, gen[:rows, g:g + 1],
+                                      batch.shape[1] + g)
+        stepped.append(logits[:, -1])
+    stepped = torch.stack(stepped, dim=1)[..., :cfg.vocab]
+    forced = forced_logits(p4, full, batch[:rows], gen[:rows], steps)
+    checks["c_f32_4_layers"] = {
+        "steps": steps, "rows": rows,
+        "capacity_factor": full.moe.capacity_factor,
+        "rel_l2": rel_l2(stepped, forced),
+        "max_abs_diff": (stepped - forced).abs().max().item()}
+    # (d): one layer's decode, absorbed vs expanded, on the filled cache
+    p0 = T.layer(p4["layers"], 0)["attn"]
+    c0 = T.layer(cache["attn"], 0)
+    pos = batch.shape[1] + steps - 2  # the last slot the steps wrote
+    x = torch.randn(rows, 1, cfg.d_model, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    ca = {k: v.clone() for k, v in c0.items()}
+    cb = {k: v.clone() for k, v in c0.items()}
+    absorbed, _ = A.mla_decode_absorbed(p0, cfg4, x, ca, pos)
+    expanded, _ = A.mla_decode(p0, cfg4, x, cb, pos)
+    checks["d_f32_layer"] = {
+        "rel_l2": rel_l2(absorbed, expanded),
+        "max_abs_diff": (absorbed - expanded).abs().max().item(),
+        "cache_len": c0["ckv"].shape[1],
+        "absorbed_ms": cuda_ms(lambda: A.mla_decode_absorbed(
+            p0, cfg4, x, ca, pos), 20),
+        "expanded_ms": cuda_ms(lambda: A.mla_decode(p0, cfg4, x, cb, pos),
+                               20)}
+    for name, got, want in (("a_f32_4_layers", flash4, chunked4),
+                            ("c_f32_4_layers", stepped, forced),
+                            ("d_f32_layer", absorbed, expanded)):
+        if not torch.allclose(got, want, atol=LM_F32_ATOL, rtol=LM_F32_RTOL):
+            failed.append(f"{name} beyond atol {LM_F32_ATOL}, rtol "
+                          f"{LM_F32_RTOL}")
+    del p4, cache, ca, cb
+    # (d) on the served model: decode ms/step under each, one batch each
+    ms = {}
+    for mode in (False, True):
+        object.__setattr__(cfg, "_absorbed_mla", mode)
+        try:
+            d = timed_drain(server, prompts[:LM_SLOTS], LM_DECODE_CHECK + 1)
+        finally:
+            object.__setattr__(cfg, "_absorbed_mla", False)
+        ms["absorbed" if mode else "expanded"] = d
+    checks["d_bf16_served"] = {
+        f"{k}_decode_ms_per_step": 1e3 * sum(v["decode_s"])
+        / len(v["decode_s"]) for k, v in ms.items()}
+    checks["d_bf16_served"]["tokens_agree"] = int(sum(
+        (a == b).sum() for a, b in zip(ms["absorbed"]["outs"],
+                                       ms["expanded"]["outs"])))
+    if failed:
+        raise AssertionError(f"lm_mla_moe checks failed: {failed}; {checks}")
+    return checks
+
+
+def gqa_moe_cut():
+    """qwen3-moe-235b-a22b at full width, cut to 2 of its 94 layers (470
+    GB in bf16 does not fit; 2 layers are 12.4 GB): one batch of 8
+    prompts of 1,024 tokens, 8 greedy tokens, 2 flash launches at its GQA
+    shape; check (a) in f32 at those 2 layers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attn import kernel as KF
+    from repro_torch.launch.serve import BatchServer
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(GQA_MOE_ARCH),
+                              n_layers=GQA_MOE_LAYERS)
+    held = torch.cuda.memory_allocated()  # what deepseek's part left behind
+    tw = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - tw
+    n_params = sum(t.numel() for t in tensor_leaves(params))
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, size=LM_PROMPT_LEN)
+               for _ in range(LM_SLOTS)]
+    server = BatchServer(cfg, params, batch_slots=LM_SLOTS, device="cuda")
+    recorder, drops = FlashRecorder(), DropRecorder()
+    reset_flash_launches()
+    try:
+        d = timed_drain(server, prompts, GQA_MOE_GEN)
+    finally:
+        recorder.close()
+        drops.close()
+    launches, launches_by = KF.LAUNCHES, dict(KF.LAUNCHES_BY)
+    if launches != cfg.n_layers or launches_by["tc_bf16"] != launches:
+        raise AssertionError(f"qwen3-moe cut launched flash {launches} "
+                             f"times ({launches_by}), expected "
+                             f"{cfg.n_layers} on tc_bf16")
+    check_answers("qwen3-moe cut", d["outs"], GQA_MOE_GEN, cfg.vocab)
+    peak = torch.cuda.max_memory_allocated()
+    batch = torch.from_numpy(np.stack(prompts)).cuda()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    del server
+    p32 = f32_tree_(params)  # leaf by leaf: the bf16 copy goes as it casts
+    del params
+    chunked, flash, free, flips = pinned_logits(p32, cfg32, batch)
+    check = {"rel_l2": rel_l2(flash, chunked),
+             "max_abs_diff": (flash - chunked).abs().max().item(),
+             **free_fields(free, chunked, flips)}
+    del p32
+    free_card()
+    if not torch.allclose(flash, chunked, atol=LM_F32_ATOL, rtol=LM_F32_RTOL):
+        raise AssertionError(f"qwen3-moe cut check a_f32 beyond atol "
+                             f"{LM_F32_ATOL}, rtol {LM_F32_RTOL}: {check}")
+    return {"arch": GQA_MOE_ARCH, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "params": n_params,
+            "allocated_before_init": held, "init_seconds": init_s,
+            "prompts": LM_SLOTS,
+            "prompt_len": LM_PROMPT_LEN, "gen_tokens": GQA_MOE_GEN,
+            "prefill_seconds": d["prefill_s"],
+            "decode_ms_per_step": 1e3 * sum(d["decode_s"])
+            / len(d["decode_s"]),
+            "max_memory_allocated": peak,
+            "dropped_pairs_per_prefill": drops.per_prefill(cfg.n_layers),
+            "flash_launches": launches,
+            "flash_calls": [[*k, c] for k, c in recorder.calls.items()],
+            "a_f32": check}
 
 
 @contextlib.contextmanager
@@ -2437,6 +2930,13 @@ def lm_checks(cfg, params, batch, gen, stepped):
     return checks
 
 
+def f32_tree_(tree):
+    """``tree``'s tensors cast to f32 in place of the originals."""
+    for k, v in tree.items():
+        tree[k] = f32_tree_(v) if isinstance(v, dict) else v.float()
+    return tree
+
+
 def f32_tree(tree):
     if isinstance(tree, dict):
         return {k: f32_tree(v) for k, v in tree.items()}
@@ -2463,40 +2963,60 @@ def phase_trace_lm(lm):
     return by_name
 
 
-def flash_record(lm, device_us):
-    """The flash kernel's contract entry: each distinct call shape of the
-    drain re-run on its recorded inputs against the plain version, timed
-    beside it and SDPA, bounded, and weighted by its call count."""
+def flash_record(drains):
+    """The flash kernel's contract entry over the LM drains (``drains``:
+    each phase's launch count, `FlashRecorder` and traced device times):
+    each distinct call shape re-run on its recorded inputs against the
+    plain version, timed beside it and SDPA, bounded, and weighted by its
+    call count. ``library_ms`` is null, with the reason, when SDPA refuses
+    one of the shapes (v narrower than q and k); ``by_shape`` keeps each
+    shape's sums."""
     from repro_torch.kernels.flash_attn import kernel as KF, ref as RF
 
     saved = KF.LAUNCHES  # comparison launches do not count
-    acc = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bb=0.0, bo=0.0, err=0.0)
-    rec = lm["recorder"]
-    for key, n in rec.calls.items():
-        q, k, v = rec.inputs[key]
-        *_, causal, window = key
-        acc["err"] = max(acc["err"], flash_error(q, k, v, causal, window))
-        acc["ms"] += n * cuda_ms(lambda: KF.flash_attention_bhsd(
-            q, k, v, causal=causal, window=window), 10)
-        acc["plain_ms"] += n * cuda_ms(lambda: RF.attention_ref(
-            q, k, v, causal=causal, window=window), 3)
-        acc["library_ms"] += n * cuda_ms(
-            flash_library(q, k, v, causal, window), 10)
-        bb, bo = flash_bound_s(*key)
-        acc["bb"] += n * bb
-        acc["bo"] += n * bo
+    acc = dict(ms=0.0, plain_ms=0.0, bb=0.0, bo=0.0, err=0.0)
+    by_shape, notes = [], []
+    for drain in drains:
+        rec = drain["recorder"]
+        for key, n in rec.calls.items():
+            q, k, v = rec.inputs[key]
+            *_, causal, window = key
+            err = flash_error(q, k, v, causal, window)
+            ms = n * cuda_ms(lambda: KF.flash_attention_bhsd(
+                q, k, v, causal=causal, window=window), 10)
+            plain = n * cuda_ms(lambda: RF.attention_ref(
+                q, k, v, causal=causal, window=window), 3)
+            lib = library_fields(q, k, v, causal, window)
+            if lib["library_ms"] is not None:
+                lib["library_ms"] *= n
+            else:
+                notes.append(lib["library_note"])
+            bb, bo = flash_bound_s(*key)
+            by_shape.append({"shape": list(key), "launches": n, "ms": ms,
+                             "plain_ms": plain, "bound_ms": n * max(bb, bo)
+                             * 1e3, **lib, "max_abs_err": err})
+            acc["err"] = max(acc["err"], err)
+            acc["ms"] += ms
+            acc["plain_ms"] += plain
+            acc["bb"] += n * bb
+            acc["bo"] += n * bo
     KF.LAUNCHES = saved
+    names = ("flash_attention_tc_kernel", "flash_attention_kernel")
     return [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attn/kernel.py:80",
-        "launches": lm["launches"], "max_abs_err": acc["err"],
-        "ms": acc["ms"], "plain_ms": acc["plain_ms"],
+        "launches": sum(d["launches"] for d in drains),
+        "max_abs_err": acc["err"], "ms": acc["ms"],
+        "plain_ms": acc["plain_ms"],
         "bound_ms": max(acc["bb"], acc["bo"]) * 1e3,
         "bound_by": "bytes" if acc["bb"] >= acc["bo"] else "operations",
-        "library_ms": acc["library_ms"],
-        "device_ms": device_ms(device_us, ("flash_attention_tc_kernel",
-                                           "flash_attention_kernel"))}]
+        "library_ms": None if notes else sum(
+            r["library_ms"] for r in by_shape),
+        **({"library_note": notes[0]} if notes else {}),
+        "device_ms": sum(device_ms(d["device_us"], names) or 0.0
+                         for d in drains) or None,
+        "by_shape": by_shape}]
 
 
 def traced(fn, warmup=False):
@@ -2693,14 +3213,17 @@ def main() -> int:
     device_us.update(phase_trace(graph, "resident", top=16))
     device_us.update(phase_trace_serving(
         [(ps, queries), (rmat_ps, rmat_queries)], shingles))
-    lm_device_us = phase_trace_lm(lm)
+    lm["device_us"] = phase_trace_lm(lm)
+    del lm["server"]  # qwen2.5-3b's 6.8 GB leave the card before deepseek's
+    free_card()
+    mla_moe = phase_lm_mla_moe()
     t0 = time.perf_counter()
     record = kernel_record(recorder, launches, res_recorder, res_launches,
                            rng, device_us, rates)
     record += serving_kernel_record(serve_calls + rmat_calls,
                                     serve_launches + rmat_launches, shingles,
                                     device_us, rates)
-    record += flash_record(lm, lm_device_us)
+    record += flash_record([lm, mla_moe])
     emit("record", t0, total_seconds=time.perf_counter() - t_all)
     print(smi, flush=True)
     print(json.dumps({"kernels": record}), flush=True)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time one checkout's flash-attention kernel on one CUDA card at
-`chip_smoke.py`'s fixed shapes (`FLASH_SHAPES`), so that two checkouts
-can be compared in one call, on one card, in turns:
+`chip_smoke.py`'s fixed shapes (`FLASH_SHAPES`; a shape with v narrower
+than q and k is skipped for a checkout whose kernel does not take it), so
+that two checkouts can be compared in one call, on one card, in turns:
 
     python3 flash_bench.py --src /path/to/parent/src --label parent
     python3 flash_bench.py --label change      # this checkout's src/
@@ -23,6 +24,15 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+
+
+def _takes_v_width(KF, q, k, v) -> bool:
+    """Whether this checkout's wrapper takes v narrower than q and k."""
+    try:
+        KF.flash_attention_bhsd(q, k, v)
+    except ValueError:
+        return False
+    return True
 
 
 def main() -> int:
@@ -53,16 +63,17 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0], flush=True)
     rng = np.random.default_rng(0)
-    for B, H, Hkv, Sq, Sk, D, dtype, causal, window in CS.FLASH_SHAPES:
-        q, k, v = CS.flash_input(B, H, Hkv, Sq, Sk, D, dtype, rng)
+    for B, H, Hkv, Sq, Sk, D, Dv, dtype, causal, window in CS.FLASH_SHAPES:
+        q, k, v = CS.flash_input(B, H, Hkv, Sq, Sk, D, Dv, dtype, rng)
+        if Dv != D and not _takes_v_width(KF, q, k, v):
+            continue  # a checkout from before v had its own width
         print(json.dumps({
             "label": args.label, "src": str(src),
-            "shape": [B, H, Hkv, Sq, Sk, D], "dtype": dtype,
+            "shape": [B, H, Hkv, Sq, Sk, D, Dv], "dtype": dtype,
             "causal": causal, "window": window,
             "kernel_ms": CS.cuda_ms(lambda: KF.flash_attention_bhsd(
                 q, k, v, causal=causal, window=window), args.reps),
-            "library_ms": CS.cuda_ms(
-                CS.flash_library(q, k, v, causal, window), args.reps)}),
+            **CS.library_fields(q, k, v, causal, window, args.reps)}),
             flush=True)
     return 0
 

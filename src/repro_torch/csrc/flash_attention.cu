@@ -4,6 +4,8 @@
 // also j > i - window when a window is set (non-causal ignores window).
 // Query positions start at 0 whatever Sk is. Scores, softmax and the sum
 // run in f32; the output is written in the input's type (bf16 or f32).
+// q and k have head dim D, v and o their own width Dv <= D (MLA: D = 192,
+// Dv = 128; GQA: Dv = D); the scale the caller passes is 1/sqrt(D).
 //
 // Replaces the JAX package's Pallas kernel
 // `repro/kernels/flash_attn/kernel.py::flash_attention_bhsd` (block
@@ -72,7 +74,7 @@ struct Strides {
 
 struct Problem {
   int64_t B, H, Hkv, Sq, Sk;
-  int D, causal;
+  int D, Dv, causal;  // Dv <= D, both multiples of 8
   int64_t window;
 };
 
@@ -249,7 +251,7 @@ flash_attention_tc_kernel(const bf16* __restrict__ q,
     if (j <= j_hi) {
       bf16* dst = kv_s + stage * 2 * BN * LD;
       load_tile<BN, DP>(dst, kb, j * BN, p.Sk, st.k[2], p.D);
-      load_tile<BN, DP>(dst + BN * LD, vb, j * BN, p.Sk, st.v[2], p.D);
+      load_tile<BN, DP>(dst + BN * LD, vb, j * BN, p.Sk, st.v[2], p.Dv);
     }
     cp_async_commit();
   };
@@ -385,7 +387,9 @@ flash_attention_tc_kernel(const bf16* __restrict__ q,
       }
     }
 
-    // O += P . V, P from the score fragments (bf16 only as an operand)
+    // O += P . V, P from the score fragments (bf16 only as an operand).
+    // The accumulator is DP wide; the n16 column pairs at or past Dv hold
+    // V's zero fill and are skipped (a uniform branch).
 #pragma unroll
     for (int ks = 0; ks < BN / 16; ++ks) {
       const uint32_t a[4] = {pack_bf16(s[2 * ks][0], s[2 * ks][1]),
@@ -394,6 +398,7 @@ flash_attention_tc_kernel(const bf16* __restrict__ q,
                              pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3])};
 #pragma unroll
       for (int t = 0; t < DT; t += 2) {
+        if (t * 8 >= p.Dv) continue;
         uint32_t bv[4];
         ldsm_x4_trans(bv, v_addr + (ks * 16 * LD + t * 8) * 2);
         mma(acc[t], a, bv[0], bv[1]);
@@ -416,7 +421,7 @@ flash_attention_tc_kernel(const bf16* __restrict__ q,
 #pragma unroll
     for (int t = 0; t < DT; ++t) {
       const int col = t * 8 + col2;
-      if (col < p.D) {  // D is a multiple of 8: col + 1 < D too
+      if (col < p.Dv) {  // Dv is a multiple of 8: col + 1 < Dv too
         *reinterpret_cast<__nv_bfloat162*>(orow + col) =
             __floats2bfloat162_rn(acc[t][2 * r] / denom,
                                   acc[t][2 * r + 1] / denom);
@@ -538,7 +543,8 @@ flash_attention_kernel(const float* __restrict__ q,
   const int D = p.D;
   float* q_t = smem;                    // [D][kPad]
   float* k_t = q_t + D * kPad;          // [D][kPad]
-  float* v_s = k_t + D * kPad;          // [kTile][D]
+  const int Dv = p.Dv;
+  float* v_s = k_t + D * kPad;          // [kTile][Dv]
   float* p_s = v_s + kTile * D;         // [kTile][kPad]
 
   const int tx = threadIdx.x & 15;
@@ -570,7 +576,7 @@ flash_attention_kernel(const float* __restrict__ q,
     const int64_t k0 = j * kTile;
     __syncthreads();  // every thread is done with the previous K, V and P
     stage_tile<true>(k_t, kb, k0, p.Sk, st.k[2], D);
-    stage_tile<false>(v_s, vb, k0, p.Sk, st.v[2], D);
+    stage_tile<false>(v_s, vb, k0, p.Sk, st.v[2], Dv);
     __syncthreads();
 
     float s[4][4];
@@ -631,8 +637,8 @@ flash_attention_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int jj = 0; jj < NJ; ++jj) {
         const int dd = tx + 16 * jj;
-        if (dd < D) {
-          const float x = v_s[c * D + dd];
+        if (dd < Dv) {
+          const float x = v_s[c * Dv + dd];
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(pv[i], x, acc[i][jj]);
         }
@@ -648,12 +654,12 @@ flash_attention_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) {
       const int dd = tx + 16 * jj;
-      if (dd < D) ob[qpos * st.o[2] + dd] = acc[i][jj] / denom;
+      if (dd < Dv) ob[qpos * st.o[2] + dd] = acc[i][jj] / denom;
     }
   }
 }
 
-int smem_bytes(int D) {  // Q^T, K^T, V, P
+int smem_bytes(int D) {  // Q^T, K^T, V (sized for Dv = D), P
   return static_cast<int>(sizeof(float) *
                           (2 * D * kPad + kTile * D + kTile * kPad));
 }
@@ -703,23 +709,23 @@ extern "C" int flash_attention_smem_bytes(int64_t D, int64_t dtype) {
 // dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core
 // kernel). `strides` points to 12 element strides on the host: (batch,
 // head, row) of q, k, v and o, in that order. The wrapper has checked the
-// shapes (D a multiple of 8 in [8, 256], H % Hkv == 0), the contiguous
-// last dim and the 16-byte alignment of every row; sizes the grid cannot
-// take are refused here.
+// shapes (D a multiple of 8 in [8, 256], Dv a multiple of 8 in [8, D],
+// H % Hkv == 0), the contiguous last dim and the 16-byte alignment of
+// every row; sizes the grid cannot take are refused here.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int64_t B,
                                       int64_t H, int64_t Hkv, int64_t Sq,
-                                      int64_t Sk, int64_t D, int64_t causal,
-                                      int64_t window, float scale,
-                                      int64_t dtype, const int64_t* strides,
-                                      void* stream) {
+                                      int64_t Sk, int64_t D, int64_t Dv,
+                                      int64_t causal, int64_t window,
+                                      float scale, int64_t dtype,
+                                      const int64_t* strides, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return static_cast<int>(cudaGetLastError());
-  if (D < 8 || D > 256 || D % 8 || Hkv <= 0 || H % Hkv || Sk < 0 ||
-      (dtype != 0 && dtype != 1) || strides == nullptr) {
+  if (D < 8 || D > 256 || D % 8 || Dv < 8 || Dv > D || Dv % 8 || Hkv <= 0 ||
+      H % Hkv || Sk < 0 || (dtype != 0 && dtype != 1) || strides == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Problem p{B, H, Hkv, Sq, Sk, static_cast<int>(D), causal ? 1 : 0,
-                  window};
+  const Problem p{B, H, Hkv, Sq, Sk, static_cast<int>(D),
+                  static_cast<int>(Dv), causal ? 1 : 0, window};
   Strides st;
   for (int i = 0; i < 3; ++i) {
     st.q[i] = strides[i];

@@ -50,7 +50,7 @@ LAUNCHERS = {
     "rowmin_hash_launch": (_P, _P, _I64, _I64, _I64, _I64, _P),
     "pairwise_intersections_launch": (_P, _P, _I64, _I64, _I64, _P),
     "flash_attention_launch": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
-                               _I64, _I64, _I64, _F32, _I64, _P, _P),
+                               _I64, _I64, _I64, _I64, _F32, _I64, _P, _P),
     # not a launcher: the flash kernels' dynamic shared memory, for reports
     "flash_attention_smem_bytes": (_I64, _I64),
 }

@@ -1,5 +1,6 @@
 """Wrapper of the CUDA kernels `csrc/flash_attention.cu`: causal,
-sliding-window or full attention with GQA and an online softmax.
+sliding-window or full attention with GQA and an online softmax, v
+narrower than q and k where MLA needs it.
 
 Dispatch is by the tensor's device, then by its type. A CPU tensor takes
 the plain version in `ref.py`. A CUDA tensor launches a kernel (a failed
@@ -53,24 +54,37 @@ def _strides(t: torch.Tensor, name: str) -> tuple:
     return st
 
 
+def _out_like(q: torch.Tensor, Dv: int) -> torch.Tensor:
+    """An empty (B, H, Sq, Dv) tensor laid out as q is: its dims in the
+    order of q's strides, so a q made dense in the model's (b, s, h, d)
+    layout gives an output dense in that layout (no copy on the way back)."""
+    order = sorted(range(3), key=lambda i: -q.stride(i))
+    out = torch.empty([q.shape[i] for i in order] + [Dv], dtype=q.dtype,
+                      device=q.device)
+    return out.permute(*[order.index(i) for i in range(3)], 3)
+
+
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: int = 0) -> torch.Tensor:
-    """q: (B, H, Sq, D); k/v: (B, Hkv, Sk, D) with H % Hkv == 0 (kv head
-    ``h // (H // Hkv)``), one dtype (bfloat16 or float32), D a multiple of
-    8 in [8, 256]. On the card the last dim must be contiguous and every
-    row 16-byte aligned; other strides are free. Returns (B, H, Sq, D) in
-    q's dtype, laid out as q is when q is dense. ``window`` (> 0) limits
-    each query to its last ``window`` keys when ``causal``."""
+    """q: (B, H, Sq, D); k: (B, Hkv, Sk, D); v: (B, Hkv, Sk, Dv) with
+    H % Hkv == 0 (kv head ``h // (H // Hkv)``), one dtype (bfloat16 or
+    float32). On the card D is a multiple of 8 in [8, 256] and Dv a
+    multiple of 8 in [8, D] (MLA: 192 and 128), the last dim contiguous
+    and every row 16-byte aligned; other strides are free. Scores are
+    scaled by ``1/sqrt(D)``. Returns (B, H, Sq, Dv) in q's dtype, laid
+    out as q is when q is dense. ``window`` (> 0) limits each query to its
+    last ``window`` keys when ``causal``."""
     global LAUNCHES
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"need q (B, H, Sq, D) and k, v (B, Hkv, Sk, D) of "
-                         f"one shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"need q (B, H, Sq, D) and k, v (B, Hkv, Sk, ·) of "
+                         f"one shape but the last dim, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, H, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != B or k.shape[3] != D:
-        raise ValueError(f"k/v batch and head dim {tuple(k.shape)} do not "
+        raise ValueError(f"k batch and head dim {tuple(k.shape)} do not "
                          f"match q {tuple(q.shape)}")
     if Hkv == 0 or H % Hkv:
         raise ValueError(f"{H} query heads are not a multiple of {Hkv} kv "
@@ -88,8 +102,11 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"unsupported device {q.device}")
     if D % 8 or not 8 <= D <= 256:
         raise ValueError(f"head dim {D} is not a multiple of 8 in [8, 256]")
+    if Dv % 8 or not 8 <= Dv <= D:
+        raise ValueError(f"v head dim {Dv} is not a multiple of 8 in "
+                         f"[8, {D}]")
     strides = (*_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"))
-    out = torch.empty_like(q)  # q's strides when q is dense
+    out = _out_like(q, Dv)
     if out.numel() == 0:
         return out
     code, name = _DTYPES[q.dtype]
@@ -99,8 +116,8 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
-            Hkv, Sq, Sk, D, int(bool(causal)), int(window), 1.0 / D ** 0.5,
-            code, ctypes.addressof(strides), stream)
+            Hkv, Sq, Sk, D, Dv, int(bool(causal)), int(window),
+            1.0 / D ** 0.5, code, ctypes.addressof(strides), stream)
     _build.check_status("flash_attention", status)
     LAUNCHES += 1
     LAUNCHES_BY[name] += 1

@@ -10,11 +10,12 @@ NEG_INF = -1e30
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B, H, Sq, D); k/v: (B, Hkv, Sk, D), GQA by head repetition (kv
-    head ``h // g``). Scores in f32; masked scores are ``-1e30`` and their
-    weights 0; the row sum is floored at ``1e-30``. Query positions start
-    at 0 whatever Sk is; ``window`` applies only when ``causal``. Returns
-    (B, H, Sq, D) in q's dtype."""
+    """q: (B, H, Sq, D); k: (B, Hkv, Sk, D); v: (B, Hkv, Sk, Dv), GQA by
+    head repetition (kv head ``h // g``). Scores in f32, scaled by
+    ``1/sqrt(D)``; masked scores are ``-1e30`` and their weights 0; the
+    row sum is floored at ``1e-30``. Query positions start at 0 whatever
+    Sk is; ``window`` applies only when ``causal``. Returns (B, H, Sq, Dv)
+    in q's dtype."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     g = H // Hkv

@@ -4,9 +4,12 @@ decode, and the request-slot helpers shared with the summary-query server
 
     python -m repro_torch.launch.serve --arch qwen2.5-3b [--smoke] [--device cpu]
 
-runs on the CUDA card unless ``--device cpu`` is given. Prefill attends
-through the CUDA flash kernel (``attn_impl="pallas_flash"``, the port's
-default), decode through the plain `_sdpa`.
+runs on the CUDA card unless ``--device cpu`` is given; ``--arch`` takes
+the dense and the MoE configurations (``qwen3-moe-235b-a22b``, and
+``deepseek-v2-lite-16b`` with MLA, which fits one H100 whole in bf16).
+Prefill attends through the CUDA flash kernel (``attn_impl="pallas_flash"``,
+the port's default; MLA's at q/k width 192 and v width 128), decode
+through the plain `_sdpa` (MLA's over its expanded latent cache).
 """
 from __future__ import annotations
 

@@ -1,12 +1,15 @@
-"""Grouped-query attention (optionally sliding-window, optionally biased):
-a full-sequence path (prefill) and a single-token decode path over a
-cache, as in the JAX package's `models/attention.py`.
+"""Attention variants, as in the JAX package's `models/attention.py`:
+grouped-query attention (optionally sliding-window, optionally biased) and
+MLA (DeepSeek-V2's latent attention), each with a full-sequence path
+(prefill) and a single-token decode path over a cache.
 
 The prefill attends through `_attn_dispatch`: the hand-written CUDA flash
 kernel (`kernels/flash_attn`, ``attn_impl="pallas_flash"``, the default)
-or the plain PyTorch `chunked_sdpa` twin (``"xla_chunked"``). Decode
-attends with the plain `_sdpa`, as the reference does. MLA and
-cross-attention are not ported yet (ROADMAP Queue 1, slices F3 and F5).
+or the plain PyTorch `chunked_sdpa` twin (``"xla_chunked"``). MLA's
+prefill is the kernel at q/k width 192 and v width 128. Decode attends
+with the plain `_sdpa` (MLA's absorbed decode in the latent space), as
+the reference does. Cross-attention is not ported yet (ROADMAP Queue 1,
+slice F5).
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attn.ops import flash_attention
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, rms_norm
 
 NEG_INF = -1e30
 
@@ -163,3 +166,119 @@ def gqa_decode(p, cfg: ModelConfig, x, cache, pos: int):
     mask = valid[:, None, :].expand(b, 1, S)
     out = _sdpa(qg, cache["k"], cache["v"], mask).reshape(b, 1, hq * hd)
     return out @ p["wo"], cache
+
+
+# --------------------------------------------------------------------- MLA
+def mla_param_shapes(cfg: ModelConfig, lead: tuple = ()) -> dict:
+    """``init_mla``'s tree, each shape behind ``lead`` (the layer axis)."""
+    d, h, m = cfg.d_model, cfg.n_heads, cfg.mla
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {"wq": (*lead, d, h * qk),
+            "wkv_a": (*lead, d, m.kv_lora_rank + m.qk_rope_head_dim),
+            "kv_norm": (*lead, m.kv_lora_rank),
+            "wkv_b": (*lead, m.kv_lora_rank,
+                      h * (m.qk_nope_head_dim + m.v_head_dim)),
+            "wo": (*lead, h * m.v_head_dim, d)}
+
+
+def _mla_expand(p, cfg, ckv):
+    """Latent (b,S,r) -> per-head k_nope (b,S,h,nope), v (b,S,h,vd): views
+    of one (b,S,h,nope+vd) expansion."""
+    m, h = cfg.mla, cfg.n_heads
+    kv = (ckv @ p["wkv_b"]).view(*ckv.shape[:2], h,
+                                 m.qk_nope_head_dim + m.v_head_dim)
+    return kv[..., :m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
+
+
+def _mla_project(p, cfg, x, positions):
+    """Per-head queries (b,s,h,nope+rope) with rope applied to their last
+    rope dims, the normalised latent ckv (b,s,r) and the roped shared key
+    part k_rope (b,s,rd)."""
+    b, s, _ = x.shape
+    m, h = cfg.mla, cfg.n_heads
+    q = (x @ p["wq"]).view(b, s, h, -1)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ca = x @ p["wkv_a"]
+    ckv, k_rope = ca[..., :m.kv_lora_rank], ca[..., m.kv_lora_rank:]
+    ckv = rms_norm(ckv, p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    return torch.cat([q_nope, q_rope], dim=-1), ckv, k_rope[:, :, 0, :]
+
+
+def _mla_keys(p, cfg, ckv, krope):
+    """Per-head keys (b,S,h,nope+rope) and values (b,S,h,vd) from the
+    latent cache; v stays a view of the expansion (the kernel reads it by
+    strides)."""
+    k_nope, v = _mla_expand(p, cfg, ckv)
+    rope = krope[:, :, None, :].expand(*k_nope.shape[:3], krope.shape[-1])
+    return torch.cat([k_nope, rope], dim=-1), v
+
+
+def mla_full(p, cfg: ModelConfig, x, positions):
+    """Full-sequence MLA, attended as MHA (hkv = h, group 1) through
+    `_attn_dispatch`. Returns (out, {"ckv": (b,s,r), "krope": (b,s,rd)})."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    qh, ckv, krope = _mla_project(p, cfg, x, positions)
+    k, v = _mla_keys(p, cfg, ckv, krope)
+    out = _attn_dispatch(cfg, qh.view(b, s, h, 1, -1), k, v, causal=True,
+                         window=0).reshape(b, s, -1)
+    return out @ p["wo"], {"ckv": ckv, "krope": krope}
+
+
+def _mla_step(p, cfg, x, cache, pos: int):
+    """The new token's queries, written into the latent cache IN PLACE at
+    slot ``pos % S``; returns (qh, slot)."""
+    b = x.shape[0]
+    S = cache["ckv"].shape[1]
+    posa = torch.full((b, 1), pos, device=x.device)
+    qh, ckv_new, krope_new = _mla_project(p, cfg, x, posa)
+    slot = pos % S
+    cache["ckv"][:, slot:slot + 1] = ckv_new
+    cache["krope"][:, slot:slot + 1] = krope_new
+    return qh, slot
+
+
+def mla_decode(p, cfg: ModelConfig, x, cache, pos: int):
+    """The reference's baseline decode: the whole latent cache expanded to
+    per-head keys and values every step. x: (b,1,d); cache ckv (b,S,r),
+    krope (b,S,rd), updated IN PLACE at slot ``pos % S``. The mask is
+    ``arange(S) <= pos % S`` as the reference writes it: unlike
+    `gqa_decode` it has no ``pos >= S`` term (ROADMAP Queue 3)."""
+    b = x.shape[0]
+    h, S = cfg.n_heads, cache["ckv"].shape[1]
+    pos = int(pos)
+    qh, slot = _mla_step(p, cfg, x, cache, pos)
+    k, v = _mla_keys(p, cfg, cache["ckv"], cache["krope"])
+    valid = torch.arange(S, device=x.device)[None, :] <= slot
+    mask = valid[:, None, :].expand(b, 1, S)
+    out = _sdpa(qh.view(b, 1, h, 1, -1), k, v, mask).reshape(b, 1, -1)
+    return out @ p["wo"], cache
+
+
+def mla_decode_absorbed(p, cfg: ModelConfig, x, cache, pos: int):
+    """Decode with ``wkv_b`` absorbed into the query and output sides, so
+    attention runs in the latent space (no per-step expansion of the
+    cache): O(S·h·r) instead of O(S·h·(nope+vd)·r). Same cache update and
+    mask as `mla_decode`."""
+    b = x.shape[0]
+    m, h = cfg.mla, cfg.n_heads
+    S, r = cache["ckv"].shape[1], m.kv_lora_rank
+    nope = m.qk_nope_head_dim
+    pos = int(pos)
+    qh, slot = _mla_step(p, cfg, x, cache, pos)
+    q_nope, q_rope = qh[..., :nope], qh[..., nope:]
+    wkv_b = p["wkv_b"].view(r, h, nope + m.v_head_dim)
+    wk, wv = wkv_b[..., :nope], wkv_b[..., nope:]    # (r,h,nope), (r,h,vd)
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, wk)
+    scale = 1.0 / math.sqrt(nope + m.qk_rope_head_dim)
+    scores = (torch.einsum("bqhr,bsr->bhqs", q_lat, cache["ckv"])
+              + torch.einsum("bqhc,bsc->bhqs", q_rope, cache["krope"])
+              ).float() * scale
+    valid = torch.arange(S, device=x.device)[None, None, None, :] <= slot
+    scores = torch.where(valid, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhqs,bsr->bqhr", w, cache["ckv"])   # latent context
+    out_h = torch.einsum("bqhr,rhv->bqhv", ctx, wv)       # expand once a step
+    return out_h.reshape(b, 1, -1) @ p["wo"], cache

@@ -4,9 +4,10 @@ forward only.
 Each keeps the JAX package's order of operations and its casts, so the
 two packages round alike in bf16: `rms_norm` takes the variance in f32 and
 scales in ``x.dtype``; `apply_rope` rotates split halves in f32 and casts
-back; `swiglu` gates in the working dtype. The custom VJPs of the
-reference (`rms_norm`'s, `lowp_matmul_f32`) belong to training and are
-not ported yet.
+back; `swiglu` gates in the working dtype; `lowp_matmul_f32` multiplies
+in ``x.dtype`` and returns f32. The custom VJPs of the reference
+(`rms_norm`'s, `lowp_matmul_f32`'s) belong to training and are not ported
+yet (slice F7).
 """
 from __future__ import annotations
 
@@ -22,6 +23,16 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
     var = (xf * xf).sum(dim=-1, keepdim=True)
     inv = torch.rsqrt(var / x.shape[-1] + eps)
     return x * inv.to(x.dtype) * w
+
+
+def lowp_matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum('...d,de->...e')`` of x and ``w`` cast to ``x.dtype``, with
+    f32 accumulation and an f32 result (the MoE router's logits; a plain
+    bf16 matmul would round them to bf16). The operands are widened to f32
+    after the cast: a product of two bf16 values is exact in f32, and so
+    is a bf16 value under TF32, so this is the bf16 product accumulated
+    in f32. Forward only."""
+    return x.float() @ w.to(x.dtype).float()
 
 
 def init_linear(generator: torch.Generator, d_in: int, d_out: int, dtype,

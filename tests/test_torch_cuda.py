@@ -751,6 +751,118 @@ def test_cuda_flash_attention_rejects_what_it_cannot_take():
         flash_kernel.flash_attention_bhsd(shifted, shifted, shifted)
 
 
+# (B, H, Hkv, Sq, Sk, D, Dv, dtype, causal, window): v narrower than q and
+# k. MLA's prefill call at B = 1 (D 192, Dv 128), its smoke widths (24,
+# 16), a Dv off the 16-column pairs, GQA with a window, and ragged f32
+FLASH_DV_CASES = [
+    (1, 16, 16, 1024, 1024, 192, 128, "bfloat16", True, 0),
+    (2, 4, 4, 77, 77, 24, 16, "bfloat16", True, 0),
+    (1, 4, 2, 130, 200, 64, 40, "bfloat16", False, 0),
+    (1, 8, 2, 300, 300, 128, 8, "bfloat16", True, 64),
+    (1, 2, 1, 150, 150, 256, 248, "bfloat16", True, 0),
+    (2, 4, 4, 300, 300, 192, 128, "float32", True, 0),
+    (1, 4, 2, 77, 130, 24, 16, "float32", False, 0),
+    (2, 3, 3, 200, 200, 64, 40, "float32", True, 50),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,Dv,dtype,causal,window",
+                         FLASH_DV_CASES)
+def test_cuda_flash_attention_narrow_v_matches_plain(B, H, Hkv, Sq, Sk, D,
+                                                     Dv, dtype, causal,
+                                                     window):
+    """v (and o) Dv wide, v read in place as MLA hands it: a strided view
+    (columns 16 .. 16 + Dv) of a wider row, whose columns past the view
+    hold NaN that the kernel must not read."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    q, k, wide = _flash_inputs([(B, H, Sq, D), (B, Hkv, Sk, D),
+                                (B, Hkv, Sk, 16 + Dv + 8)], dtype,
+                               B * H + Sq + D + Dv)
+    wide[..., 16 + Dv:] = float("nan")
+    v = wide[..., 16:16 + Dv]
+    name = flash_kernel.variant(dt)
+    n, by = flash_kernel.LAUNCHES, dict(flash_kernel.LAUNCHES_BY)
+    got = flash_kernel.flash_attention_bhsd(q, k, v, causal=causal,
+                                            window=window)
+    torch.cuda.synchronize()
+    assert flash_kernel.LAUNCHES == n + 1
+    assert flash_kernel.LAUNCHES_BY == {**by, name: by[name] + 1}
+    assert got.dtype == dt and got.shape == (B, H, Sq, Dv)
+    assert torch.isfinite(got).all()
+    _flash_close(got, q, k, v.contiguous(), causal, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_flash_attention_narrow_v_model_layout(dtype):
+    """MLA's call through `ops.flash_attention`: q and k dense (b, s, h,
+    1, 192) and (b, s, h, 192), v the view ``kv[..., 128:]`` of the
+    (b, s, h, 256) expansion. The output is dense in the model's layout
+    and equals the kernel on the same data made contiguous."""
+    _need_card()
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+
+    b, s, h = 2, 160, 4
+    q, k, kv = _flash_inputs([(b, s, h, 1, 192), (b, s, h, 192),
+                              (b, s, h, 256)], dtype, 23)
+    v = kv[..., 128:]
+    got = flash_ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert got.shape == (b, s, h, 1, 128) and got.is_contiguous()
+    want = flash_kernel.flash_attention_bhsd(
+        q[:, :, :, 0].permute(0, 2, 1, 3).contiguous(),
+        k.permute(0, 2, 1, 3).contiguous(),
+        v.permute(0, 2, 1, 3).contiguous(), causal=True)
+    assert torch.equal(got[:, :, :, 0].permute(0, 2, 1, 3), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b",
+                                  "deepseek-v2-lite-16b"])
+def test_cuda_moe_forward_matches_cpu(arch):
+    """The MoE smoke models (GQA; MLA) on the card, flash kernel in every
+    layer's prefill, against the same weights on the CPU in float32:
+    routing integers equal, logits and aux within the reference's
+    tolerance, served tokens equal."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import BatchServer
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    on_card = _to(params, "cuda")
+    assert on_card["layers"]["moe"]["router"].dtype == torch.float32
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(2, 24)))
+    n = flash_kernel.LAUNCHES
+    got, aux, _ = T.forward(on_card, cfg, toks.cuda())
+    assert flash_kernel.LAUNCHES == n + cfg.n_layers
+    want, waux, _ = T.forward(params, cfg, toks)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=1e-3)
+    torch.testing.assert_close(aux.cpu(), waux, atol=2e-4, rtol=1e-3)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (3, 40, cfg.d_model)).astype(np.float32))
+    p0 = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    r_cpu = M.route(p0, cfg, x)
+    r_card = M.route(_to(p0, "cuda"), cfg, x.cuda())
+    for name in ("top_e", "rank", "slot"):
+        assert torch.equal(getattr(r_card, name).cpu(), getattr(r_cpu, name))
+    assert int(r_card.dropped) == int(r_cpu.dropped)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, size=12) for _ in range(3)]
+    a = BatchServer(cfg, on_card, batch_slots=2).run(prompts, 4)
+    b = BatchServer(cfg, params, batch_slots=2, device="cpu").run(prompts, 4)
+    for x_, y in zip(a, b):
+        np.testing.assert_array_equal(x_, y)
+
+
 @pytest.mark.cuda
 def test_cuda_lm_serving_matches_cpu():
     """The dense smoke model served on the card (flash kernel in prefill)

@@ -55,6 +55,7 @@ def test_port_files_exist():
                  "src/repro_torch/configs/qwen2_5_3b.py",
                  "src/repro_torch/models/layers.py",
                  "src/repro_torch/models/attention.py",
+                 "src/repro_torch/models/moe.py",
                  "src/repro_torch/models/transformer.py",
                  "src/repro_torch/models/api.py",
                  "src/repro_torch/kernels/flash_attn/kernel.py",
