@@ -124,10 +124,12 @@ Phases, each printing one JSON line with its seconds:
            launches, check (a) in f32 at those 2 layers
 
 The kernels phase also holds the flash-attention kernel to its plain
-version (f32, TF32 off) within the reference's tolerances at seven fixed
+version (f32, TF32 off) within the reference's tolerances at ten fixed
 shapes, two of them with v narrower than q and k (MLA's prefill call,
-D 192 and Dv 128, in bf16, and MLA's widths on ragged f32 tiles), beside
-SDPA's time where SDPA takes the call, each row naming the variant its
+D 192 and Dv 128, in bf16, and MLA's widths on ragged f32 tiles), three
+of slice F4 + F5 (zamba2's shared-block call at head dim 112, whisper's
+encoder call and its decode cross call, one query row over 1,500 keys),
+beside SDPA's time where SDPA takes the call, each row naming the variant its
 counters saw launch (bf16 on the tensor cores, f32 on the CUDA cores);
 and once more at the two serving calls through `ops.flash_attention` on
 the model's tensors, which the kernel reads by strides (MLA's v a view
@@ -137,8 +139,8 @@ The line before the last is the per-kernel record; each kernel's launches
 come from its own path's counted run (batched for the intersections and
 the histogram, resident for top-J and the fold, both serve drains for the
 interval count, the shingles phase for the row-min hash and the pairwise
-intersections, the two LM drains, qwen2.5-3b's and deepseek's, for flash
-attention), its times are sums over
+intersections, the LM drains of qwen2.5-3b, deepseek, zamba2 and whisper
+for flash attention), its times are sums over
 every call that run made (each call, or each distinct call shape, checked
 against the plain version, timed, and weighted by its call count).
 Every engine run outside the injected ones must report
@@ -216,15 +218,20 @@ B1_OPS_PER_S = 8 * INT8_OPS_PER_S
 # (B, H, Hkv, Sq, Sk, D, Dv, dtype, causal, window): the serving prefill's
 # call (qwen2.5-3b, 8 prompts of 1,024), one long prompt, danube's heads past
 # its window, non-causal Sq != Sk, ragged f32 tiles; MLA's prefill call
-# (deepseek-v2-lite-16b, 8 prompts of 1,024: q/k 192 wide, v 128) and MLA's
-# widths on ragged f32 tiles
+# (deepseek-v2-lite-16b, 8 prompts of 1,024: q/k 192 wide, v 128), MLA's
+# widths on ragged f32 tiles; zamba2-7b's shared block (head dim 112, 8
+# prompts of 1,024), whisper-small's encoder (1,500 frames, non-causal)
+# and its decode cross call (one query row over 1,500 frames)
 FLASH_SHAPES = [(8, 16, 2, 1024, 1024, 128, 128, "bfloat16", True, 0),
                 (1, 16, 2, 4096, 4096, 128, 128, "bfloat16", True, 0),
                 (1, 32, 8, 6144, 6144, 80, 80, "bfloat16", True, 4096),
                 (2, 12, 12, 256, 1536, 64, 64, "bfloat16", False, 0),
                 (2, 4, 2, 300, 300, 32, 32, "float32", True, 64),
                 (8, 16, 16, 1024, 1024, 192, 128, "bfloat16", True, 0),
-                (2, 16, 16, 300, 300, 192, 128, "float32", True, 0)]
+                (2, 16, 16, 300, 300, 192, 128, "float32", True, 0),
+                (8, 32, 32, 1024, 1024, 112, 112, "bfloat16", True, 0),
+                (8, 12, 12, 1500, 1500, 64, 64, "bfloat16", False, 0),
+                (8, 12, 12, 1, 1500, 64, 64, "bfloat16", False, 0)]
 MLA_SHAPE = FLASH_SHAPES[5]
 # the reference's tolerances (tests/test_flash_attn_kernel.py:21)
 FLASH_ATOL = {"bfloat16": 2e-2, "float32": 2e-5}
@@ -242,6 +249,11 @@ MLA_MOE_C_ROWS = 1
 MLA_MOE_TRACE_GEN = 9     # traced batch: prefill + 8 decode steps
 GQA_MOE_ARCH, GQA_MOE_LAYERS = "qwen3-moe-235b-a22b", 2  # 12.4 GB of 470
 GQA_MOE_GEN = 8
+SSM_ARCH, HYBRID_ARCH, ENCDEC_ARCH = "mamba2-130m", "zamba2-7b", "whisper-small"
+SSM_DECODE_ATOL = 5e-2    # tests/test_serving.py:62-69: these families'
+HYBRID_TRACE_GEN = 9      # traced batch: prefill + 8 decode steps
+ENC_LEN = 1500            # frame embeddings of Whisper's 30-second window
+ENC_PROMPT_LEN = 64       # whisper's decoder prompt
 
 
 def emit(phase: str, t0: float, **fields):
@@ -2788,6 +2800,467 @@ def gqa_moe_cut():
             "a_f32": check}
 
 
+def serving_fields(d, prompts, prompt_len, gen):
+    """The serving metrics of a timed drain (`timed_drain`'s dict)."""
+    return {"prompts": prompts, "prompt_len": prompt_len, "gen_tokens": gen,
+            "slots": LM_SLOTS, "drain_seconds": d["drain_s"],
+            "prefill_tokens_per_s": prompts * prompt_len
+            / sum(d["prefill_s"]),
+            "ttft_seconds": d["prefill_s"],
+            "decode_ms_per_step": 1e3 * sum(d["decode_s"])
+            / len(d["decode_s"]),
+            "decode_steps": len(d["decode_s"]),
+            "generated_tokens_per_s": prompts * gen / d["drain_s"]}
+
+
+def flash_gate(what, recorder, want):
+    """Raises unless the counted run launched flash exactly as ``want``
+    (a `Counter` of recorded call shapes), every launch on `tc_bf16`.
+    Returns (launches, launches by variant)."""
+    from repro_torch.kernels.flash_attn import kernel as KF
+
+    launches, by = KF.LAUNCHES, dict(KF.LAUNCHES_BY)
+    if launches != sum(want.values()) or by["tc_bf16"] != launches \
+            or recorder.calls != want:
+        raise AssertionError(
+            f"{what} launched flash {launches} times ({by}) at "
+            f"{dict(recorder.calls)}: expected {dict(want)}, all tc_bf16")
+    return launches, by
+
+
+def gate_close(what, got, want, atol, rtol, failed):
+    """Appends to ``failed`` unless |got − want| <= atol + rtol·|want|."""
+    import torch
+
+    if not torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol):
+        failed.append(f"{what} beyond atol {atol}, rtol {rtol}")
+
+
+class ScanTimer:
+    """CUDA events around every `ssm.ssd_chunked` call (the SSD scan, by
+    wrapping the name `mamba2_full` calls): the device time from the
+    first kernel of a call to its last, summed. The scan's kernels are
+    the only work between its two events on the stream."""
+
+    def __init__(self):
+        import torch
+
+        from repro_torch.models import ssm as S
+
+        self.S, self._orig, self.events = S, S.ssd_chunked, []
+
+        def timed(*a, _f=self._orig, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = _f(*a, **k)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        S.ssd_chunked = timed
+
+    def ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+    def close(self):
+        self.S.ssd_chunked = self._orig
+
+
+def phase_lm_ssm_encdec():
+    """Slices F4 + F5 on the card, each model at full width and depth in
+    bf16, weights from `torch.Generator(seed=0)`, freed before the next:
+    (1) mamba2-130m and (2) zamba2-7b through `BatchServer(batch_slots=8)`
+    (16 prompts of 1,024 tokens, 32 greedy tokens each; flash launches
+    counted from 0: none for mamba2, 14 shared-block applications × 2
+    prefills at head dim 112 for zamba2) with `ssm_checks`, and zamba2's
+    trace (one batch, prefill and 8 steps; the SSD scan's device span in a
+    prefill by CUDA events; one decode step's launches); (3)
+    whisper-small's 16 clips of 1,500 frame embeddings and 64-token
+    prompts through `api.prefill` and `api.decode_step` (`encdec_model`).
+    Returns the flash drains for `flash_record`."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    free_card()
+    fields, drains = {}, []
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        fields[arch], drain = ssm_model(arch)
+        drains.append(drain)
+        free_card()
+    fields[ENCDEC_ARCH], drain = encdec_model()
+    drains.append(drain)
+    free_card()
+    emit("lm_ssm_encdec", t0, **fields)
+    return drains
+
+
+def ssm_model(arch):
+    """One SSM or hybrid model served and checked (`phase_lm_ssm_encdec`):
+    its fields and its flash drain."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import BatchServer
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(arch)
+    tw = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - tw
+    leaves = list(tensor_leaves(params))
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, size=LM_PROMPT_LEN)
+               for _ in range(LM_PROMPTS)]
+    server = BatchServer(cfg, params, batch_slots=LM_SLOTS, device="cuda")
+    recorder = FlashRecorder()
+    reset_flash_launches()
+    try:
+        d = timed_drain(server, prompts, LM_GEN)
+    finally:
+        recorder.close()
+    peak = torch.cuda.max_memory_allocated()
+    n_attn = len(T._hybrid_groups(cfg)) if cfg.attn_every else 0
+    hd = cfg.resolved_head_dim
+    want = Counter({(LM_SLOTS, cfg.n_heads, cfg.n_kv_heads, LM_PROMPT_LEN,
+                     LM_PROMPT_LEN, hd, hd, "bfloat16", True, 0):
+                    n_attn * (LM_PROMPTS // LM_SLOTS)} if n_attn else {})
+    launches, by = flash_gate(arch, recorder, want)
+    check_answers(arch, d["outs"], LM_GEN, cfg.vocab)
+    batch = torch.from_numpy(np.stack(prompts[:LM_SLOTS])).cuda()
+    gen = torch.from_numpy(np.stack(d["outs"][:LM_SLOTS])).cuda().long()
+    checks = ssm_checks(cfg, params, batch, gen, d["first_logits"])
+    out = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+           "shared_attn_applications": n_attn,
+           "params": sum(t.numel() for t in leaves),
+           "weight_bytes": sum(t.numel() * t.element_size() for t in leaves),
+           "dtype": cfg.dtype, "init_seconds": init_s,
+           **serving_fields(d, LM_PROMPTS, LM_PROMPT_LEN, LM_GEN),
+           "max_memory_allocated": peak, "flash_launches": launches,
+           "flash_launches_by_variant": by,
+           "flash_calls": [[*k, c] for k, c in recorder.calls.items()],
+           "checks": checks}
+    device_us = {}
+    if cfg.attn_every:
+        out["trace"], device_us = hybrid_trace(cfg, params, server, prompts,
+                                               batch)
+    del server, params, leaves, batch, gen, d
+    return out, {"launches": launches, "recorder": recorder,
+                 "device_us": device_us}
+
+
+def ssm_checks(cfg, params, batch, gen, stepped):
+    """Checks of an SSM or hybrid model on its served weights: (a) in a
+    hybrid, prefill's last logits with the flash kernel against the
+    chunked twin, in bf16 at full depth (greedy tokens agree where the
+    margin is clear; relative L2 printed) and in f32 at full depth (the
+    same weights cast beside them; atol 2e-4, rtol 1e-3); (c) the drain's
+    first decode steps against a teacher-forced forward in bf16 (clear
+    tokens), and in f32 8 steps of one prompt replayed along the drain's
+    tokens, at the reference's tolerance for these families (atol 5e-2,
+    `tests/test_serving.py`), its max |Δ| printed."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    checks, failed = {}, []
+    n = len(stepped)
+    stepped = torch.stack(stepped, dim=1)[..., :cfg.vocab]
+    forced = forced_logits(params, cfg, batch, gen, n)
+    cdiff = (stepped.float() - forced.float()).abs().max().item()
+    c_clear, c_ok, c_agree = clear_tokens_agree(stepped, forced, cdiff)
+    checks["c_bf16"] = {"steps": n, "rel_l2": rel_l2(stepped, forced),
+                        "max_abs_diff": cdiff, "tokens_clear": c_clear,
+                        "tokens_clear_agree": c_ok, "tokens_agree": c_agree}
+    if c_ok != c_clear:
+        failed.append("c_bf16: a clear greedy token differs")
+    if cfg.attn_every:
+        flash = last_logits(params, cfg, batch, "pallas_flash")
+        chunked = last_logits(params, cfg, batch, "xla_chunked")
+        diff = (flash.float() - chunked.float()).abs().max().item()
+        clear, clear_ok, agree = clear_tokens_agree(flash, chunked, diff)
+        checks["a_bf16"] = {"rel_l2": rel_l2(flash, chunked),
+                            "max_abs_diff": diff, "tokens_clear": clear,
+                            "tokens_clear_agree": clear_ok,
+                            "tokens_agree": agree}
+        if clear_ok != clear:
+            failed.append("a_bf16: a clear greedy token differs")
+        del flash, chunked
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = f32_tree(params)
+    if cfg.attn_every:
+        flash32 = last_logits(p32, cfg32, batch, "pallas_flash")
+        chunked32 = last_logits(p32, cfg32, batch, "xla_chunked")
+        checks["a_f32"] = {"layers": cfg.n_layers,
+                           "rel_l2": rel_l2(flash32, chunked32),
+                           "max_abs_diff": (flash32 - chunked32).abs().max()
+                           .item()}
+        gate_close("a_f32", flash32, chunked32, LM_F32_ATOL, LM_F32_RTOL,
+                   failed)
+    rows, steps = 1, LM_DECODE_CHECK
+    logits, cache = T.prefill(p32, cfg32, batch[:rows],
+                              cache_len=batch.shape[1] + steps)
+    steps32 = [logits[:, -1]]
+    for g in range(steps - 1):
+        logits, cache = T.decode_step(p32, cfg32, cache, gen[:rows, g:g + 1],
+                                      batch.shape[1] + g)
+        steps32.append(logits[:, -1])
+    steps32 = torch.stack(steps32, dim=1)[..., :cfg.vocab]
+    forced32 = forced_logits(p32, cfg32, batch[:rows], gen[:rows], steps)
+    checks["c_f32"] = {"steps": steps, "rows": rows,
+                       "rel_l2": rel_l2(steps32, forced32),
+                       "max_abs_diff": (steps32 - forced32).abs().max()
+                       .item(), "atol": SSM_DECODE_ATOL}
+    gate_close("c_f32", steps32, forced32, SSM_DECODE_ATOL, 0.0, failed)
+    del p32, cache
+    if failed:
+        raise AssertionError(f"{cfg.name} checks failed: {failed}; {checks}")
+    return checks
+
+
+def hybrid_trace(cfg, params, server, prompts, batch):
+    """One batch (prefill and 8 decode steps) under the profiler: the
+    device's busy share and its top ops; the SSD scan's device span in
+    one prefill (CUDA events, `ScanTimer`) beside that prefill's wall;
+    one decode step traced alone for its launches."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    tw = time.perf_counter()
+    wall, by_name = traced(lambda: server.run(prompts[:LM_SLOTS],
+                                              gen_tokens=HYBRID_TRACE_GEN),
+                           warmup=True)
+    emit_trace(tw, "lm-hybrid", wall, by_name, top=16)
+    timer = ScanTimer()
+    try:
+        tw = time.perf_counter()
+        _, cache = T.prefill(params, cfg, batch,
+                             cache_len=batch.shape[1] + 1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - tw
+        scan_ms = timer.ms()
+    finally:
+        timer.close()
+    tok = batch[:, -1:]
+    step_wall, step_by = traced(lambda: T.decode_step(
+        params, cfg, cache, tok, batch.shape[1]), warmup=True)
+    busy_us = sum(v["device_us"] for v in by_name.values())
+    step_busy_us = sum(v["device_us"] for v in step_by.values())
+    fields = {"wall_seconds": wall, "device_busy_share": busy_us * 1e-6
+              / wall, "prefill_seconds": prefill_s, "ssd_scan_ms": scan_ms,
+              "ssd_scan_share_of_prefill": scan_ms * 1e-3 / prefill_s,
+              "ssd_scan_calls": len(timer.events),
+              "decode_step_seconds": step_wall,
+              "decode_step_launches": sum(v["count"]
+                                          for v in step_by.values()),
+              "decode_step_device_busy_share": step_busy_us * 1e-6
+              / step_wall}
+    return fields, by_name
+
+
+def encdec_drain(params, cfg, frames, prompts, gen, keep=LM_DECODE_CHECK):
+    """whisper's serving loop, `BatchServer.run`'s shape with frames:
+    each batch of `LM_SLOTS` clips one `api.prefill` (cache of prompt +
+    ``gen`` slots) and ``gen − 1`` greedy `api.decode_step`s, each ending
+    in a synchronize. Returns `timed_drain`'s dict."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import mask_pad_logits
+    from repro_torch.models.api import get_api
+
+    api = get_api(cfg)
+    prefill_s, decode_s, first_logits, outs = [], [], [], []
+    tw = time.perf_counter()
+    for c0 in range(0, len(prompts), LM_SLOTS):
+        toks = torch.from_numpy(np.stack(prompts[c0:c0 + LM_SLOTS])).cuda()
+        plen = toks.shape[1]
+        ts = time.perf_counter()
+        logits, cache = api.prefill(
+            params, cfg, {"frames": frames[c0:c0 + LM_SLOTS],
+                          "tokens": toks}, cache_len=plen + gen)
+        cur = torch.argmax(mask_pad_logits(cfg, logits[:, -1]),
+                           dim=-1)[:, None]
+        cur.cpu()
+        prefill_s.append(time.perf_counter() - ts)
+        if c0 == 0:
+            first_logits.append(logits[:, -1].clone())
+        seq = [cur]
+        for g in range(gen - 1):
+            ts = time.perf_counter()
+            logits, cache = api.decode_step(params, cfg, cache, cur, plen + g)
+            cur = torch.argmax(mask_pad_logits(cfg, logits[:, -1]),
+                               dim=-1)[:, None]
+            cur.cpu()
+            decode_s.append(time.perf_counter() - ts)
+            if c0 == 0 and len(first_logits) < keep:
+                first_logits.append(logits[:, -1].clone())
+            seq.append(cur)
+        outs += list(torch.cat(seq, dim=1).to(torch.int32).cpu().numpy())
+    torch.cuda.synchronize()
+    return {"outs": outs, "prefill_s": prefill_s, "decode_s": decode_s,
+            "first_logits": first_logits,
+            "drain_s": time.perf_counter() - tw}
+
+
+def encdec_model():
+    """whisper-small served (`encdec_drain`: 16 clips of 1,500 frame
+    embeddings drawn N(0, 1) from the seeded generator, 64-token prompts,
+    32 greedy tokens, batches of 8), its flash launches gated by call
+    shape, and `encdec_checks`. Returns its fields and its flash drain."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import encdec as E
+
+    cfg = get_config(ENCDEC_ARCH)
+    tw = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = E.init_params(cfg, gen, device="cuda")
+    frames = torch.randn((LM_PROMPTS, ENC_LEN, cfg.d_model), generator=gen,
+                         device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - tw
+    leaves = list(tensor_leaves(params))
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, size=ENC_PROMPT_LEN)
+               for _ in range(LM_PROMPTS)]
+    torch.cuda.reset_peak_memory_stats()
+    recorder = FlashRecorder()
+    reset_flash_launches()
+    try:
+        d = encdec_drain(params, cfg, frames, prompts, LM_GEN)
+    finally:
+        recorder.close()
+    peak = torch.cuda.max_memory_allocated()
+    h, hd, L = cfg.n_heads, cfg.resolved_head_dim, cfg.n_layers
+    batches = LM_PROMPTS // LM_SLOTS
+
+    def call(sq, sk, causal, hkv=cfg.n_kv_heads):  # cross: n_heads wide
+        return (LM_SLOTS, h, hkv, sq, sk, hd, hd, "bfloat16", causal, 0)
+
+    want = Counter({call(ENC_LEN, ENC_LEN, False):
+                    cfg.encoder_layers * batches,
+                    call(ENC_PROMPT_LEN, ENC_PROMPT_LEN, True): L * batches,
+                    call(ENC_PROMPT_LEN, ENC_LEN, False, h): L * batches,
+                    call(1, ENC_LEN, False, h): L * (LM_GEN - 1) * batches})
+    launches, by = flash_gate(ENCDEC_ARCH, recorder, want)
+    check_answers(ENCDEC_ARCH, d["outs"], LM_GEN, cfg.vocab)
+    batch = torch.from_numpy(np.stack(prompts[:LM_SLOTS])).cuda()
+    gen_toks = torch.from_numpy(np.stack(d["outs"][:LM_SLOTS])).cuda().long()
+    checks = encdec_checks(cfg, params, frames[:LM_SLOTS], batch, gen_toks,
+                           d["first_logits"])
+    out = {"layers": L, "encoder_layers": cfg.encoder_layers,
+           "d_model": cfg.d_model, "params": sum(t.numel() for t in leaves),
+           "weight_bytes": sum(t.numel() * t.element_size() for t in leaves),
+           "dtype": cfg.dtype, "init_seconds": init_s,
+           "enc_len": ENC_LEN, "frames_per_s": LM_PROMPTS * ENC_LEN
+           / sum(d["prefill_s"]),
+           **serving_fields(d, LM_PROMPTS, ENC_PROMPT_LEN, LM_GEN),
+           "max_memory_allocated": peak, "flash_launches": launches,
+           "flash_launches_by_variant": by,
+           "flash_calls": [[*k, c] for k, c in recorder.calls.items()],
+           "checks": checks}
+    del params, leaves, frames, batch, gen_toks, d
+    return out, {"launches": launches, "recorder": recorder,
+                 "device_us": {}}
+
+
+def encdec_checks(cfg, params, frames, batch, gen, stepped):
+    """whisper's checks on its served weights: (a) the encoder's output
+    and prefill's last logits with the flash kernel against the chunked
+    twin, in bf16 (relative L2 printed; clear greedy tokens agree) and in
+    f32 at full depth (the same weights cast; atol 2e-4, rtol 1e-3); (c)
+    8 decode steps replayed along the drain's tokens in f32 against a
+    teacher-forced `encdec.forward` (atol 2e-4, rtol 1e-3), and the
+    drain's own bf16 steps against it (clear tokens)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import encdec as E
+    from repro_torch.models import transformer as T
+
+    def run(p, c, impl):
+        c = dataclasses.replace(c, attn_impl=impl)
+        enc = E.encode(p, c, frames)
+        return enc, E.prefill(p, c, frames, batch)[0][:, -1, :c.vocab]
+
+    def forced(p, c, n):
+        seq = torch.cat([batch, gen[:, :n - 1]], dim=1)
+        hidden = E.forward(p, c, frames, seq, return_hidden=True)[0]
+        return T._logits(p, c, hidden[:, batch.shape[1] - 1:])[..., :c.vocab]
+
+    checks, failed = {}, []
+    enc_f, flash = run(params, cfg, "pallas_flash")
+    enc_c, chunked = run(params, cfg, "xla_chunked")
+    diff = (flash.float() - chunked.float()).abs().max().item()
+    clear, clear_ok, agree = clear_tokens_agree(flash, chunked, diff)
+    checks["a_bf16"] = {"encoder_rel_l2": rel_l2(enc_f, enc_c),
+                        "rel_l2": rel_l2(flash, chunked),
+                        "max_abs_diff": diff, "tokens_clear": clear,
+                        "tokens_clear_agree": clear_ok, "tokens_agree": agree}
+    if clear_ok != clear:
+        failed.append("a_bf16: a clear greedy token differs")
+    n = len(stepped)
+    stepped = torch.stack(stepped, dim=1)[..., :cfg.vocab]
+    want = forced(params, cfg, n)
+    cdiff = (stepped.float() - want.float()).abs().max().item()
+    c_clear, c_ok, c_agree = clear_tokens_agree(stepped, want, cdiff)
+    checks["c_bf16"] = {"steps": n, "rel_l2": rel_l2(stepped, want),
+                        "max_abs_diff": cdiff, "tokens_clear": c_clear,
+                        "tokens_clear_agree": c_ok, "tokens_agree": c_agree}
+    if c_ok != c_clear:
+        failed.append("c_bf16: a clear greedy token differs")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = f32_tree(params)
+    enc32_f, flash32 = run(p32, cfg32, "pallas_flash")
+    enc32_c, chunked32 = run(p32, cfg32, "xla_chunked")
+    checks["a_f32"] = {"encoder_max_abs_diff": (enc32_f - enc32_c).abs()
+                       .max().item(),
+                       "rel_l2": rel_l2(flash32, chunked32),
+                       "max_abs_diff": (flash32 - chunked32).abs().max()
+                       .item()}
+    gate_close("a_f32 encoder", enc32_f, enc32_c, LM_F32_ATOL, LM_F32_RTOL,
+               failed)
+    gate_close("a_f32 logits", flash32, chunked32, LM_F32_ATOL, LM_F32_RTOL,
+               failed)
+    logits, cache = E.prefill(p32, cfg32, frames, batch,
+                              cache_len=batch.shape[1] + n)
+    steps32 = [logits[:, -1]]
+    for g in range(n - 1):
+        logits, cache = E.decode_step(p32, cfg32, cache, gen[:, g:g + 1],
+                                      batch.shape[1] + g)
+        steps32.append(logits[:, -1])
+    steps32 = torch.stack(steps32, dim=1)[..., :cfg.vocab]
+    forced32 = forced(p32, cfg32, n)
+    checks["c_f32"] = {"steps": n, "rel_l2": rel_l2(steps32, forced32),
+                       "max_abs_diff": (steps32 - forced32).abs().max()
+                       .item()}
+    gate_close("c_f32", steps32, forced32, LM_F32_ATOL, LM_F32_RTOL, failed)
+    del p32, cache
+    if failed:
+        raise AssertionError(f"{cfg.name} checks failed: {failed}; {checks}")
+    return checks
+
+
 @contextlib.contextmanager
 def plain_attention():
     """Within: `flash_attn.ops` calls the kernel's plain version (f32
@@ -3217,13 +3690,14 @@ def main() -> int:
     del lm["server"]  # qwen2.5-3b's 6.8 GB leave the card before deepseek's
     free_card()
     mla_moe = phase_lm_mla_moe()
+    ssm_encdec = phase_lm_ssm_encdec()
     t0 = time.perf_counter()
     record = kernel_record(recorder, launches, res_recorder, res_launches,
                            rng, device_us, rates)
     record += serving_kernel_record(serve_calls + rmat_calls,
                                     serve_launches + rmat_launches, shingles,
                                     device_us, rates)
-    record += flash_record([lm, mla_moe])
+    record += flash_record([lm, mla_moe, *ssm_encdec])
     emit("record", t0, total_seconds=time.perf_counter() - t_all)
     print(smi, flush=True)
     print(json.dumps({"kernels": record}), flush=True)

@@ -50,11 +50,14 @@ def _tensor(a, device) -> torch.Tensor:
 def params_from_arrays(cfg, tree, device=None) -> dict:
     """The port's LM parameters from the nested dict of arrays that the
     reference's ``init_params`` gives (``np.asarray`` of each leaf, layers
-    stacked on a leading L axis): same tree, same shapes, same values, on
-    ``device`` (``None``: the CUDA card, which must exist). Raises when
-    the tree does not have the shapes ``cfg`` implies."""
+    stacked on a leading L axis), for every ported family (the
+    encoder-decoder's tree too): same tree, same shapes, same values and
+    dtypes (an SSM's ``A_log``, ``D`` and ``dt_bias`` stay float32 in a
+    bf16 model, as the MoE router does), on ``device`` (``None``: the
+    CUDA card, which must exist). Raises when the tree does not have the
+    shapes ``cfg`` implies."""
     from repro_torch.core.engine import resolve_device
-    from repro_torch.models.transformer import param_shapes
+    from repro_torch.models.api import param_shapes
 
     dev = resolve_device(device)
     shapes = param_shapes(cfg)

@@ -5,11 +5,14 @@ decode, and the request-slot helpers shared with the summary-query server
     python -m repro_torch.launch.serve --arch qwen2.5-3b [--smoke] [--device cpu]
 
 runs on the CUDA card unless ``--device cpu`` is given; ``--arch`` takes
-the dense and the MoE configurations (``qwen3-moe-235b-a22b``, and
-``deepseek-v2-lite-16b`` with MLA, which fits one H100 whole in bf16).
-Prefill attends through the CUDA flash kernel (``attn_impl="pallas_flash"``,
-the port's default; MLA's at q/k width 192 and v width 128), decode
-through the plain `_sdpa` (MLA's over its expanded latent cache).
+the decoder-only configurations: dense, MoE (``qwen3-moe-235b-a22b``, and
+``deepseek-v2-lite-16b`` with MLA, which fits one H100 whole in bf16),
+SSM (``mamba2-130m``) and hybrid (``zamba2-7b``). Prefill attends through
+the CUDA flash kernel (``attn_impl="pallas_flash"``, the port's default;
+MLA's at q/k width 192 and v width 128; zamba2's shared block at head dim
+112), decode through the plain `_sdpa`. The server passes tokens only, as
+the reference's does: an encoder-decoder (``whisper-small``) is driven
+through ``get_api(cfg).prefill`` and ``decode_step`` with its frames.
 """
 from __future__ import annotations
 

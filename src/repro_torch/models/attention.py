@@ -1,15 +1,16 @@
 """Attention variants, as in the JAX package's `models/attention.py`:
-grouped-query attention (optionally sliding-window, optionally biased) and
-MLA (DeepSeek-V2's latent attention), each with a full-sequence path
-(prefill) and a single-token decode path over a cache.
+grouped-query attention (optionally sliding-window, optionally biased),
+MLA (DeepSeek-V2's latent attention) and cross-attention, each with a
+full-sequence path (prefill) and a single-token decode path over a cache.
 
 The prefill attends through `_attn_dispatch`: the hand-written CUDA flash
 kernel (`kernels/flash_attn`, ``attn_impl="pallas_flash"``, the default)
 or the plain PyTorch `chunked_sdpa` twin (``"xla_chunked"``). MLA's
-prefill is the kernel at q/k width 192 and v width 128. Decode attends
-with the plain `_sdpa` (MLA's absorbed decode in the latent space), as
-the reference does. Cross-attention is not ported yet (ROADMAP Queue 1,
-slice F5).
+prefill is the kernel at q/k width 192 and v width 128. Self-attention
+decodes with the plain `_sdpa` (MLA's absorbed decode in the latent
+space), as the reference does; cross-attention attends through
+`_attn_dispatch` in decode too, non-causal, one query row over the
+encoder's keys.
 """
 from __future__ import annotations
 
@@ -112,6 +113,17 @@ def _attn_dispatch(cfg, q, k, v, *, causal, window):
         return chunked_sdpa(q, k, v, causal=causal, window=window)
     raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}; use "
                      f"'pallas_flash' or 'xla_chunked'")
+
+
+def gqa_param_shapes(cfg: ModelConfig, lead: tuple = ()) -> dict:
+    """``init_gqa``'s tree, each shape behind ``lead`` (the layer axis)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    hq, hkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    p = {"wq": (*lead, d, hq), "wk": (*lead, d, hkv), "wv": (*lead, d, hkv),
+         "wo": (*lead, hq, d)}
+    if cfg.qkv_bias:
+        p.update(bq=(*lead, hq), bk=(*lead, hkv), bv=(*lead, hkv))
+    return p
 
 
 def _project_qkv(p, cfg, x):
@@ -282,3 +294,30 @@ def mla_decode_absorbed(p, cfg: ModelConfig, x, cache, pos: int):
     ctx = torch.einsum("bhqs,bsr->bqhr", w, cache["ckv"])   # latent context
     out_h = torch.einsum("bqhr,rhv->bqhv", ctx, wv)       # expand once a step
     return out_h.reshape(b, 1, -1) @ p["wo"], cache
+
+
+# ------------------------------------------------------------- cross-attn
+def cross_param_shapes(cfg: ModelConfig, lead: tuple = ()) -> dict:
+    """``init_cross``'s tree: n_heads wide on both sides (no GQA)."""
+    d, hh = cfg.d_model, cfg.n_heads * cfg.resolved_head_dim
+    return {"wq": (*lead, d, hh), "wk": (*lead, d, hh), "wv": (*lead, d, hh),
+            "wo": (*lead, hh, d)}
+
+
+def cross_full(p, cfg: ModelConfig, x, enc_kv):
+    """x: (b,sq,d); enc_kv: precomputed {"k","v"} (b,se,h,hd). Attends
+    non-causal through `_attn_dispatch`, in prefill and in decode (sq 1)."""
+    b, sq, _ = x.shape
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(b, sq, h, 1, hd)
+    out = _attn_dispatch(cfg, q, enc_kv["k"], enc_kv["v"], causal=False,
+                         window=0).reshape(b, sq, h * hd)
+    return out @ p["wo"]
+
+
+def cross_precompute(p, cfg: ModelConfig, enc_out):
+    """The encoder output's keys and values, (b,se,h,hd) each."""
+    b, se, _ = enc_out.shape
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    return {"k": (enc_out @ p["wk"]).reshape(b, se, h, hd),
+            "v": (enc_out @ p["wv"]).reshape(b, se, h, hd)}

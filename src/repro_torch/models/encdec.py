@@ -1,0 +1,164 @@
+"""Encoder-decoder LM (Whisper-small backbone), as in the JAX package's
+`models/encdec.py`. The audio frontend is a stub: the encoder reads
+precomputed frame embeddings (b, s_enc, d) through one learned linear
+projection. Blocks are RMSNorm, SwiGLU and GQA; the encoder attends
+non-causal and without RoPE, the decoder causal with RoPE, then across to
+the encoder's keys (`attention.cross_full`).
+
+Parameters are the reference's tree with the layers stacked on a leading
+axis (``enc_layers`` on ``encoder_layers``, ``layers`` on ``n_layers``),
+so `interop.params_from_arrays` carries its weights as they are.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.engine import resolve_device
+from repro_torch.models import attention as A
+from repro_torch.models import transformer as T
+from repro_torch.models.layers import rms_norm, swiglu
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """``init_params``'s tree: ``init_enc_layer`` stacked on the encoder
+    layers, ``init_dec_layer`` (its ``xattn`` ``init_cross``'s) on the
+    decoder layers."""
+    T.check_supported(cfg)
+    d, E, L, V = cfg.d_model, cfg.encoder_layers, cfg.n_layers, \
+        cfg.padded_vocab
+    enc = {"ln1": (E, d), "attn": A.gqa_param_shapes(cfg, (E,)),
+           "ln2": (E, d), "ffn": T.ffn_shapes(cfg, (E,))}
+    dec = {"ln1": (L, d), "attn": A.gqa_param_shapes(cfg, (L,)),
+           "lnx": (L, d), "xattn": A.cross_param_shapes(cfg, (L,)),
+           "ln2": (L, d), "ffn": T.ffn_shapes(cfg, (L,))}
+    return {"frontend": (d, d), "embed": (V, d), "enc_layers": enc,
+            "enc_norm": (d,), "layers": dec, "final_norm": (d,),
+            "lm_head": (d, V)}
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device=None):
+    """Random weights in the tree of `param_shapes`, with the reference's
+    distributions (`transformer.build_params`)."""
+    return T.build_params(param_shapes(cfg), cfg, generator, device)
+
+
+def _ffn(lp, cfg, x):
+    f = lp["ffn"]
+    return swiglu(rms_norm(x, lp["ln2"], cfg.norm_eps), f["w_gate"],
+                  f["w_up"], f["w_down"])
+
+
+def encode(params, cfg: ModelConfig, frames):
+    """frames (b, s, d) -> the encoder's normed output (b, s, d)."""
+    x = frames.to(params["frontend"].dtype) @ params["frontend"]
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    for i in range(cfg.encoder_layers):
+        lp = T.layer(params["enc_layers"], i)
+        h, _ = A.gqa_full(lp["attn"], cfg,
+                          rms_norm(x, lp["ln1"], cfg.norm_eps), positions,
+                          causal=False)
+        x = x + h
+        x = x + _ffn(lp, cfg, x)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _decoder(params, cfg, tokens, enc, keep: bool):
+    """The decoder over ``tokens`` against ``enc``: (hidden, self K/V and
+    cross K/V of every layer when ``keep``)."""
+    x = params["embed"][tokens]
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    kept = {"k": [], "v": [], "ck": [], "cv": []}
+    for i in range(cfg.n_layers):
+        lp = T.layer(params["layers"], i)
+        h, kv = A.gqa_full(lp["attn"], cfg,
+                           rms_norm(x, lp["ln1"], cfg.norm_eps), positions)
+        x = x + h
+        ekv = A.cross_precompute(lp["xattn"], cfg, enc)
+        x = x + A.cross_full(lp["xattn"], cfg,
+                             rms_norm(x, lp["lnx"], cfg.norm_eps), ekv)
+        x = x + _ffn(lp, cfg, x)
+        if keep:
+            for name, t in (("k", kv["k"]), ("v", kv["v"]),
+                            ("ck", ekv["k"]), ("cv", ekv["v"])):
+                kept[name].append(t)
+    return x, kept
+
+
+def forward(params, cfg: ModelConfig, frames, tokens, return_caches=False,
+            return_hidden=False, enc=None):
+    """Encode ``frames`` (unless ``enc`` is given), then the decoder over
+    ``tokens``. Returns (logits|hidden, 0.0, caches|None), caches
+    ``{"attn": {"k", "v"}}`` of the decoder's self-attention, each
+    ``(L, b, s, hkv, hd)``."""
+    T.check_supported(cfg)
+    if enc is None:
+        enc = encode(params, cfg, frames)
+    x, kept = _decoder(params, cfg, tokens, enc, return_caches)
+    caches = ({"attn": {"k": torch.stack(kept["k"]),
+                        "v": torch.stack(kept["v"])}}
+              if return_caches else None)
+    if return_hidden:
+        return x, 0.0, caches
+    return T._logits(params, cfg, x), 0.0, caches
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, enc_len: int,
+               dtype=None, device=None):
+    """Zeroed cache: the decoder's self-attention ``{"attn": {"k", "v"}}``
+    of ``(L, batch, cache_len, hkv, hd)`` and the encoder's cross K/V
+    ``{"cross": {"k", "v"}}`` of ``(L, batch, enc_len, h, hd)``, n_heads
+    wide."""
+    T.check_supported(cfg)
+    dtype = dtype or T.DTYPES[cfg.dtype]
+    dev = resolve_device(device)
+    L, hd = cfg.n_layers, cfg.resolved_head_dim
+    self_shape = (L, batch, cache_len, cfg.n_kv_heads, hd)
+    cross_shape = (L, batch, enc_len, cfg.n_heads, hd)
+    return {name: {kv: torch.zeros(shape, dtype=dtype, device=dev)
+                   for kv in ("k", "v")}
+            for name, shape in (("attn", self_shape), ("cross", cross_shape))}
+
+
+def prefill(params, cfg: ModelConfig, frames, tokens, cache_len=None):
+    """Encode once, then the teacher-forced decoder pass; builds the decode
+    caches (self K/V fitted to ``cache_len`` slots, cross K/V whole). The
+    cross K/V are computed once and kept, where the reference computes
+    them a second time (the same values). Logits for the last position
+    only, (b, 1, V)."""
+    T.check_supported(cfg)
+    enc = encode(params, cfg, frames)
+    x, kept = _decoder(params, cfg, tokens, enc, True)
+    logits = T._logits(params, cfg, x[:, -1:])
+    b, s = tokens.shape
+    out = init_cache(cfg, b, cache_len or s, enc.shape[1], device=x.device)
+    for name, src in (("k", "k"), ("v", "v")):
+        T.fit(out["attn"][name], torch.stack(kept[src]))
+    for name, src in (("k", "ck"), ("v", "cv")):
+        out["cross"][name].copy_(torch.stack(kept[src]))
+    return logits, out
+
+
+def decode_step(params, cfg: ModelConfig, cache, token, pos):
+    """token: (b, 1) ints; pos: its absolute position. Updates the self
+    K/V cache IN PLACE (ring slot ``pos % S``) and attends across to the
+    cached cross K/V; returns ``(logits (b, 1, V), cache)``."""
+    T.check_supported(cfg)
+    x = params["embed"][token]
+    for i in range(cfg.n_layers):
+        lp = T.layer(params["layers"], i)
+        h, _ = A.gqa_decode(lp["attn"], cfg,
+                            rms_norm(x, lp["ln1"], cfg.norm_eps),
+                            T.layer(cache["attn"], i), pos)
+        x = x + h
+        x = x + A.cross_full(lp["xattn"], cfg,
+                             rms_norm(x, lp["lnx"], cfg.norm_eps),
+                             T.layer(cache["cross"], i))
+        x = x + _ffn(lp, cfg, x)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x @ params["lm_head"], cache

@@ -1,5 +1,6 @@
-"""Decoder-only LM, the dense and MoE families with GQA or MLA attention
-(the JAX package's `models/transformer.py`, forward and serving only).
+"""Decoder-only LM: the dense, MoE, SSM and hybrid families, with GQA or
+MLA attention (the JAX package's `models/transformer.py`, forward and
+serving only).
 
 Parameters are a plain dict of tensors in the reference's tree and
 layout: weights ``(d_in, d_out)`` so ``x @ w`` mirrors its einsums, and the
@@ -9,8 +10,12 @@ reference's weights over as they are. ``lax.scan`` over the layers becomes
 a Python loop over views of that stack. ``sharding.constrain`` is the
 identity on one device and is left out.
 
-The SSM and hybrid families and the encoder-decoder and VLM configs
-raise `NotImplementedError` naming the slice that ports them.
+The SSM family stacks Mamba2 blocks (``layers = {"ln", "mamba"}``); a
+hybrid (``attn_every``, Zamba2-style) follows each group of
+``attn_every`` of them with ONE shared attention block, ``shared_attn``,
+unstacked: the same tensors at every application. The encoder-decoder
+lives in `models/encdec.py`; the VLM configs raise `NotImplementedError`
+naming the slice that ports them.
 """
 from __future__ import annotations
 
@@ -22,70 +27,81 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import init_linear, rms_norm, swiglu
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def check_supported(cfg: ModelConfig):
-    """Raise `NotImplementedError` unless ``cfg`` is a decoder-only model
-    of the dense or MoE family, with GQA or MLA attention."""
-    if cfg.family in ("ssm", "hybrid") or cfg.ssm is not None \
-            or cfg.attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: the SSM and hybrid families are not ported yet "
-            f"(slice F4)")
-    if cfg.encoder_layers or cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet "
-            f"(slice F5)")
+    """Raise `NotImplementedError` unless ``cfg``'s family is ported:
+    dense, MoE (GQA or MLA), SSM, hybrid or encoder-decoder."""
     if cfg.n_patches or cfg.family == "vlm":
         raise NotImplementedError(
             f"{cfg.name}: vision-language models are not ported yet "
             f"(slice F6)")
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "encdec"):
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is "
                                   f"not ported")
 
 
+def is_ssm(cfg: ModelConfig) -> bool:
+    """Mamba2 layers: the SSM family or a hybrid."""
+    return cfg.family == "ssm" or bool(cfg.attn_every)
+
+
 # ----------------------------------------------------------------- init
+def ffn_shapes(cfg: ModelConfig, lead: tuple = ()) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {"w_gate": (*lead, d, f), "w_up": (*lead, d, f),
+            "w_down": (*lead, f, d)}
+
+
+def attn_block_shapes(cfg: ModelConfig, lead: tuple = ()) -> dict:
+    """``init_attn_block``'s tree: ``attn`` is GQA's or MLA's, and ``moe``
+    takes the place of ``ffn`` in the MoE family."""
+    d = cfg.d_model
+    attn = (A.mla_param_shapes(cfg, lead) if cfg.mla is not None
+            else A.gqa_param_shapes(cfg, lead))
+    p = {"ln1": (*lead, d), "ln2": (*lead, d), "attn": attn}
+    if cfg.moe is not None:
+        p["moe"] = MOE.param_shapes(cfg, lead)
+    else:
+        p["ffn"] = ffn_shapes(cfg, lead)
+    return p
+
+
 def param_shapes(cfg: ModelConfig) -> dict:
     """The parameter tree's shapes (the reference's tree, layers stacked
-    on a leading L axis): ``attn`` is GQA's or MLA's, and ``moe`` takes
-    the place of ``ffn`` in the MoE family."""
+    on a leading L axis): attention blocks, or Mamba2 blocks and, in a
+    hybrid, the one unstacked ``shared_attn`` block."""
     check_supported(cfg)
-    L, d, hd = cfg.n_layers, cfg.d_model, cfg.resolved_head_dim
-    hq, hkv, V = cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.padded_vocab
-    if cfg.mla is not None:
-        attn = A.mla_param_shapes(cfg, (L,))
+    L, d, V = cfg.n_layers, cfg.d_model, cfg.padded_vocab
+    p = {"embed": (V, d), "final_norm": (d,)}
+    if is_ssm(cfg):
+        p["layers"] = {"ln": (L, d), "mamba": SSM.param_shapes(cfg, (L,))}
+        if cfg.attn_every:
+            p["shared_attn"] = attn_block_shapes(cfg)
     else:
-        attn = {"wq": (L, d, hq), "wk": (L, d, hkv), "wv": (L, d, hkv),
-                "wo": (L, hq, d)}
-        if cfg.qkv_bias:
-            attn.update(bq=(L, hq), bk=(L, hkv), bv=(L, hkv))
-    layers = {"ln1": (L, d), "ln2": (L, d), "attn": attn}
-    if cfg.moe is not None:
-        layers["moe"] = MOE.param_shapes(cfg, (L,))
-    else:
-        layers["ffn"] = {"w_gate": (L, d, cfg.d_ff), "w_up": (L, d, cfg.d_ff),
-                         "w_down": (L, cfg.d_ff, d)}
-    p = {"embed": (V, d), "final_norm": (d,), "layers": layers}
+        p["layers"] = attn_block_shapes(cfg, (L,))
     if not cfg.tie_embeddings:
         p["lm_head"] = (d, V)
     return p
 
 
-def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device=None):
+ONES = ("ln", "ln1", "ln2", "lnx", "final_norm", "enc_norm", "kv_norm",
+        "norm_w", "D")
+ZEROS = ("bq", "bk", "bv", "conv_b", "A_log", "dt_bias")
+
+
+def build_params(spec: dict, cfg: ModelConfig, generator=None, device=None):
     """Random weights on ``device`` (``None``: the CUDA card, which must
-    exist) in the tree of `param_shapes`, drawn from ``generator``
+    exist) in the tree ``spec`` of shapes, drawn from ``generator``
     (default: seed 0 on that device) with the reference's distributions:
-    embedding N(0, 0.02²), linears and experts N(0, 1/d_in), norms
-    (``kv_norm`` too) 1, biases 0; the MoE router in float32 whatever
-    ``cfg.dtype``. The reference's ``jax.random`` stream is not
-    reproduced; carry its weights with `interop.params_from_arrays` where
-    the same numbers are needed."""
-    spec = param_shapes(cfg)
+    embedding N(0, 0.02²), linears and experts N(0, 1/d_in), a Mamba2
+    conv N(0, 1)·0.1, norms and the skip ``D`` 1, biases, ``A_log`` and
+    ``dt_bias`` 0; the MoE router and ``A_log``, ``D``, ``dt_bias`` in
+    float32 whatever ``cfg.dtype``."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -95,14 +111,17 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     dtype = DTYPES[cfg.dtype]
 
     def draw(name, shape):
-        if name in ("ln1", "ln2", "final_norm", "kv_norm"):
-            return torch.ones(shape, dtype=dtype, device=dev)
-        if name in ("bq", "bk", "bv"):
-            return torch.zeros(shape, dtype=dtype, device=dev)
+        dt = (torch.float32 if name == "router" or name in SSM.F32_PARAMS
+              else dtype)
+        if name in ONES:
+            return torch.ones(shape, dtype=dt, device=dev)
+        if name in ZEROS:
+            return torch.zeros(shape, dtype=dt, device=dev)
         if name == "embed":
             return init_linear(generator, *shape, dtype, scale=0.02)
-        # the MoE router is float32 in every model, as in the reference
-        dt = torch.float32 if name == "router" else dtype
+        if name == "conv_w":  # the reference casts, then scales
+            return torch.randn(shape, generator=generator, device=dev,
+                               dtype=torch.float32).to(dtype) * 0.1
         return init_linear(generator, *shape[-2:], dt, lead=shape[:-2])
 
     def build(spec):
@@ -110,6 +129,15 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 for k, v in spec.items()}
 
     return build(spec)
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device=None):
+    """Random weights in the tree of `param_shapes` (`build_params`). The
+    reference's ``jax.random`` stream is not reproduced; carry its
+    weights with `interop.params_from_arrays` where the same numbers are
+    needed."""
+    return build_params(param_shapes(cfg), cfg, generator, device)
 
 
 def layer(tree, i: int):
@@ -153,6 +181,20 @@ def attn_block_decode(p, cfg: ModelConfig, x, cache, pos):
     return x + f, cache
 
 
+def ssm_block_full(p, cfg: ModelConfig, x, conv_state=None, h0=None):
+    h, cache = SSM.mamba2_full(p["mamba"], cfg,
+                               rms_norm(x, p["ln"], cfg.norm_eps),
+                               conv_state, h0)
+    return x + h, cache
+
+
+def ssm_block_decode(p, cfg: ModelConfig, x, cache):
+    """One token through one Mamba2 block; ``cache`` updated IN PLACE."""
+    h, cache = SSM.mamba2_decode(p["mamba"], cfg,
+                                 rms_norm(x, p["ln"], cfg.norm_eps), cache)
+    return x + h, cache
+
+
 # --------------------------------------------------------------- forward
 def _embed(params, cfg, tokens, embeds):
     x = params["embed"][tokens]
@@ -168,27 +210,63 @@ def _logits(params, cfg, x):
     return x @ params["lm_head"]
 
 
+def _hybrid_groups(cfg):
+    """[(start, len)] Mamba2-layer groups, each followed by the shared
+    block; the last group holds what is left (81 = 13·6 + 3)."""
+    out, i = [], 0
+    while i < cfg.n_layers:
+        out.append((i, min(cfg.attn_every, cfg.n_layers - i)))
+        i += cfg.attn_every
+    return out
+
+
+def _ssm_groups(cfg):
+    """[(start, len, shared block after?)] over the Mamba2 layers: the
+    hybrid's groups, or the SSM family's one group with no attention."""
+    if cfg.attn_every:
+        return [(s, n, True) for s, n in _hybrid_groups(cfg)]
+    return [(0, cfg.n_layers, False)]
+
+
 def forward(params, cfg: ModelConfig, tokens, embeds=None, return_caches=False,
             return_hidden=False):
     """Full-sequence forward. Returns (logits|hidden, aux, caches|None):
     ``aux`` is the MoE load-balancing loss summed over the layers (0.0 in
-    a dense model); caches are ``{"attn": ...}`` stacked on L, GQA's
-    ``{"k", "v"}`` each ``(L, b, s, hkv, hd)``, MLA's ``{"ckv": (L, b, s,
-    r), "krope": (L, b, s, rd)}``."""
+    a dense, SSM or hybrid model). Caches are stacked: ``{"attn": ...}``
+    on L, GQA's ``{"k", "v"}`` each ``(L, b, s, hkv, hd)``, MLA's
+    ``{"ckv": (L, b, s, r), "krope": (L, b, s, rd)}``; an SSM's
+    ``{"mamba": {"state": (L, b, nh, hp, ds), "conv": (L, b, K-1,
+    conv_dim)}}``, and a hybrid's shared-block ``"attn"`` on its
+    ``n_attn`` applications."""
     check_supported(cfg)
     x = _embed(params, cfg, tokens, embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    kept = {}
-    aux = 0.0
-    for i in range(cfg.n_layers):
-        x, cache, a = attn_block_full(layer(params["layers"], i), cfg, x,
-                                      positions)
-        aux = aux + a
+    kept = {"mamba": {}, "attn": {}}
+
+    def keep(kind, cache):
         if return_caches:
             for name, t in cache.items():
-                kept.setdefault(name, []).append(t)
-    caches = ({"attn": {name: torch.stack(ts) for name, ts in kept.items()}}
+                kept[kind].setdefault(name, []).append(t)
+
+    aux = 0.0
+    if is_ssm(cfg):
+        for start, n, shared in _ssm_groups(cfg):
+            for i in range(start, start + n):
+                x, cache = ssm_block_full(layer(params["layers"], i), cfg, x)
+                keep("mamba", cache)
+            if shared:
+                x, cache, _ = attn_block_full(params["shared_attn"], cfg, x,
+                                              positions)
+                keep("attn", cache)
+    else:
+        for i in range(cfg.n_layers):
+            x, cache, a = attn_block_full(layer(params["layers"], i), cfg, x,
+                                          positions)
+            aux = aux + a
+            keep("attn", cache)
+    caches = ({kind: {name: torch.stack(ts) for name, ts in by.items()}
+               for kind, by in kept.items() if by}
               if return_caches else None)
     if return_hidden:
         return x, aux, caches
@@ -201,11 +279,26 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
     """Zeroed cache: GQA's ``{"attn": {"k", "v"}}`` of ``(L, batch, S,
     hkv, hd)``, S = ``cache_len`` or, with a sliding window, at most the
     window; MLA's latent ``{"attn": {"ckv": (L, batch, cache_len, r),
-    "krope": (L, batch, cache_len, rd)}}``."""
+    "krope": (L, batch, cache_len, rd)}}``. An SSM's ``{"mamba":
+    {"state": (L, batch, nh, hp, ds) f32, "conv": (L, batch, K-1,
+    conv_dim)}}``, and in a hybrid GQA's ``"attn"`` over ``n_attn``
+    shared-block applications in place of L."""
     check_supported(cfg)
     dtype = dtype or DTYPES[cfg.dtype]
     dev = resolve_device(device)
     L = cfg.n_layers
+    out = {}
+    if is_ssm(cfg):
+        s = cfg.ssm
+        _, nh, conv_dim, _ = SSM.dims(cfg)
+        out["mamba"] = {
+            "state": torch.zeros((L, batch, nh, s.head_dim, s.d_state),
+                                 dtype=torch.float32, device=dev),
+            "conv": torch.zeros((L, batch, s.conv_kernel - 1, conv_dim),
+                                dtype=dtype, device=dev)}
+        if not cfg.attn_every:
+            return out
+        L = len(_hybrid_groups(cfg))
     if cfg.mla is not None:
         m = cfg.mla
         shapes = {"ckv": (L, batch, cache_len, m.kv_lora_rank),
@@ -215,38 +308,56 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
                else cache_len)
         shape = (L, batch, eff, cfg.n_kv_heads, cfg.resolved_head_dim)
         shapes = {"k": shape, "v": shape}
-    return {"attn": {name: torch.zeros(shape, dtype=dtype, device=dev)
-                     for name, shape in shapes.items()}}
+    out["attn"] = {name: torch.zeros(shape, dtype=dtype, device=dev)
+                   for name, shape in shapes.items()}
+    return out
+
+
+def fit(dst, src):
+    """``src``'s time axis (2) into ``dst``'s S slots: the last S entries
+    of a longer one (ring semantics, the reference's ``fit``), a shorter
+    one into slots 0..T-1."""
+    S, T = dst.shape[2], src.shape[2]
+    if T >= S:
+        dst.copy_(src[:, :, T - S:])
+    else:
+        dst[:, :, :T] = src
 
 
 def prefill(params, cfg: ModelConfig, tokens, embeds=None,
             cache_len: Optional[int] = None):
-    """Forward + cache extraction, padded or clipped to ``cache_len``
-    slots. Logits for the LAST position only, (b, 1, V). A prompt longer
-    than the cache keeps its last S entries in slots 0..S-1, as the
-    reference's ``fit`` does."""
+    """Forward + cache extraction. Logits for the LAST position only, (b,
+    1, V). Attention caches are padded or clipped to ``cache_len`` slots
+    (`fit`); the Mamba2 caches are copied whole."""
     x, _, caches = forward(params, cfg, tokens, embeds=embeds,
                            return_caches=True, return_hidden=True)
     logits = _logits(params, cfg, x[:, -1:])
     b, s_total = tokens.shape[0], x.shape[1]
     out = init_cache(cfg, b, cache_len or s_total, device=x.device)
-    for name, dst in out["attn"].items():
-        src = caches["attn"][name]
-        S, T = dst.shape[2], src.shape[2]
-        if T >= S:  # keep the last S entries (ring semantics)
-            dst.copy_(src[:, :, T - S:])
-        else:
-            dst[:, :, :T] = src
+    for name, dst in out.get("attn", {}).items():
+        fit(dst, caches["attn"][name])
+    for name, dst in out.get("mamba", {}).items():
+        dst.copy_(caches["mamba"][name])
     return logits, out
 
 
 def decode_step(params, cfg: ModelConfig, cache, token, pos):
     """token: (b, 1) ints; pos: absolute position of the token. Updates the
-    cache IN PLACE (each layer's ring slot ``pos % S``) and returns
-    ``(logits (b, 1, V), cache)``."""
+    cache IN PLACE (each attention layer's ring slot ``pos % S``, each
+    Mamba2 layer's state and conv history) and returns ``(logits (b, 1,
+    V), cache)``."""
     check_supported(cfg)
     x = params["embed"][token]
-    for i in range(cfg.n_layers):
-        x, _ = attn_block_decode(layer(params["layers"], i), cfg, x,
-                                 layer(cache["attn"], i), pos)
+    if is_ssm(cfg):
+        for gi, (start, n, shared) in enumerate(_ssm_groups(cfg)):
+            for i in range(start, start + n):
+                x, _ = ssm_block_decode(layer(params["layers"], i), cfg, x,
+                                        layer(cache["mamba"], i))
+            if shared:
+                x, _ = attn_block_decode(params["shared_attn"], cfg, x,
+                                         layer(cache["attn"], gi), pos)
+    else:
+        for i in range(cfg.n_layers):
+            x, _ = attn_block_decode(layer(params["layers"], i), cfg, x,
+                                     layer(cache["attn"], i), pos)
     return _logits(params, cfg, x), cache

@@ -635,6 +635,12 @@ FLASH_CASES = [
     (1, 2, 2, 300, 300, 256, "bfloat16", True, 0),
     (1, 2, 1, 200, 330, 256, "bfloat16", False, 0),
     (1, 4, 2, 100, 40, 64, "bfloat16", True, 16),
+    # zamba2-7b's shared block (head dim 112, padded inside the 128
+    # bucket), whisper-small's decode cross call (one query row over 1,500
+    # frames) and its encoder's call
+    (1, 32, 32, 257, 257, 112, "bfloat16", True, 0),
+    (2, 12, 12, 1, 1500, 64, "bfloat16", False, 0),
+    (1, 12, 12, 1500, 1500, 64, "bfloat16", False, 0),
 ]
 
 
@@ -894,6 +900,101 @@ def test_cuda_lm_serving_matches_cpu():
             prompts, 4)
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,layers", [("mamba2-130m", None),
+                                         ("zamba2-7b", 5)])
+def test_cuda_ssm_and_hybrid_match_cpu(arch, layers):
+    """The SSM and hybrid smoke models (zamba2 at 5 layers: a trailing
+    partial group) on the card, the flash kernel in every shared-block
+    prefill, against the same weights on the CPU in float32: logits, the
+    Mamba2 block's out and caches, prefill and decode steps, served
+    tokens."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import BatchServer
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    on_card = _to(params, "cuda")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(2, 20)))
+    n_attn = len(T._hybrid_groups(cfg)) if cfg.attn_every else 0
+    n = flash_kernel.LAUNCHES
+    got = T.forward(on_card, cfg, toks.cuda())[0]
+    assert flash_kernel.LAUNCHES == n + n_attn
+    want = T.forward(params, cfg, toks)[0]
+    torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=1e-3)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 13, cfg.d_model)).astype(np.float32))
+    block = T.layer(params["layers"], 0)
+    out, cache = T.ssm_block_full(block, cfg, x)
+    out_c, cache_c = T.ssm_block_full(_to(block, "cuda"), cfg, x.cuda())
+    torch.testing.assert_close(out_c.cpu(), out, atol=2e-4, rtol=1e-3)
+    for name in ("state", "conv"):
+        torch.testing.assert_close(cache_c[name].cpu(), cache[name],
+                                   atol=2e-4, rtol=1e-3)
+    la, ca = T.prefill(on_card, cfg, toks[:, :12].cuda(), cache_len=20)
+    lb, cb = T.prefill(params, cfg, toks[:, :12], cache_len=20)
+    torch.testing.assert_close(la.cpu(), lb, atol=2e-4, rtol=1e-3)
+    for pos in range(12, 20):
+        la, ca = T.decode_step(on_card, cfg, ca, toks[:, pos:pos + 1].cuda(),
+                               pos)
+        lb, cb = T.decode_step(params, cfg, cb, toks[:, pos:pos + 1], pos)
+        torch.testing.assert_close(la.cpu(), lb, atol=2e-4, rtol=1e-3)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, size=12) for _ in range(3)]
+    a = BatchServer(cfg, on_card, batch_slots=2).run(prompts, 4)
+    b = BatchServer(cfg, params, batch_slots=2, device="cpu").run(prompts, 4)
+    for x_, y in zip(a, b):
+        np.testing.assert_array_equal(x_, y)
+
+
+@pytest.mark.cuda
+def test_cuda_encdec_prefill_and_decode_match_cpu():
+    """whisper-small's smoke model on the card (flash in the encoder, the
+    decoder's self-attention and its cross-attention, in prefill and at
+    one query row in every decode step) against the same weights on the
+    CPU in float32."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import encdec as E
+
+    cfg = dataclasses.replace(get_config("whisper-small", smoke=True),
+                              dtype="float32")
+    params = E.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    on_card = _to(params, "cuda")
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, 150, cfg.d_model)).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 14)))
+    n = flash_kernel.LAUNCHES
+    la, ca = E.prefill(on_card, cfg, frames.cuda(), toks[:, :9].cuda(),
+                       cache_len=14)
+    assert flash_kernel.LAUNCHES == n + cfg.encoder_layers + 2 * cfg.n_layers
+    lb, cb = E.prefill(params, cfg, frames, toks[:, :9], cache_len=14)
+    torch.testing.assert_close(la.cpu(), lb, atol=2e-4, rtol=1e-3)
+    for name in ("attn", "cross"):
+        for kv in ("k", "v"):
+            torch.testing.assert_close(ca[name][kv].cpu(), cb[name][kv],
+                                       atol=2e-4, rtol=1e-3)
+    for pos in range(9, 14):
+        n = flash_kernel.LAUNCHES
+        la, ca = E.decode_step(on_card, cfg, ca, toks[:, pos:pos + 1].cuda(),
+                               pos)
+        assert flash_kernel.LAUNCHES == n + cfg.n_layers
+        lb, cb = E.decode_step(params, cfg, cb, toks[:, pos:pos + 1], pos)
+        torch.testing.assert_close(la.cpu(), lb, atol=2e-4, rtol=1e-3)
 
 
 def _to(tree, device):

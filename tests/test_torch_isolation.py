@@ -56,6 +56,8 @@ def test_port_files_exist():
                  "src/repro_torch/models/layers.py",
                  "src/repro_torch/models/attention.py",
                  "src/repro_torch/models/moe.py",
+                 "src/repro_torch/models/ssm.py",
+                 "src/repro_torch/models/encdec.py",
                  "src/repro_torch/models/transformer.py",
                  "src/repro_torch/models/api.py",
                  "src/repro_torch/kernels/flash_attn/kernel.py",

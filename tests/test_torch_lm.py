@@ -518,9 +518,7 @@ def test_mask_pad_logits_matches_jax():
 
 
 # ------------------------------------------------- unported and no card
-@pytest.mark.parametrize("arch,match", [
-    ("mamba2-130m", "F4"), ("zamba2-7b", "F4"), ("whisper-small", "F5"),
-    ("internvl2-26b", "F6")])
+@pytest.mark.parametrize("arch,match", [("internvl2-26b", "F6")])
 def test_unported_families_raise(arch, match):
     cfg = port_config(arch, smoke=True)
     for call in (lambda: port_api(cfg),
