@@ -122,6 +122,37 @@ Phases, each printing one JSON line with its seconds:
            traced; then qwen3-moe-235b-a22b at full width cut to 2 of its
            94 layers: 8 prompts × 1,024, 8 greedy tokens, 2 flash
            launches, check (a) in f32 at those 2 layers
+  lm_ssm_encdec  slices F4 + F5: mamba2-130m, zamba2-7b and whisper-small
+           whole (`phase_lm_ssm_encdec`)
+  lm_vlm   slice F6: internvl2-26b at full width and all 48 layers in
+           bf16 (19,860,664,320 parameters by `param_count`), random
+           weights from `torch.Generator(seed=0)`: 16 requests of
+           `make_batch`'s 1,024 patch embeddings and 1,024 text tokens
+           through `api.prefill` and `api.decode_step` (a cache of patches
+           + text + 32 generated slots), batches of 8, 32 greedy tokens;
+           flash launches counted from 0 (exactly 96, all `tc_bf16` at
+           (8, 48, 8, 2048, 2048), D 128); init seconds, prefill tokens/s
+           (patches and text), TTFT, decode ms/step, peak memory; checks
+           (ii) flash vs the chunked twin in bf16 at full depth (clear
+           greedy tokens) and in f32 on the first 4 layers, (iii) patch
+           embeddings that are the table's rows of a token prefix equal
+           that prefix as tokens, in f32 on those layers, (iv) 8 decode
+           steps vs a teacher-forced forward with the same embeddings, in
+           f32 on those layers
+  lm_train slice F7: (a) qwen2.5-3b at full width and all 36 layers
+           trained 6 steps (bf16 parameters, f32 AdamW moments, remat
+           full, 4 × 1,024 tokens a step) through `ResilientLoop`: every
+           loss finite, 0 flash launches; seconds a step, tokens/s, peak
+           memory, the model-FLOPs share; (b) the same width at 2 layers
+           in f32, batch 1 × 128: loss, grad norm and every gradient on the
+           card equal the CPU's (atol 2e-4, rtol 1e-3), and
+           `torch.autograd.gradcheck` in f64 on the card of `rms_norm` and
+           `lowp_matmul_f32`; (c) mamba2-130m whole through
+           `launch.train.main(["--device", "cuda", ...])`, 8 steps with
+           checkpoints every 4, a failure at step 6 on every attempt:
+           restored from step 4, its final state equal bit for bit to an
+           uninterrupted run's (under deterministic algorithms if two
+           uninterrupted runs differ; their gap is printed)
 
 The kernels phase also holds the flash-attention kernel to its plain
 version (f32, TF32 off) within the reference's tolerances at ten fixed
@@ -139,8 +170,8 @@ The line before the last is the per-kernel record; each kernel's launches
 come from its own path's counted run (batched for the intersections and
 the histogram, resident for top-J and the fold, both serve drains for the
 interval count, the shingles phase for the row-min hash and the pairwise
-intersections, the LM drains of qwen2.5-3b, deepseek, zamba2 and whisper
-for flash attention), its times are sums over
+intersections, the LM drains of qwen2.5-3b, deepseek, zamba2, whisper and
+internvl2 for flash attention), its times are sums over
 every call that run made (each call, or each distinct call shape, checked
 against the plain version, timed, and weighted by its call count).
 Every engine run outside the injected ones must report
@@ -254,6 +285,12 @@ SSM_DECODE_ATOL = 5e-2    # tests/test_serving.py:62-69: these families'
 HYBRID_TRACE_GEN = 9      # traced batch: prefill + 8 decode steps
 ENC_LEN = 1500            # frame embeddings of Whisper's 30-second window
 ENC_PROMPT_LEN = 64       # whisper's decoder prompt
+VLM_ARCH = "internvl2-26b"  # 1,024 patch embeddings before each prompt
+VLM_F32_LAYERS = 4        # depth of the f32 checks (an f32 copy's cut)
+VLM_PREFIX_ROWS = 2       # rows of the prefix-identity check
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6  # qwen2.5-3b trained whole
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_SEQ = 2, 128    # card == CPU, f32
+RESUME_STEPS, RESUME_CKPT_EVERY, RESUME_FAIL_AT = 8, 4, 6  # mamba2-130m
 
 
 def emit(phase: str, t0: float, **fields):
@@ -3072,11 +3109,15 @@ def hybrid_trace(cfg, params, server, prompts, batch):
     return fields, by_name
 
 
-def encdec_drain(params, cfg, frames, prompts, gen, keep=LM_DECODE_CHECK):
-    """whisper's serving loop, `BatchServer.run`'s shape with frames:
-    each batch of `LM_SLOTS` clips one `api.prefill` (cache of prompt +
-    ``gen`` slots) and ``gen − 1`` greedy `api.decode_step`s, each ending
-    in a synchronize. Returns `timed_drain`'s dict."""
+def api_drain(params, cfg, extra, prompts, gen, offset=0,
+              keep=LM_DECODE_CHECK):
+    """`BatchServer.run`'s loop for a model whose batches carry more than
+    tokens (``extra``: whisper's ``"frames"``, a VLM's ``"embeds"``, one
+    row a prompt): each batch of `LM_SLOTS` one `api.prefill` (a cache of
+    ``offset`` + prompt + ``gen`` slots, ``offset`` the positions before
+    the prompt: a VLM's patches) and ``gen − 1`` greedy
+    `api.decode_step`s from position ``offset`` + prompt, each ending in
+    a synchronize. Returns `timed_drain`'s dict."""
     import numpy as np
     import torch
 
@@ -3088,11 +3129,11 @@ def encdec_drain(params, cfg, frames, prompts, gen, keep=LM_DECODE_CHECK):
     tw = time.perf_counter()
     for c0 in range(0, len(prompts), LM_SLOTS):
         toks = torch.from_numpy(np.stack(prompts[c0:c0 + LM_SLOTS])).cuda()
-        plen = toks.shape[1]
+        plen = offset + toks.shape[1]
         ts = time.perf_counter()
-        logits, cache = api.prefill(
-            params, cfg, {"frames": frames[c0:c0 + LM_SLOTS],
-                          "tokens": toks}, cache_len=plen + gen)
+        batch = {k: v[c0:c0 + LM_SLOTS] for k, v in extra.items()}
+        logits, cache = api.prefill(params, cfg, {**batch, "tokens": toks},
+                                    cache_len=plen + gen)
         cur = torch.argmax(mask_pad_logits(cfg, logits[:, -1]),
                            dim=-1)[:, None]
         cur.cpu()
@@ -3118,7 +3159,7 @@ def encdec_drain(params, cfg, frames, prompts, gen, keep=LM_DECODE_CHECK):
 
 
 def encdec_model():
-    """whisper-small served (`encdec_drain`: 16 clips of 1,500 frame
+    """whisper-small served (`api_drain`: 16 clips of 1,500 frame
     embeddings drawn N(0, 1) from the seeded generator, 64-token prompts,
     32 greedy tokens, batches of 8), its flash launches gated by call
     shape, and `encdec_checks`. Returns its fields and its flash drain."""
@@ -3146,7 +3187,7 @@ def encdec_model():
     recorder = FlashRecorder()
     reset_flash_launches()
     try:
-        d = encdec_drain(params, cfg, frames, prompts, LM_GEN)
+        d = api_drain(params, cfg, {"frames": frames}, prompts, LM_GEN)
     finally:
         recorder.close()
     peak = torch.cuda.max_memory_allocated()
@@ -3259,6 +3300,450 @@ def encdec_checks(cfg, params, frames, batch, gen, stepped):
     if failed:
         raise AssertionError(f"{cfg.name} checks failed: {failed}; {checks}")
     return checks
+
+
+def phase_lm_vlm():
+    """Slice F6 on the card: internvl2-26b at full width and all 48 layers
+    in bf16 (19,860,664,320 parameters by `param_count`), weights from
+    `torch.Generator(seed=0)`: 16 requests, each `make_batch`'s 1,024
+    patch embeddings and 1,024 text tokens (S 2,048), in batches of 8
+    through `api.prefill` and `api.decode_step` (`api_drain`: a cache of
+    patches + text + 32 generated slots, decode from position 2,048), 32
+    greedy tokens each; flash launches counted from 0 (48 layers × 2
+    prefills, all `tc_bf16` at (8, 48, 8, 2048, 2048), D 128); then
+    `vlm_checks`. Returns its flash drain for `flash_record`."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenStream, make_batch
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    free_card()
+    cfg = get_config(VLM_ARCH)
+    tw = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - tw
+    leaves = list(tensor_leaves(params))
+    tw = time.perf_counter()
+    batch = make_batch(cfg, TokenStream(cfg.vocab, LM_PROMPTS, LM_PROMPT_LEN),
+                       0, device="cuda")
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - tw
+    embeds = batch.pop("embeds")
+    prompts = list(batch.pop("tokens")[:, :LM_PROMPT_LEN].cpu().numpy())
+    torch.cuda.reset_peak_memory_stats()
+    recorder = FlashRecorder()
+    reset_flash_launches()
+    try:
+        d = api_drain(params, cfg, {"embeds": embeds}, prompts, LM_GEN,
+                      offset=cfg.n_patches)
+    finally:
+        recorder.close()
+    peak = torch.cuda.max_memory_allocated()
+    S, hd = cfg.n_patches + LM_PROMPT_LEN, cfg.resolved_head_dim
+    want = Counter({(LM_SLOTS, cfg.n_heads, cfg.n_kv_heads, S, S, hd, hd,
+                     "bfloat16", True, 0):
+                    cfg.n_layers * (LM_PROMPTS // LM_SLOTS)})
+    launches, by = flash_gate(VLM_ARCH, recorder, want)
+    check_answers(VLM_ARCH, d["outs"], LM_GEN, cfg.vocab)
+    toks = torch.from_numpy(np.stack(prompts[:LM_SLOTS])).cuda()
+    gen = torch.from_numpy(np.stack(d["outs"][:LM_SLOTS])).cuda().long()
+    checks = vlm_checks(cfg, params, embeds[:LM_SLOTS], toks, gen,
+                        d["first_logits"])
+    fields = {"arch": VLM_ARCH, "layers": cfg.n_layers,
+              "d_model": cfg.d_model, "n_patches": cfg.n_patches,
+              "text_len": LM_PROMPT_LEN,
+              "params": sum(t.numel() for t in leaves),
+              "param_count": cfg.param_count(),
+              "weight_bytes": sum(t.numel() * t.element_size()
+                                  for t in leaves),
+              "dtype": cfg.dtype, "init_seconds": init_s,
+              "data_seconds": data_s,
+              **serving_fields(d, LM_PROMPTS, S, LM_GEN),
+              "max_memory_allocated": peak, "flash_launches": launches,
+              "flash_launches_by_variant": by,
+              "flash_calls": [[*k, c] for k, c in recorder.calls.items()],
+              "checks": checks}
+    del params, leaves, embeds, toks, gen, d
+    free_card()
+    emit("lm_vlm", t0, **fields)
+    return {"launches": launches, "recorder": recorder, "device_us": {}}
+
+
+def vlm_checks(cfg, params, embeds, toks, gen, stepped):
+    """internvl2-26b's checks on its served weights, one batch of 8: (ii)
+    prefill's last logits, flash kernel vs the chunked twin, in bf16 at
+    full depth (clear greedy tokens agree) and in f32 on the first 4
+    layers of the same weights (an f32 copy of all 48, 79 GB, does not
+    fit; atol 2e-4, rtol 1e-3); (iii) in f32 on those layers, patch
+    embeddings that are the table's rows of a token prefix give the
+    hidden states of that prefix as tokens, on 2 rows; (iv) 8 decode
+    steps replayed along the drain's tokens in f32 on those layers against
+    a teacher-forced forward with the same embeddings (atol 2e-4, rtol
+    1e-3), and the drain's own bf16 steps against the full-depth forward
+    (clear tokens)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    P, text, n = cfg.n_patches, toks.shape[1], len(stepped)
+
+    def last(p, c, impl, e):
+        c = dataclasses.replace(c, attn_impl=impl)
+        return T.prefill(p, c, toks, embeds=e)[0][:, -1, :c.vocab]
+
+    def forced(p, c, e):
+        seq = torch.cat([toks, gen[:, :n - 1]], dim=1)
+        hidden = T.forward(p, c, seq, embeds=e, return_hidden=True)[0]
+        return T._logits(p, c, hidden[:, P + text - 1:])[..., :c.vocab]
+
+    checks, failed = {}, []
+    flash = last(params, cfg, "pallas_flash", embeds)
+    chunked = last(params, cfg, "xla_chunked", embeds)
+    diff = (flash.float() - chunked.float()).abs().max().item()
+    clear, clear_ok, agree = clear_tokens_agree(flash, chunked, diff)
+    checks["ii_bf16"] = {"rel_l2": rel_l2(flash, chunked),
+                         "max_abs_diff": diff, "tokens_clear": clear,
+                         "tokens_clear_agree": clear_ok,
+                         "tokens_agree": agree}
+    if clear_ok != clear:
+        failed.append("ii_bf16: a clear greedy token differs")
+    stepped = torch.stack(stepped, dim=1)[..., :cfg.vocab]
+    want = forced(params, cfg, embeds)
+    cdiff = (stepped.float() - want.float()).abs().max().item()
+    c_clear, c_ok, c_agree = clear_tokens_agree(stepped, want, cdiff)
+    checks["iv_bf16"] = {"steps": n, "rel_l2": rel_l2(stepped, want),
+                         "max_abs_diff": cdiff, "tokens_clear": c_clear,
+                         "tokens_clear_agree": c_ok, "tokens_agree": c_agree}
+    if c_ok != c_clear:
+        failed.append("iv_bf16: a clear greedy token differs")
+    del flash, chunked, want
+    cfg4 = dataclasses.replace(cfg, dtype="float32", n_layers=VLM_F32_LAYERS)
+    p4, e32 = first_layers(params, VLM_F32_LAYERS), embeds.float()
+    flash4 = last(p4, cfg4, "pallas_flash", e32)
+    chunked4 = last(p4, cfg4, "xla_chunked", e32)
+    checks["ii_f32_4_layers"] = {
+        "rel_l2": rel_l2(flash4, chunked4),
+        "max_abs_diff": (flash4 - chunked4).abs().max().item()}
+    gate_close("ii_f32_4_layers", flash4, chunked4, LM_F32_ATOL, LM_F32_RTOL,
+               failed)
+    rows = VLM_PREFIX_ROWS
+    prefix, rest = toks[:rows, :P], toks[rows:2 * rows]
+    a = T.forward(p4, cfg4, rest, embeds=p4["embed"][prefix],
+                  return_hidden=True)[0]
+    b = T.forward(p4, cfg4, torch.cat([prefix, rest], dim=1),
+                  return_hidden=True)[0]
+    checks["iii_prefix_f32_4_layers"] = {
+        "rows": rows, "bitwise_equal": bool(torch.equal(a, b)),
+        "max_abs_diff": (a - b).abs().max().item()}
+    gate_close("iii_prefix_f32_4_layers", a, b, LM_F32_ATOL, LM_F32_RTOL,
+               failed)
+    del a, b
+    logits, cache = T.prefill(p4, cfg4, toks, embeds=e32,
+                              cache_len=P + text + n)
+    steps32 = [logits[:, -1]]
+    for g in range(n - 1):
+        logits, cache = T.decode_step(p4, cfg4, cache, gen[:, g:g + 1],
+                                      P + text + g)
+        steps32.append(logits[:, -1])
+    steps32 = torch.stack(steps32, dim=1)[..., :cfg.vocab]
+    forced32 = forced(p4, cfg4, e32)
+    checks["iv_f32_4_layers"] = {
+        "steps": n, "rel_l2": rel_l2(steps32, forced32),
+        "max_abs_diff": (steps32 - forced32).abs().max().item()}
+    gate_close("iv_f32_4_layers", steps32, forced32, LM_F32_ATOL,
+               LM_F32_RTOL, failed)
+    del p4, e32, cache
+    if failed:
+        raise AssertionError(f"lm_vlm checks failed: {failed}; {checks}")
+    return checks
+
+
+def phase_lm_train():
+    """Slice F7 on the card, each part on its own line and each model
+    freed before the next: (a) `train_whole` (qwen2.5-3b), (b)
+    `train_parity`, (c) `train_resume` (mamba2-130m through
+    `launch.train.main`)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    free_card()
+    for name, fn in (("a_qwen2.5-3b", train_whole),
+                     ("b_card_eq_cpu_f32", train_parity),
+                     ("c_mamba2-130m_resume", train_resume)):
+        t0 = time.perf_counter()
+        fields = fn()
+        free_card()
+        emit("lm_train", t0, part=name, **fields)
+
+
+def train_whole():
+    """qwen2.5-3b at full width and all 36 layers: bf16 parameters, AdamW
+    with f32 moments, ``remat="full"``, `TokenStream` batches of 4 × 1,024
+    tokens, 6 steps of `ResilientLoop` without checkpoints, each step
+    ending in a synchronize. Gates: every loss finite, no flash launch
+    (training attends through the chunked twin). The model-FLOPs share is
+    6·N·tokens a step (N by `param_count`; the recompute of remat left
+    out) over the median step's seconds, against 989 TFLOP/s."""
+    import math
+    import statistics
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenStream, make_batch
+    from repro_torch.kernels.flash_attn import kernel as KF
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.fault_tolerance import ResilientLoop
+
+    cfg = get_config(LM_ARCH)
+    if cfg.remat != "full" or cfg.dtype != "bfloat16":
+        raise AssertionError(f"{LM_ARCH} trains with remat {cfg.remat!r} in "
+                             f"{cfg.dtype}, not 'full' in bfloat16")
+    tw = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    state = TS.init_state(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - tw
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tensor_leaves(state))
+    step = TS.build_train_step(TS.TrainPlan(cfg=cfg, total_steps=TRAIN_STEPS))
+    times, metrics = [], []
+
+    def timed(state, batch):
+        ts = time.perf_counter()
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - ts)
+        return out
+
+    stream = TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ)
+    loop = ResilientLoop(timed, state,
+                         lambda s: make_batch(cfg, stream, s, device="cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_launches()
+    _, end = loop.run(0, TRAIN_STEPS, lambda s, m: metrics.append(
+        {k: float(v) for k, v in m.items()}))
+    peak = torch.cuda.max_memory_allocated()
+    launches = KF.LAUNCHES
+    losses = [m["loss"] for m in metrics]
+    if end != TRAIN_STEPS or loop.failures or len(losses) != TRAIN_STEPS \
+            or not all(math.isfinite(x) for x in losses) or launches:
+        raise AssertionError(
+            f"{LM_ARCH} training: reached step {end}, failures "
+            f"{loop.failures}, losses {losses}, {launches} flash launches")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = statistics.median(times[1:])
+    n = cfg.param_count()
+    del loop, state, params
+    return {"layers": cfg.n_layers, "d_model": cfg.d_model,
+            "param_count": n, "remat": cfg.remat, "dtype": cfg.dtype,
+            "moment_dtype": "float32", "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "init_seconds": init_s,
+            "state_bytes": state_bytes, "step_seconds": times,
+            "steady_step_seconds": steady,
+            "tokens_per_s": tokens / steady,
+            "model_flops_share": 6 * n * tokens / steady
+            / PEAK_FLOPS["bfloat16"],
+            "model_flops_note": "6·N·tokens, remat's recompute left out, "
+                                "against 989 TFLOP/s bf16",
+            "max_memory_allocated": peak, "flash_launches": launches,
+            "losses": losses,
+            "grad_norms": [m["grad_norm"] for m in metrics],
+            "lrs": [m["lr"] for m in metrics]}
+
+
+def train_parity():
+    """qwen2.5-3b at full width cut to 2 layers, in f32, one batch of 1 ×
+    128: the port's loss and gradients on the card equal its loss and
+    gradients on the CPU (the same weights, TF32 off) within atol 2e-4,
+    rtol 1e-3, the grad norm too; then `torch.autograd.gradcheck` in f64
+    on the card of both autograd functions (`rms_norm`,
+    `lowp_matmul_f32`)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenStream, make_batch
+    from repro_torch.kernels.flash_attn import kernel as KF
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+
+    cfg = TS.train_config(dataclasses.replace(
+        get_config(LM_ARCH), n_layers=TRAIN_PARITY_LAYERS, dtype="float32"))
+    card = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    host = adamw.tree_map(lambda t: t.cpu(), card)
+    stream = TokenStream(cfg.vocab, 1, TRAIN_PARITY_SEQ)
+    n = KF.LAUNCHES
+    lc, gc = TS.loss_and_grads(card, cfg, make_batch(cfg, stream, 0,
+                                                     device="cuda"))
+    tw = time.perf_counter()
+    lh, gh = TS.loss_and_grads(host, cfg, make_batch(cfg, stream, 0,
+                                                     device="cpu"))
+    cpu_s = time.perf_counter() - tw
+    failed = []
+    gate_close("loss", lc.cpu(), lh, LM_F32_ATOL, LM_F32_RTOL, failed)
+    nc = adamw.global_norm(dict(enumerate(gc)))
+    nh = adamw.global_norm(dict(enumerate(gh)))
+    gate_close("grad_norm", nc.cpu(), nh, LM_F32_ATOL, LM_F32_RTOL, failed)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(gc, gh)):
+        a = a.cpu()
+        worst = max(worst, (a - b).abs().max().item())
+        gate_close(f"grad leaf {i}", a, b, LM_F32_ATOL, LM_F32_RTOL, failed)
+    rng = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((3, 4, 8), generator=rng, device="cuda",
+                    dtype=torch.float64, requires_grad=True)
+    w = (1 + 0.1 * torch.randn(8, generator=rng, device="cuda",
+                               dtype=torch.float64)).requires_grad_()
+    wm = torch.randn((8, 5), generator=rng, device="cuda",
+                     dtype=torch.float64, requires_grad=True)
+    grad_checks = {
+        "rms_norm": torch.autograd.gradcheck(
+            lambda a, b: L.rms_norm(a, b, 1e-6), (x, w)),
+        "lowp_matmul_f32": torch.autograd.gradcheck(L.lowp_matmul_f32,
+                                                    (x, wm))}
+    out = {"layers": TRAIN_PARITY_LAYERS, "d_model": cfg.d_model,
+           "seq": TRAIN_PARITY_SEQ, "loss_card": lc.item(),
+           "loss_cpu": lh.item(), "grad_norm_card": nc.item(),
+           "grad_norm_cpu": nh.item(), "grad_leaves": len(gc),
+           "max_abs_grad_diff": worst, "cpu_seconds": cpu_s,
+           "flash_launches": KF.LAUNCHES - n, "gradcheck_f64": grad_checks}
+    if KF.LAUNCHES != n:
+        failed.append("flash launched in training")
+    if failed:
+        raise AssertionError(f"lm_train card == CPU failed: {failed}; {out}")
+    return out
+
+
+def ckpt_gap(a, b, step):
+    """(bit for bit equal?, max |a − b| over every leaf, NaN where either
+    holds one) of two checkpoints of ``step`` (`train.checkpoint`'s
+    layout: arrays in manifest order, bf16 as raw bytes)."""
+    import numpy as np
+
+    def read(d):
+        d = Path(d) / f"step_{step:08d}"
+        return d, json.loads((d / "manifest.json").read_text())["arrays"]
+
+    def as_f64(x, entry):
+        if entry.get("raw_bytes"):
+            x = (x.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+        return x.astype(np.float64).reshape(-1)
+
+    (da, ma), (db, mb) = read(a), read(b)
+    if [e["key"] for e in ma] != [e["key"] for e in mb]:
+        raise AssertionError(f"checkpoints {da} and {db} hold other leaves")
+    same, gap = True, 0.0
+    for ea, eb in zip(ma, mb):
+        xa, xb = np.load(da / ea["file"]), np.load(db / eb["file"])
+        same &= xa.dtype == xb.dtype and xa.tobytes() == xb.tobytes()
+        if xa.size:
+            gap = np.fmax(gap, np.abs(as_f64(xa, ea) - as_f64(xb, eb)).max())
+    return same, float(gap)
+
+
+def train_resume():
+    """mamba2-130m whole (the training CLI's default arch) through
+    `launch.train.main(["--device", "cuda", ...])`: 8 steps of 8 × 128,
+    checkpoints every 4, under `build/train_ckpt/`. Two uninterrupted
+    runs first: if their final states differ (the embedding's backward
+    accumulates with atomics), the rest runs under
+    `torch.use_deterministic_algorithms` with ``CUBLAS_WORKSPACE_CONFIG``
+    set, and an uninterrupted run is taken again there. Then a run whose
+    step fails at step 6 on every attempt of its first pass: the loop
+    restores step 4 and replays. Gates: the failure fired max_retries + 1
+    times, the replayed losses are the uninterrupted run's, and the final
+    state equals the uninterrupted run's bit for bit. The gap between the
+    two first runs is printed either way, and every loss must be
+    finite."""
+    import math
+    import os
+    import shutil
+
+    import torch
+
+    from repro_torch.launch import train as LT
+    from repro_torch.train.fault_tolerance import FaultToleranceConfig
+
+    root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    args = ["--arch", SSM_ARCH, "--steps", str(RESUME_STEPS), "--ckpt-every",
+            str(RESUME_CKPT_EVERY), "--device", "cuda", "--log-every",
+            str(RESUME_STEPS)]
+    runs = {}
+
+    def run(name, fault=False):
+        orig, left = LT.build_train_step, [0]
+        if fault:
+            left[0] = FaultToleranceConfig().max_retries + 1
+
+            def faulty(plan):
+                step = orig(plan)
+
+                def wrapped(state, batch):
+                    if int(state["opt"]["step"]) == RESUME_FAIL_AT \
+                            and left[0]:
+                        left[0] -= 1
+                        raise RuntimeError(f"injected failure at step "
+                                           f"{RESUME_FAIL_AT}")
+                    return step(state, batch)
+
+                return wrapped
+
+            LT.build_train_step = faulty
+        tw = time.perf_counter()
+        try:
+            losses = LT.main(args + ["--ckpt-dir", str(root / name)])
+        finally:
+            LT.build_train_step = orig
+        runs[name] = {"seconds": time.perf_counter() - tw, "losses": losses,
+                      "faults_left": left[0]}
+        return losses
+
+    full = run("a")
+    run("b")
+    same_ab, gap_ab = ckpt_gap(root / "a", root / "b", RESUME_STEPS)
+    mode, ref = "default", "a"
+    if not same_ab:
+        mode, ref = "deterministic", "c"
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        if ref == "c":
+            full = run("c")
+        got = run("f", fault=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same, gap = ckpt_gap(root / ref, root / "f", RESUME_STEPS)
+    k, r = RESUME_FAIL_AT, RESUME_CKPT_EVERY
+    out = {"mode": mode, "uninterrupted_bitwise_equal": same_ab,
+           "uninterrupted_max_abs_gap": gap_ab,
+           "resumed_bitwise_equal": same, "resumed_max_abs_gap": gap,
+           "runs": runs}
+    if runs["f"]["faults_left"] or len(got) != RESUME_STEPS + k - r \
+            or got[:k] != full[:k] or got[k:] != full[r:] or not same \
+            or not all(math.isfinite(x) for x in full):
+        raise AssertionError(f"lm_train resume check failed: {out}")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
 
 
 @contextlib.contextmanager
@@ -3691,13 +4176,15 @@ def main() -> int:
     free_card()
     mla_moe = phase_lm_mla_moe()
     ssm_encdec = phase_lm_ssm_encdec()
+    vlm = phase_lm_vlm()
+    phase_lm_train()
     t0 = time.perf_counter()
     record = kernel_record(recorder, launches, res_recorder, res_launches,
                            rng, device_us, rates)
     record += serving_kernel_record(serve_calls + rmat_calls,
                                     serve_launches + rmat_launches, shingles,
                                     device_us, rates)
-    record += flash_record([lm, mla_moe, *ssm_encdec])
+    record += flash_record([lm, mla_moe, *ssm_encdec, vlm])
     emit("record", t0, total_seconds=time.perf_counter() - t_all)
     print(smi, flush=True)
     print(json.dumps({"kernels": record}), flush=True)

@@ -2,9 +2,8 @@
 
 Every entry is the published configuration; ``get_config(name,
 smoke=True)`` returns the reduced same-family variant used by CPU smoke
-tests. Of these, the port runs the dense family (qwen2.5-3b,
-h2o-danube-1.8b, deepseek-7b, minitron-4b); the models raise
-`NotImplementedError` on the others.
+tests. The port runs every family among them: dense, MoE, SSM, hybrid,
+encoder-decoder and VLM.
 """
 from __future__ import annotations
 

@@ -2,9 +2,11 @@
 
 SLUGGER learns no parameters: the graph and the summary are its state, and
 the first two constructors play the role weight conversion plays for a
-model; `params_from_arrays` carries the LM substrate's weights. All take
-plain NumPy arrays — never objects of another package — so a summary or a
-model written by the JAX package runs here, and the other way round.
+model; `params_from_arrays` carries the LM substrate's weights and
+`train_state_from_arrays` a whole train state (weights, AdamW moments and
+step count). All take plain NumPy arrays — never objects of another
+package — so a summary, a model or a training run written by the JAX
+package continues here, and the other way round.
 """
 from __future__ import annotations
 
@@ -59,19 +61,42 @@ def params_from_arrays(cfg, tree, device=None) -> dict:
     from repro_torch.core.engine import resolve_device
     from repro_torch.models.api import param_shapes
 
+    return _carry(param_shapes(cfg), tree, resolve_device(device), "params")
+
+
+def _carry(spec, node, dev, path):
+    """``node``'s arrays as tensors on ``dev`` in the tree of shapes
+    ``spec``; raises where the keys or a shape differ."""
+    if isinstance(spec, dict):
+        if not isinstance(node, dict) or set(node) != set(spec):
+            got = sorted(node) if isinstance(node, dict) else type(node)
+            raise ValueError(f"{path}: keys {got} != {sorted(spec)}")
+        return {k: _carry(spec[k], node[k], dev, f"{path}/{k}")
+                for k in spec}
+    t = _tensor(node, dev)
+    if tuple(t.shape) != spec:
+        raise ValueError(f"{path}: shape {tuple(t.shape)} != {spec}")
+    return t
+
+
+def train_state_from_arrays(cfg, tree, device=None) -> dict:
+    """The port's train state (`train.train_step.init_state`'s tree) from
+    the reference's, as numpy: ``{"params": ..., "opt": {"m": ..., "v":
+    ..., "step": ()}}``, the moments in their own dtype (float32, or
+    bfloat16 under ``moment_dtype="bfloat16"``) and the step count int32,
+    on ``device`` (``None``: the CUDA card, which must exist). Raises
+    where a tree's keys or a shape differ from ``cfg``'s parameters."""
+    from repro_torch.core.engine import resolve_device
+    from repro_torch.models.api import param_shapes
+
     dev = resolve_device(device)
     shapes = param_shapes(cfg)
-
-    def carry(spec, node, path):
-        if isinstance(spec, dict):
-            if not isinstance(node, dict) or set(node) != set(spec):
-                got = sorted(node) if isinstance(node, dict) else type(node)
-                raise ValueError(f"{path or 'params'}: keys {got} != "
-                                 f"{sorted(spec)}")
-            return {k: carry(spec[k], node[k], f"{path}/{k}") for k in spec}
-        t = _tensor(node, dev)
-        if tuple(t.shape) != spec:
-            raise ValueError(f"{path}: shape {tuple(t.shape)} != {spec}")
-        return t
-
-    return carry(shapes, tree, "")
+    opt = tree["opt"]
+    step = _tensor(opt["step"], dev)
+    if step.shape != () or step.dtype != torch.int32:
+        raise ValueError(f"opt/step: {step.dtype} {tuple(step.shape)} is "
+                         f"not an int32 scalar")
+    return {"params": params_from_arrays(cfg, tree["params"], device=dev),
+            "opt": {"m": _carry(shapes, opt["m"], dev, "opt/m"),
+                    "v": _carry(shapes, opt["v"], dev, "opt/v"),
+                    "step": step}}

@@ -13,6 +13,12 @@ read q, k, v and write o through their (batch, head, row) strides, so
 views of the model's ``(b, s, h, d)`` activations need no copy. Their
 tiles are their own (64 query rows), so the JAX kernel's ``bq``/``bk``
 have no counterpart here.
+
+The kernels compute the forward only, as the JAX kernel does (it has no
+VJP): on inputs that autograd would record, the wrapper raises, so a
+training forward cannot lose the attention gradients without a word.
+Training attends through the plain chunked twin
+(``attn_impl="xla_chunked"``, `models/attention.chunked_sdpa`).
 """
 from __future__ import annotations
 
@@ -74,8 +80,16 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and every row 16-byte aligned; other strides are free. Scores are
     scaled by ``1/sqrt(D)``. Returns (B, H, Sq, Dv) in q's dtype, laid
     out as q is when q is dense. ``window`` (> 0) limits each query to its
-    last ``window`` keys when ``causal``."""
+    last ``window`` keys when ``causal``. Raises `RuntimeError` when grad
+    is enabled and q, k or v requires grad: there is no backward."""
     global LAUNCHES
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention has no backward: q, k or v requires grad. "
+            "Train through the chunked path (attn_impl='xla_chunked', "
+            "models.attention.chunked_sdpa), or call it under "
+            "torch.no_grad()")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
             or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"need q (B, H, Sq, D) and k, v (B, Hkv, Sk, ·) of "

@@ -12,7 +12,10 @@ the CUDA flash kernel (``attn_impl="pallas_flash"``, the port's default;
 MLA's at q/k width 192 and v width 128; zamba2's shared block at head dim
 112), decode through the plain `_sdpa`. The server passes tokens only, as
 the reference's does: an encoder-decoder (``whisper-small``) is driven
-through ``get_api(cfg).prefill`` and ``decode_step`` with its frames.
+through ``get_api(cfg).prefill`` and ``decode_step`` with its frames, a
+VLM (``internvl2-26b``) the same way with its patch embeddings
+(``{"tokens", "embeds"}``, a cache of ``n_patches`` + prompt + generated
+slots, decode from position ``n_patches`` + prompt).
 """
 from __future__ import annotations
 

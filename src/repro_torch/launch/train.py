@@ -1,0 +1,115 @@
+"""End-to-end training driver on one device (the JAX package's
+`launch/train.py`).
+
+    python -m repro_torch.launch.train --arch mamba2-130m --smoke --steps 200 [--device cpu]
+
+runs on the CUDA card unless ``--device cpu`` is given. Resume after a
+crash (restores the latest checkpoint and replays the token stream from
+its step, bit for bit):
+
+    python -m repro_torch.launch.train --arch mamba2-130m --smoke --steps 200 --resume
+
+``--data-parallel`` and ``--model-parallel`` above 1 need the
+multi-device slice (E5) and raise; nothing trains on fewer devices than
+asked.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+import time
+
+import torch
+
+from repro_torch.configs.registry import get_config
+from repro_torch.core.engine import resolve_device
+from repro_torch.data.pipeline import TokenStream, make_batch
+from repro_torch.models.api import get_api
+from repro_torch.optim import adamw
+from repro_torch.train import checkpoint as CKPT
+from repro_torch.train.fault_tolerance import (FaultToleranceConfig,
+                                               ResilientLoop)
+from repro_torch.train.train_step import TrainPlan, build_train_step, \
+    init_state
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="mamba2-130m")
+    ap.add_argument("--smoke", action="store_true", help="reduced config")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
+                                                       "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--data-parallel", type=int, default=1)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="'cuda' (the default) or 'cpu'")
+    args = ap.parse_args(argv)
+    if args.data_parallel > 1 or args.model_parallel > 1:
+        raise ValueError(
+            f"--data-parallel {args.data_parallel} --model-parallel "
+            f"{args.model_parallel}: training on more than one device is "
+            f"slice E5, not ported yet; this driver trains on one")
+    device = resolve_device(args.device)
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    plan = TrainPlan(cfg=cfg, opt=adamw.AdamWConfig(lr=args.lr),
+                     total_steps=args.steps)
+    step_fn = build_train_step(plan)
+    stream = TokenStream(cfg.vocab, args.batch, args.seq, seed=args.seed)
+    params = get_api(cfg).init_params(
+        cfg, torch.Generator(device=device).manual_seed(args.seed),
+        device=device)
+    state = init_state(params, plan.opt)
+    start_step = 0
+    if args.resume:
+        restored, at = CKPT.restore(state, args.ckpt_dir)
+        if restored is not None:
+            state, start_step = restored, at
+            print(f"[train] resumed from step {start_step}")
+
+    ckpt = CKPT.AsyncCheckpointer(args.ckpt_dir)
+    losses = []
+
+    def metrics_cb(step, metrics):
+        losses.append(float(metrics["loss"]))
+        if step % args.log_every == 0:
+            print(f"[train] step {step:5d} loss={losses[-1]:.4f} "
+                  f"gnorm={float(metrics['grad_norm']):.3f}")
+
+    def restore_fn():
+        ckpt.wait()  # a save still in flight is the checkpoint to restore
+        return CKPT.restore(loop.state, args.ckpt_dir)
+
+    loop = ResilientLoop(
+        step_fn=step_fn, state=state,
+        make_batch=lambda s: make_batch(cfg, stream, s, device=device),
+        checkpointer=ckpt,
+        ft=FaultToleranceConfig(ckpt_every=args.ckpt_every),
+        restore_fn=restore_fn)
+    t0 = time.perf_counter()
+    try:
+        state, end_step = loop.run(start_step, args.steps - start_step,
+                                   metrics_cb)
+    finally:
+        ckpt.close()
+    if ckpt.errors:
+        raise RuntimeError(f"checkpoint saves failed: {ckpt.errors}")
+    dt = time.perf_counter() - t0
+    if losses:
+        print(f"[train] finished at step {end_step} in {dt:.1f}s "
+              f"({(end_step - start_step) / max(dt, 1e-9):.2f} steps/s) on "
+              f"{device}; loss {losses[0]:.3f} -> {losses[-1]:.3f}")
+    return losses
+
+
+if __name__ == "__main__":
+    main()

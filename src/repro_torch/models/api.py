@@ -1,13 +1,18 @@
-"""Uniform model API: family dispatch (the JAX package's `models/api.py`,
-without the abstract specs that wait for tooling, slice G, and
-`lm_loss`, which waits for training). Decoder-only configs (dense, MoE,
-SSM, hybrid) go to `models/transformer.py`, encoder-decoder configs to
-`models/encdec.py`, whose batches carry ``"frames"`` beside
-``"tokens"``."""
+"""Uniform model API: family dispatch and the training loss (the JAX
+package's `models/api.py`, without the abstract specs that wait for
+tooling, slice G). Decoder-only configs (dense, MoE, SSM, hybrid, VLM) go
+to `models/transformer.py`, whose VLM batches carry ``"embeds"`` (the
+patch prefix) beside ``"tokens"``; encoder-decoder configs go to
+`models/encdec.py`, whose batches carry ``"frames"``. `lm_loss` is the
+next-token cross-entropy with a chunked vocabulary projection.
+"""
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable
+
+import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, transformer
@@ -57,3 +62,48 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
         decode_step=transformer.decode_step,
         init_cache=transformer.init_cache,
     )
+
+
+def lm_loss(params, cfg: ModelConfig, batch, aux_weight: float = 0.01,
+            ce_chunk_tokens: int = 32_768):
+    """Next-token cross-entropy with a CHUNKED vocabulary projection, plus
+    ``aux_weight`` times the MoE load-balancing loss.
+
+    ``batch["tokens"]`` is (B, S + 1): the model reads ``[:, :-1]`` and is
+    scored on ``[:, 1:]``. A VLM's hidden states cover patches and text,
+    and only the text positions are scored. The backbone's (B, S, d)
+    output is projected in sequence chunks of C positions, C the largest
+    divisor of S at most ``ce_chunk_tokens // B``; each chunk's logits go
+    to f32, the vocabulary's padding columns to ``-1e30``, and the chunk
+    runs under `torch.utils.checkpoint` where autograd records, so the
+    backward pass re-projects it instead of keeping its logits."""
+    api = get_api(cfg)
+    tokens = batch["tokens"]
+    inputs = dict(batch)
+    inputs["tokens"] = tokens[:, :-1]
+    x, aux = api.hidden(params, cfg, inputs)
+    if cfg.n_patches and not cfg.encoder_layers:
+        x = x[:, cfg.n_patches:, :]
+    labels = tokens[:, 1:].long()
+    B, S = labels.shape
+    C = max(1, min(S, ce_chunk_tokens // max(B, 1)))
+    while S % C:
+        C -= 1
+    pad = (torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab
+           if cfg.padded_vocab != cfg.vocab else None)
+
+    def chunk_nll(x_c, y_c):
+        logits = transformer._logits(params, cfg, x_c).float()
+        if pad is not None:
+            logits = torch.where(pad, logits, -1e30)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, y_c[..., None])[..., 0]
+        return (logz - gold).sum()
+
+    records = torch.is_grad_enabled() and x.requires_grad
+    total = 0.0
+    for c0 in range(0, S, C):
+        args = (x[:, c0:c0 + C], labels[:, c0:c0 + C])
+        total = total + (checkpoint(chunk_nll, *args, use_reentrant=False)
+                         if records else chunk_nll(*args))
+    return total / (B * S) + aux_weight * aux

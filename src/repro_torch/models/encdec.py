@@ -7,7 +7,9 @@ the encoder's keys (`attention.cross_full`).
 
 Parameters are the reference's tree with the layers stacked on a leading
 axis (``enc_layers`` on ``encoder_layers``, ``layers`` on ``n_layers``),
-so `interop.params_from_arrays` carries its weights as they are.
+so `interop.params_from_arrays` carries its weights as they are. Where
+autograd records, each encoder and decoder layer runs under ``cfg.remat``
+(`transformer.remat`), as the reference's scan bodies do.
 """
 from __future__ import annotations
 
@@ -57,14 +59,28 @@ def encode(params, cfg: ModelConfig, frames):
     x = frames.to(params["frontend"].dtype) @ params["frontend"]
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
+    lps = T.layers(params["enc_layers"])
     for i in range(cfg.encoder_layers):
-        lp = T.layer(params["enc_layers"], i)
-        h, _ = A.gqa_full(lp["attn"], cfg,
-                          rms_norm(x, lp["ln1"], cfg.norm_eps), positions,
-                          causal=False)
-        x = x + h
-        x = x + _ffn(lp, cfg, x)
+        x = T.remat(_enc_layer, cfg, x)(lps[i], cfg, x, positions)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _enc_layer(lp, cfg, x, positions):
+    h, _ = A.gqa_full(lp["attn"], cfg, rms_norm(x, lp["ln1"], cfg.norm_eps),
+                      positions, causal=False)
+    x = x + h
+    return x + _ffn(lp, cfg, x)
+
+
+def _dec_layer(lp, cfg, x, positions, enc):
+    """One decoder layer: (x, its self K/V, its cross K/V)."""
+    h, kv = A.gqa_full(lp["attn"], cfg, rms_norm(x, lp["ln1"], cfg.norm_eps),
+                       positions)
+    x = x + h
+    ekv = A.cross_precompute(lp["xattn"], cfg, enc)
+    x = x + A.cross_full(lp["xattn"], cfg,
+                         rms_norm(x, lp["lnx"], cfg.norm_eps), ekv)
+    return x + _ffn(lp, cfg, x), kv, ekv
 
 
 def _decoder(params, cfg, tokens, enc, keep: bool):
@@ -74,15 +90,10 @@ def _decoder(params, cfg, tokens, enc, keep: bool):
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     kept = {"k": [], "v": [], "ck": [], "cv": []}
+    lps = T.layers(params["layers"])
     for i in range(cfg.n_layers):
-        lp = T.layer(params["layers"], i)
-        h, kv = A.gqa_full(lp["attn"], cfg,
-                           rms_norm(x, lp["ln1"], cfg.norm_eps), positions)
-        x = x + h
-        ekv = A.cross_precompute(lp["xattn"], cfg, enc)
-        x = x + A.cross_full(lp["xattn"], cfg,
-                             rms_norm(x, lp["lnx"], cfg.norm_eps), ekv)
-        x = x + _ffn(lp, cfg, x)
+        x, kv, ekv = T.remat(_dec_layer, cfg, x)(lps[i], cfg, x, positions,
+                                                 enc)
         if keep:
             for name, t in (("k", kv["k"]), ("v", kv["v"]),
                             ("ck", ekv["k"]), ("cv", ekv["v"])):

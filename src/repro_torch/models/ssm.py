@@ -89,11 +89,14 @@ def ssd_chunked(xh, dt, A, B, C, chunk: int, h0=None):
         xq, dtq = xh[:, t0:t0 + Q], dt[:, t0:t0 + Q]
         Bq, Cq = B[:, t0:t0 + Q].float(), C[:, t0:t0 + Q].float()
         cum = torch.cumsum(dtq * A, dim=1)                     # (b,Q,nh)
-        # intra-chunk decay exp(cum_i - cum_j) for i >= j; above the
-        # diagonal exp overflows to inf, which `where` drops (a product
-        # with the mask would give inf·0 = NaN)
+        # intra-chunk decay exp(cum_i - cum_j) for i >= j, 0 above the
+        # diagonal, where exp(rel) overflows to inf. The mask goes in
+        # before exp: the reference's where(tri, exp(rel), 0) has the same
+        # values, but its backward multiplies the masked entries' zero
+        # gradient by exp(rel) = inf, and NaN reaches every gradient once
+        # a chunk's decay overflows (mamba2-130m at chunk 256)
         rel = cum[:, :, None, :] - cum[:, None, :, :]          # (b,Q,Q,nh)
-        L = torch.where(tri[None, :, :, None], torch.exp(rel), 0.0)
+        L = torch.exp(torch.where(tri[None, :, :, None], rel, -torch.inf))
         G = torch.einsum("bqgn,bkgn->bqkg", Cq, Bq)
         M = G[..., None] * L.reshape(b, Q, Q, g, hpg)
         xdt = (xq.float() * dtq[..., None]).reshape(b, Q, g, hpg, hp)

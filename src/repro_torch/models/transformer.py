@@ -1,27 +1,35 @@
-"""Decoder-only LM: the dense, MoE, SSM and hybrid families, with GQA or
-MLA attention (the JAX package's `models/transformer.py`, forward and
-serving only).
+"""Decoder-only LM: the dense, MoE, SSM, hybrid and VLM families, with GQA
+or MLA attention (the JAX package's `models/transformer.py`).
 
 Parameters are a plain dict of tensors in the reference's tree and
 layout: weights ``(d_in, d_out)`` so ``x @ w`` mirrors its einsums, and the
 layers stacked on a leading L axis (``params["layers"]["attn"]["wq"]`` is
 ``(L, d, hq·hd)``), so `interop.params_from_arrays` carries the
 reference's weights over as they are. ``lax.scan`` over the layers becomes
-a Python loop over views of that stack. ``sharding.constrain`` is the
-identity on one device and is left out.
+a Python loop over views of that stack (one ``unbind`` a leaf, so
+autograd hands the stacked leaf its gradient in one stack). Where autograd
+records, each layer body runs under ``cfg.remat`` (`remat`), as the
+reference's ``_maybe_remat`` wraps its scan bodies. ``sharding.constrain``
+is the identity on one device and is left out.
 
 The SSM family stacks Mamba2 blocks (``layers = {"ln", "mamba"}``); a
 hybrid (``attn_every``, Zamba2-style) follows each group of
 ``attn_every`` of them with ONE shared attention block, ``shared_attn``,
-unstacked: the same tensors at every application. The encoder-decoder
-lives in `models/encdec.py`; the VLM configs raise `NotImplementedError`
-naming the slice that ports them.
+unstacked: the same tensors at every application. A VLM (``n_patches``)
+is the dense decoder behind a prefix of ``n_patches`` patch embeddings
+(``embeds``, from a vision frontend the reference stubs out): they take
+positions 0..n_patches−1, so a served cache holds ``n_patches`` + text +
+generated positions, and decode starts at ``n_patches + text_len``. The
+encoder-decoder lives in `models/encdec.py`.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import resolve_device
@@ -35,12 +43,8 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def check_supported(cfg: ModelConfig):
     """Raise `NotImplementedError` unless ``cfg``'s family is ported:
-    dense, MoE (GQA or MLA), SSM, hybrid or encoder-decoder."""
-    if cfg.n_patches or cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: vision-language models are not ported yet "
-            f"(slice F6)")
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "encdec"):
+    dense, MoE (GQA or MLA), SSM, hybrid, VLM or encoder-decoder."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "encdec", "vlm"):
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is "
                                   f"not ported")
 
@@ -147,6 +151,44 @@ def layer(tree, i: int):
     return tree[i]
 
 
+def layers(tree) -> list:
+    """Every layer's parameters, ``[layer(tree, i) for i in range(L)]``,
+    by one ``unbind`` a leaf. Autograd then gives a stacked leaf its
+    gradient in one stack, where indexing it once a layer would build a
+    full-size zero tensor a layer."""
+    if isinstance(tree, dict):
+        per = {k: layers(v) for k, v in tree.items()}
+        return [dict(zip(per, lp)) for lp in zip(*per.values())]
+    return tree.unbind(0)
+
+
+# aten ops whose outputs the ``"dots"`` policy saves: the matmuls
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default]
+
+
+def remat(fn, cfg: ModelConfig, x: torch.Tensor):
+    """``fn`` under ``cfg.remat``, the reference's ``_maybe_remat``, where
+    autograd records ``x`` (grad enabled, ``x`` requiring grad), else
+    ``fn`` itself, so serving runs unchanged: ``"full"`` keeps the layer's
+    inputs and recomputes the rest in the backward pass
+    (`torch.utils.checkpoint`), ``"dots"`` also keeps the matmul outputs
+    (selective checkpointing of ``aten.mm``/``bmm``/``addmm``), ``"none"``
+    keeps everything. Loss and gradients are the same under all three:
+    no layer draws random numbers."""
+    if cfg.remat not in ("full", "dots", "none"):
+        raise ValueError(f"unknown remat {cfg.remat!r}; use 'full', 'dots' "
+                         f"or 'none'")
+    if cfg.remat == "none" or not (torch.is_grad_enabled()
+                                   and x.requires_grad):
+        return fn
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False, context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _DOTS))
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
 # ----------------------------------------------------------- block bodies
 def _ffn(p, cfg: ModelConfig, h2):
     """The block's FFN: (out, aux loss), the dense SwiGLU's aux 0."""
@@ -250,10 +292,12 @@ def forward(params, cfg: ModelConfig, tokens, embeds=None, return_caches=False,
                 kept[kind].setdefault(name, []).append(t)
 
     aux = 0.0
+    lps = layers(params["layers"])
     if is_ssm(cfg):
+        # the reference remats its Mamba2 scan body, not the shared block
         for start, n, shared in _ssm_groups(cfg):
             for i in range(start, start + n):
-                x, cache = ssm_block_full(layer(params["layers"], i), cfg, x)
+                x, cache = remat(ssm_block_full, cfg, x)(lps[i], cfg, x)
                 keep("mamba", cache)
             if shared:
                 x, cache, _ = attn_block_full(params["shared_attn"], cfg, x,
@@ -261,8 +305,8 @@ def forward(params, cfg: ModelConfig, tokens, embeds=None, return_caches=False,
                 keep("attn", cache)
     else:
         for i in range(cfg.n_layers):
-            x, cache, a = attn_block_full(layer(params["layers"], i), cfg, x,
-                                          positions)
+            x, cache, a = remat(attn_block_full, cfg, x)(lps[i], cfg, x,
+                                                         positions)
             aux = aux + a
             keep("attn", cache)
     caches = ({kind: {name: torch.stack(ts) for name, ts in by.items()}

@@ -1001,3 +1001,201 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+@pytest.mark.cuda
+def test_cuda_vlm_prefill_and_decode_match_cpu():
+    """internvl2-26b's smoke model (4 patch embeddings before the text) on
+    the card, the flash kernel in every layer's prefill, against the same
+    weights on the CPU in float32: forward, prefill into a cache of
+    patches + text + generated slots, and decode steps from position
+    ``n_patches + text``."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenStream, make_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.api import get_api
+
+    cfg = dataclasses.replace(get_config("internvl2-26b", smoke=True),
+                              dtype="float32")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    on_card = _to(params, "cuda")
+    batch = make_batch(cfg, TokenStream(cfg.vocab, 2, 24), 0, device="cpu")
+    toks, embeds = batch["tokens"][:, :20], batch["embeds"]
+    n = flash_kernel.LAUNCHES
+    got = T.forward(on_card, cfg, toks.cuda(), embeds=embeds.cuda())[0]
+    assert flash_kernel.LAUNCHES == n + cfg.n_layers
+    want = T.forward(params, cfg, toks, embeds=embeds)[0]
+    torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=1e-3)
+    api, p0 = get_api(cfg), cfg.n_patches + 12
+    la, ca = api.prefill(on_card, cfg, {"tokens": toks[:, :12].cuda(),
+                                        "embeds": embeds.cuda()},
+                         cache_len=cfg.n_patches + 20)
+    lb, cb = api.prefill(params, cfg, {"tokens": toks[:, :12],
+                                       "embeds": embeds},
+                         cache_len=cfg.n_patches + 20)
+    torch.testing.assert_close(la.cpu(), lb, atol=2e-4, rtol=1e-3)
+    for g in range(8):
+        tok = toks[:, 12 + g:13 + g]
+        la, ca = api.decode_step(on_card, cfg, ca, tok.cuda(), p0 + g)
+        lb, cb = api.decode_step(params, cfg, cb, tok, p0 + g)
+        torch.testing.assert_close(la.cpu(), lb, atol=2e-4, rtol=1e-3)
+        torch.testing.assert_close(la[:, 0].cpu(), want[:, p0 + g],
+                                   atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "deepseek-v2-lite-16b",
+                                  "mamba2-130m", "whisper-small"])
+def test_cuda_train_step_matches_cpu(arch):
+    """One train step of the smoke model on the card against the CPU in
+    float32 (TF32 off): loss and every gradient within the reference's
+    tolerance, no flash launch (training attends through the chunked
+    twin), and the updated parameters within 3·lr (Adam's step is ≈ lr
+    whatever a gradient's size, so a near-zero gradient rounded apart can
+    move an entry by ±lr)."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenStream, make_batch
+    from repro_torch.models.api import get_api
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params = get_api(cfg).init_params(cfg, torch.Generator().manual_seed(0),
+                                      device="cpu")
+    states = {"cpu": TS.init_state(params),
+              "cuda": TS.init_state(_to(params, "cuda"))}
+    step = TS.build_train_step(TS.TrainPlan(cfg=cfg, warmup=1,
+                                            total_steps=10))
+    stream = TokenStream(cfg.vocab, 2, 32)
+    n = flash_kernel.LAUNCHES
+    out = {}
+    for s in range(2):
+        for dev, state in states.items():
+            batch = make_batch(cfg, stream, s, device=dev)
+            loss, grads = TS.loss_and_grads(state["params"],
+                                            TS.train_config(cfg), batch)
+            _, metrics = step(state, batch)
+            out[dev] = (loss, grads, metrics)
+        assert flash_kernel.LAUNCHES == n
+        (lc, gc, mc), (lh, gh, mh) = out["cuda"], out["cpu"]
+        torch.testing.assert_close(lc.cpu(), lh, atol=2e-4, rtol=1e-3)
+        for a, b in zip(gc, gh):
+            torch.testing.assert_close(a.cpu(), b, atol=2e-4, rtol=1e-3)
+        torch.testing.assert_close(mc["grad_norm"].cpu(), mh["grad_norm"],
+                                   atol=2e-4, rtol=1e-3)
+    for a, b in zip(adamw.leaves(states["cuda"]["params"]),
+                    adamw.leaves(states["cpu"]["params"])):
+        assert (a.cpu() - b).abs().max() <= 3 * 3e-4
+
+
+@pytest.mark.cuda
+def test_cuda_custom_backwards_pass_gradcheck_in_f64():
+    _need_card()
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((3, 4, 8), generator=gen, device="cuda",
+                    dtype=torch.float64, requires_grad=True)
+    w = (1 + 0.1 * torch.randn(8, generator=gen, device="cuda",
+                               dtype=torch.float64)).requires_grad_()
+    wm = torch.randn((8, 5), generator=gen, device="cuda",
+                     dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(lambda a, b: L.rms_norm(a, b, 1e-6),
+                                    (x, w))
+    assert torch.autograd.gradcheck(L.lowp_matmul_f32, (x, wm))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_inputs_that_require_grad():
+    _need_card()
+    q = torch.randn(1, 2, 64, 64, device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    k = torch.randn(1, 2, 64, 64, device="cuda", dtype=torch.bfloat16)
+    n = flash_kernel.LAUNCHES
+    with pytest.raises(RuntimeError, match="xla_chunked"):
+        flash_kernel.flash_attention_bhsd(q, k, k)
+    assert flash_kernel.LAUNCHES == n
+    with torch.no_grad():
+        flash_kernel.flash_attention_bhsd(q, k, k)
+    assert flash_kernel.LAUNCHES == n + 1
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_round_trip_and_copy_on_submit(tmp_path):
+    """A bf16 train state on the card saved by the async saver (the card
+    updates it in place right after `submit`) and restored onto the card:
+    equal bit for bit to the state at submit time."""
+    _need_card()
+    from repro_torch.train import checkpoint as CKPT
+
+    state = {"params": {"w": torch.randn(64, 32, device="cuda")
+                        .to(torch.bfloat16)},
+             "opt": {"m": {"w": torch.randn(64, 32, device="cuda")},
+                     "step": torch.tensor(5, dtype=torch.int32,
+                                          device="cuda")}}
+    want = {"w": state["params"]["w"].clone(),
+            "m": state["opt"]["m"]["w"].clone()}
+    ck = CKPT.AsyncCheckpointer(str(tmp_path))
+    ck.submit(state, 5)
+    state["params"]["w"].add_(1)
+    state["opt"]["m"]["w"].mul_(2)
+    ck.close()
+    assert not ck.errors
+    got, step = CKPT.restore(state, str(tmp_path))
+    assert step == 5 and got["params"]["w"].device.type == "cuda"
+    assert torch.equal(got["params"]["w"], want["w"])
+    assert torch.equal(got["opt"]["m"]["w"], want["m"])
+    assert int(got["opt"]["step"]) == 5
+
+
+@pytest.mark.cuda
+def test_cuda_train_driver_restores_bit_for_bit(tmp_path, monkeypatch):
+    """`launch.train.main` on the card (mamba2-130m smoke, deterministic
+    algorithms): a failure at step 6 on every attempt of its first pass
+    restores step 4 and ends in the uninterrupted run's state."""
+    _need_card()
+    import json
+
+    from repro_torch.launch import train as LT
+    from repro_torch.train.fault_tolerance import FaultToleranceConfig
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        args = ["--arch", "mamba2-130m", "--smoke", "--steps", "8",
+                "--batch", "2", "--seq", "32", "--ckpt-every", "4",
+                "--device", "cuda"]
+        full = LT.main(args + ["--ckpt-dir", str(tmp_path / "a")])
+        orig, left = LT.build_train_step, [
+            FaultToleranceConfig().max_retries + 1]
+
+        def faulty(plan):
+            step = orig(plan)
+
+            def wrapped(state, batch):
+                if int(state["opt"]["step"]) == 6 and left[0]:
+                    left[0] -= 1
+                    raise RuntimeError("persistent failure at step 6")
+                return step(state, batch)
+
+            return wrapped
+
+        monkeypatch.setattr(LT, "build_train_step", faulty)
+        got = LT.main(args + ["--ckpt-dir", str(tmp_path / "b")])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert left[0] == 0 and got[6:] == full[4:]
+    da, db = (tmp_path / d / "step_00000008" for d in ("a", "b"))
+    ma = json.loads((da / "manifest.json").read_text())
+    assert ma == json.loads((db / "manifest.json").read_text())
+    for e in ma["arrays"]:
+        assert np.array_equal(np.load(da / e["file"]),
+                              np.load(db / e["file"]))

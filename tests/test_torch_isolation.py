@@ -1,7 +1,8 @@
 """The port stands alone: `src/repro_torch`, `chip_smoke.py`,
 `flash_bench.py`, `popc_bench.py` and `rank_count_bench.py` import neither
-jax nor the JAX package, entry points default to the CUDA card and refuse
-to fall back to the CPU, and the unported paths say so."""
+jax nor the JAX package (nor ``ml_dtypes``, which the card's machine does
+not have), entry points default to the CUDA card and refuse to fall back
+to the CPU, and the unported paths say so."""
 import ast
 import os
 import subprocess
@@ -19,7 +20,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "flash_bench.py", ROOT / "popc_bench.py",
     ROOT / "rank_count_bench.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imported_roots(path: Path) -> set:
@@ -69,6 +70,14 @@ def test_port_files_exist():
                  "src/repro_torch/faults.py",
                  "src/repro_torch/launch/chaos.py",
                  "src/repro_torch/graphs/datasets.py",
+                 "src/repro_torch/data/pipeline.py",
+                 "src/repro_torch/optim/adamw.py",
+                 "src/repro_torch/optim/schedules.py",
+                 "src/repro_torch/optim/grad_compression.py",
+                 "src/repro_torch/train/train_step.py",
+                 "src/repro_torch/train/checkpoint.py",
+                 "src/repro_torch/train/fault_tolerance.py",
+                 "src/repro_torch/launch/train.py",
                  "chip_smoke.py", "flash_bench.py", "popc_bench.py",
                  "rank_count_bench.py"):
         assert want in names
@@ -101,6 +110,27 @@ def test_summarize_runs_without_jax_or_reference_loaded():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout
+
+
+def test_training_runs_without_jax_or_ml_dtypes_loaded(tmp_path):
+    """`launch.train` trains, checkpoints bf16 leaves and resumes from them
+    with neither jax, the JAX package nor ml_dtypes in the process."""
+    code = (
+        "import sys\n"
+        "from repro_torch.launch import train\n"
+        f"args = ['--smoke', '--device', 'cpu', '--batch', '2', '--seq', "
+        f"'24', '--ckpt-every', '2', '--ckpt-dir', {str(tmp_path)!r}]\n"
+        "train.main(args + ['--steps', '2'])\n"
+        "train.main(args + ['--steps', '4', '--resume'])\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
+        "print('LOADED', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "resumed from step 2" in out.stdout
     assert "LOADED []" in out.stdout
 
 
