@@ -139,6 +139,26 @@ Phases, each printing one JSON line with its seconds:
            that prefix as tokens, in f32 on those layers, (iv) 8 decode
            steps vs a teacher-forced forward with the same embeddings, in
            f32 on those layers
+  multi_device  slice E5 (the data axis) on a one-rank NCCL group
+           (`phase_multi_device`): (a) the main graph through
+           `SummarizerEngine(mesh=make_data_mesh())`, batched and
+           resident, counts at 0 before each: lossless, equal bit for bit
+           to the main batched summary, intersections and histogram
+           launched by the batched run, top-J and fold by the resident
+           one; walls and launches beside the no-mesh runs'; (b) the
+           sharded functions' per-rank bodies for ranks 0-3 of world 4,
+           one after the other on the card — the node shingles of the
+           main graph's edge blocks, the intersection kernel on a real
+           tile batch of (a) with each shard's valid count, and one
+           arena round (the top-J proposal and the fold) on a real arena
+           of (a) — each concatenation equal to the unsharded call; (c)
+           qwen2.5-3b at full width and depth through the data-parallel
+           step with ZeRO-1, 4 steps of 4 × 1,024: the losses equal bit
+           for bit `lm_train`'s plain step's first 4 (same seed, batch and
+           schedule; both rerun under deterministic algorithms if not);
+           seconds a step and peak memory beside `lm_train`'s; (d)
+           `compressed_psum` on 2^24 values equal to quantize → dequantize
+           of g + err, and its time
   lm_train slice F7: (a) qwen2.5-3b at full width and all 36 layers
            trained 6 steps (bf16 parameters, f32 AdamW moments, remat
            full, 4 × 1,024 tokens a step) through `ResilientLoop`: every
@@ -1377,7 +1397,7 @@ def phase_main(graph):
          histogram_calls=[[int(i.numel()), s] for i, s in recorder.hist],
          histogram_call_stats=[hist_call_stats(i, s)
                                for i, s in recorder.hist])
-    return summary, launches, recorder
+    return summary, launches, recorder, wall
 
 
 def phase_parity(graph, batched):
@@ -3479,6 +3499,7 @@ def phase_lm_train():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     free_card()
+    whole = None
     for name, fn in (("a_qwen2.5-3b", train_whole),
                      ("b_card_eq_cpu_f32", train_parity),
                      ("c_mamba2-130m_resume", train_resume)):
@@ -3486,6 +3507,8 @@ def phase_lm_train():
         fields = fn()
         free_card()
         emit("lm_train", t0, part=name, **fields)
+        whole = whole or fields
+    return whole
 
 
 def train_whole():
@@ -3631,6 +3654,305 @@ def train_parity():
     if failed:
         raise AssertionError(f"lm_train card == CPU failed: {failed}; {out}")
     return out
+
+
+MD_STORE = "md_store"  # the one-rank group's FileStore, under build/
+MD_SHARDS = 4         # world of the shard-by-shard run
+MD_STEPS = 4          # data-parallel steps of qwen2.5-3b
+MD_PSUM_N = 1 << 24   # values of the compressed all-reduce
+MD_DEVICE = "cuda"    # the card (a CPU rehearsal sets "cpu")
+
+
+def phase_multi_device(graph, batched, main_wall, launches, res_stages,
+                       res_launches, train):
+    """Slice E5 on the card, inside a one-rank NCCL process group started
+    from a `FileStore` under `build/` and destroyed at the end, so later
+    phases run as before: (a) `md_engines`, (b) `md_shards`, (c)
+    `md_train`, (d) `md_psum`, each on its own line."""
+    import torch
+    import torch.distributed as dist
+
+    store = ROOT / "build" / MD_STORE
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    try:
+        t0 = time.perf_counter()
+        fields, captured = md_engines(graph, batched, main_wall, launches,
+                                      res_stages, res_launches)
+        emit("multi_device", t0, part="a_engine_mesh", **fields)
+        for name, fn in (("b_shards_in_turn", lambda: md_shards(graph,
+                                                                captured)),
+                         ("c_qwen2.5-3b_data_parallel",
+                          lambda: md_train(train)),
+                         ("d_compressed_psum", md_psum)):
+            t0 = time.perf_counter()
+            fields = fn()
+            free_card()
+            emit("multi_device", t0, part=name, **fields)
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
+def md_engines(graph, batched, main_wall, launches, res_stages,
+               res_launches):
+    """(a) The main graph under `make_data_mesh()` with the batched and the
+    resident backends. Captures the widest intersection batch the mesh
+    dispatch handed its per-rank body and the widest arena the resident
+    run uploaded, for `md_shards`."""
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core import resident as R
+    from repro_torch.launch.mesh import make_data_mesh
+
+    mesh = make_data_mesh()
+    captured = {"tile": None, "arena": None}
+    orig_rank, orig_up = D.intersections_rank, R.ResidentBitmapArena.\
+        from_workspace.__func__
+
+    def rank_body(batch, B, rank, world, device):
+        if captured["tile"] is None or B > captured["tile"][1]:
+            captured["tile"] = (batch.copy(), B)
+        return orig_rank(batch, B, rank, world, device)
+
+    def upload(cls, ws, **kw):
+        arena = orig_up(cls, ws, **kw)
+        if captured["arena"] is None or arena.B > captured["arena"][1]:
+            captured["arena"] = ({k: v.clone() for k, v in
+                                  arena.state.items()}, arena.B, arena.J)
+        return arena
+
+    out = {}
+    D.intersections_rank = rank_body
+    R.ResidentBitmapArena.from_workspace = classmethod(upload)
+    try:
+        for backend, want, plain_launches, plain_wall in (
+                ("batched", ("bitset_intersections", "segment_histogram"),
+                 launches, main_wall),
+                ("resident", ("jaccard_topj", "bitset_fold"), res_launches,
+                 res_stages["wall"])):
+            reset_launches()
+            engine, summary, wall = run_clean(graph, backend,
+                                              f"mesh {backend}", T=20,
+                                              mesh=mesh)
+            got = read_launches()
+            if not (summary.validate_lossless(graph)
+                    and same_summary(summary, batched)):
+                raise AssertionError(f"mesh {backend}: the summary is not "
+                                     f"the main batched one")
+            for name in want:
+                if got[name] <= 0:
+                    raise AssertionError(f"mesh {backend} never launched "
+                                         f"{name}")
+            out[backend] = {"wall_seconds": wall, "launches": got,
+                            "no_mesh_wall_seconds": plain_wall,
+                            "no_mesh_launches": plain_launches,
+                            "stage_seconds": stage_seconds(engine),
+                            "equal_to_batched": True, "lossless": True}
+    finally:
+        D.intersections_rank = orig_rank
+        R.ResidentBitmapArena.from_workspace = classmethod(orig_up)
+    torch.cuda.synchronize()
+    out["mesh"] = {"shape": list(mesh.mesh.shape),
+                   "dims": list(mesh.mesh_dim_names)}
+    return out, captured
+
+
+def md_shards(graph, captured):
+    """(b) Each sharded function's per-rank body for ranks 0..3 of a world
+    of 4, one after the other on the card, against the unsharded call:
+    the node shingles of the graph's edge blocks (MIN over the ranks), the
+    intersection kernel on the widest tile batch of (a) (rows concatenated,
+    each shard with its own valid count), and one arena round on the
+    widest arena of (a): the top-J proposal (`ops.propose_dense`) and the
+    fold of one accepted pair a group (`ops.fold_shard`), every state
+    tensor concatenated."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core.merging import theta_to_p
+    from repro_torch.kernels._build import pow2
+    from repro_torch.kernels.bitset_fold import ops as FO
+    from repro_torch.kernels.bitset_jaccard.kernel import bitset_intersections
+    from repro_torch.launch.mesh import block
+
+    n = MD_SHARDS
+    out = {}
+    # node shingles of the edge blocks
+    src = np.repeat(np.arange(graph.n), np.diff(graph.indptr))
+    pad = (-src.size) % n
+    src_p = torch.from_numpy(np.concatenate([src, np.full(pad, graph.n)]))
+    dst_p = torch.from_numpy(np.concatenate(
+        [graph.indices.astype(np.int64), np.zeros(pad, np.int64)]))
+    src_p, dst_p = src_p.to(MD_DEVICE), dst_p.to(MD_DEVICE)
+    a, b = 2654435761, 0x9E3779B9
+    parts = [D.shingles_local(src_p[block(src_p.numel(), r, n)],
+                              dst_p[block(dst_p.numel(), r, n)], graph.n,
+                              a, b) for r in range(n)]
+    want = D.node_shingles_dense(src_p[:src.size], dst_p[:src.size],
+                                 graph.n, a, b)
+    if not torch.equal(torch.stack(parts).amin(0), want):
+        raise AssertionError("per-rank shingles differ from the dense ones")
+    out["shingles"] = {"edges": int(src.size), "equal": True}
+    # the intersection kernel, shard by shard
+    tile, B = captured["tile"]
+    Bs = pow2(-(-B // n), floor=1)
+    batch = np.zeros((n * Bs, *tile.shape[1:]), dtype=np.uint32)
+    batch[:B] = tile[:B]
+    got = torch.cat([D.intersections_rank(batch, B, r, n, MD_DEVICE)
+                     for r in range(n)])
+    whole = bitset_intersections(torch.from_numpy(
+        batch.view(np.int32)).to(MD_DEVICE), B)
+    if not torch.equal(got, whole):
+        raise AssertionError("per-rank intersections differ from the "
+                             "unsharded kernel call")
+    out["intersections"] = {"B": B, "Bp": n * Bs, "G": tile.shape[1],
+                            "W": tile.shape[2], "valid_by_rank": [
+                                int(np.clip(B - r * Bs, 0, Bs))
+                                for r in range(n)], "equal": True}
+    # one arena round
+    state, B, J = captured["arena"]
+    Bp = state["bits"].shape[0]
+    Bq = n * pow2(-(-Bp // n), floor=1)
+    if Bq != Bp:  # pad with inert all-dead, all-zero groups
+        state = {k: torch.cat([v, v.new_zeros((Bq - Bp, *v.shape[1:]))])
+                 for k, v in state.items()}
+    Bs = Bq // n
+    shards = [{k: v[block(Bq, r, n)].clone() for k, v in state.items()}
+              for r in range(n)]
+    theta_p = theta_to_p(0.0)
+    whole = FO.propose_dense(state, J, theta_p, None)
+    got = torch.cat([FO.propose_dense(s, J, theta_p, None) for s in shards])
+    if not torch.equal(got, whole):
+        raise AssertionError("per-rank proposals differ from the unsharded "
+                             "top-J round")
+    acc = whole.cpu().numpy()
+    if not acc[..., 1].any():
+        raise AssertionError("the arena round accepted no proposal to fold")
+    gb, gr = np.nonzero(acc[..., 1])
+    first = np.concatenate([[True], gb[1:] != gb[:-1]])[:gb.size]
+    gb, ga, gz = gb[first], gr[first], acc[gb[first], gr[first], 2]
+    keep = ga != gz
+    gb, ga, gz = (torch.from_numpy(x[keep].astype(np.int64)).to(MD_DEVICE)
+                  for x in (gb, ga, gz))
+    slot = torch.zeros_like(gb)
+    G = state["bits"].shape[1]
+    P = min(2, max(G // 2, 1))
+    FO.fold(state, gb, slot, ga, gz, P)
+    for r, s in enumerate(shards):
+        FO.fold_shard(s, gb, slot, ga, gz, P, r * Bs)
+    for k, v in state.items():
+        if not torch.equal(torch.cat([s[k] for s in shards]), v):
+            raise AssertionError(f"per-rank folds differ from the "
+                                 f"unsharded fold in {k}")
+    out["arena_round"] = {"B": B, "Bp": Bq, "G": G, "J": J,
+                          "dirty_rows": int(acc[..., 0].sum()),
+                          "accepted": int(acc[..., 1].sum()),
+                          "folded_pairs": int(gb.numel()), "equal": True}
+    return out
+
+
+def md_train(train):
+    """(c) qwen2.5-3b at full width and depth through the data-parallel
+    step with ZeRO-1 on the one-rank group (`make_host_mesh(1, 1)`), 4
+    steps of 4 × 1,024 from `lm_train`'s seed, batches and schedule. Gate:
+    the losses equal `lm_train`'s plain step's first 4 bit for bit. If
+    they do not, both runs are taken again here under
+    `torch.use_deterministic_algorithms` (the backward's atomics may
+    reorder sums) and held to each other."""
+    import os
+
+    import torch
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    plain = train["losses"][:MD_STEPS]
+    mesh = make_host_mesh(1, 1)
+    got, times, peak = md_qwen_steps(mesh)
+    mode = "default"
+    if got != plain:
+        mode = "deterministic"
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            plain = md_qwen_steps(None)[0]
+            got, times, peak = md_qwen_steps(mesh)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    if got != plain:
+        raise AssertionError(f"data-parallel losses {got} are not the plain "
+                             f"step's {plain} ({mode} mode)")
+    import statistics
+
+    return {"mode": mode, "losses": got, "plain_losses": plain,
+            "bitwise_equal": True, "step_seconds": times,
+            "steady_step_seconds": statistics.median(times[1:]),
+            "plain_steady_step_seconds": train["steady_step_seconds"],
+            "max_memory_allocated": peak,
+            "plain_max_memory_allocated": train["max_memory_allocated"],
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "zero1": True}
+
+
+def md_qwen_steps(mesh):
+    """``MD_STEPS`` steps of qwen2.5-3b as `train_whole` takes them (seed
+    0, `TokenStream` batches, schedule over ``TRAIN_STEPS``), through the
+    data-parallel step under ``mesh`` (the plain step for None): losses,
+    seconds a step, peak memory."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenStream, make_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_step as TS
+
+    cfg = get_config(LM_ARCH)
+    plan = TS.TrainPlan(cfg=cfg, total_steps=TRAIN_STEPS, mesh=mesh)
+    params = T.init_params(cfg, torch.Generator(
+        device=MD_DEVICE).manual_seed(0), device=MD_DEVICE)
+    state = TS.init_state(params, plan.opt, plan)
+    step = TS.build_train_step(plan)
+    stream = TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for s in range(MD_STEPS):
+        batch = make_batch(cfg, stream, s, device=MD_DEVICE, mesh=mesh)
+        ts = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - ts)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    del state, params
+    free_card()
+    return losses, times, peak
+
+
+def md_psum():
+    """(d) `compressed_psum` over the one-rank group on 2^24 values: equal
+    to quantize → dequantize of g + err, and the carried error to what
+    that rounding left; its time by CUDA events."""
+    import torch
+
+    from repro_torch.optim import grad_compression as GC
+
+    gen = torch.Generator(device=MD_DEVICE).manual_seed(0)
+    g = torch.randn(MD_PSUM_N, generator=gen, device=MD_DEVICE)
+    err = 1e-3 * torch.randn(MD_PSUM_N, generator=gen, device=MD_DEVICE)
+    mean, new_err = GC.compressed_psum(g, err)
+    x = g + err
+    q, scale, n = GC.quantize_int8(x)
+    deq = GC.dequantize_int8(q, scale, n)
+    if not (torch.equal(mean, deq) and torch.equal(new_err, x - deq)):
+        raise AssertionError("compressed_psum on one rank is not quantize → "
+                             "dequantize")
+    ms = cuda_ms(lambda: GC.compressed_psum(g, err), 10)
+    return {"n": MD_PSUM_N, "equal": True, "ms": ms,
+            "max_abs_err_vs_g_plus_err": float((mean - x).abs().max())}
 
 
 def ckpt_gap(a, b, step):
@@ -4155,7 +4477,7 @@ def main() -> int:
     t0 = time.perf_counter()
     graph = GG.caveman(20000, 11, 0.03, seed=0)
     emit("graph", t0, n=graph.n, m=graph.m)
-    summary, launches, recorder = phase_main(graph)
+    summary, launches, recorder, main_wall = phase_main(graph)
     rmat, rmat_batched = phase_parity(graph, summary)
     res_launches, res_recorder, res_stages = phase_resident(
         graph, summary, rmat, rmat_batched)
@@ -4177,7 +4499,9 @@ def main() -> int:
     mla_moe = phase_lm_mla_moe()
     ssm_encdec = phase_lm_ssm_encdec()
     vlm = phase_lm_vlm()
-    phase_lm_train()
+    train = phase_lm_train()
+    phase_multi_device(graph, summary, main_wall, launches, res_stages,
+                       res_launches, train)
     t0 = time.perf_counter()
     record = kernel_record(recorder, launches, res_recorder, res_launches,
                            rng, device_us, rates)

@@ -36,8 +36,25 @@ the device, and root shingles are computed there; its emission counts on
 the host. Worker threads launch on the device's current stream, so their
 kernels serialize and only host work overlaps. The engine resolves
 ``device=None`` to the CUDA card and raises when there is none; a CPU
-device runs the kernels' plain versions. Meshes (ROADMAP slice E5) are not
-ported yet.
+device runs the kernels' plain versions.
+
+Meshes (`launch/mesh.py`, `core/distributed.py`): under a mesh — passed
+as ``mesh``, or `make_data_mesh()` whenever a process group of more than
+one rank is up — ``"batched"`` and ``"resident"`` shard their device work
+over the data axis, SPMD, every rank running the same host program. Both
+shingle through `distributed.shingle_provider` (each rank segment-mins
+its block of the edges, a MIN all-reduce combines them); ``"batched"``
+ranks through `distributed.batched_intersections_mesh` (each rank runs
+the intersection kernel on its rows of every tile, the rows are
+all-gathered); ``"resident"`` builds its arenas from host workspaces with
+no adjacency bank, each rank holding its block of every chunk's groups
+(top-J and the fold run on the block, the per-row proposals are
+all-gathered). Every host takes the same decisions, so the summary is
+the no-mesh one. Collectives pair up by their order, so under a mesh of
+more than one rank the merge_round thunks run in plan order on one
+thread whatever ``workers`` says; the summary never depends on
+``workers``. A mesh must live on the engine's device type: a ``cuda``
+engine needs an NCCL group and raises without one.
 
 Faults and degradation (DESIGN.md §11, `repro_torch.faults`): after every
 stage the engine checks the site ``engine.<stage>`` with the iteration, so
@@ -63,8 +80,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import faults
+from repro_torch.core import distributed as D
 from repro_torch.core.merging import apply_plans, build_merge_work
 from repro_torch.core.minhash import candidate_groups, host_shingle_provider
 from repro_torch.core.pruning import prune
@@ -72,6 +91,7 @@ from repro_torch.core.resident import ResidentBitmapArena, ResidentRunContext
 from repro_torch.core.slugger import SluggerState, _emit_encoding
 from repro_torch.core.transfer import GLOBAL as TRANSFER
 from repro_torch.graphs.partitioned import as_partitioned
+from repro_torch.launch.mesh import dp_size, make_data_mesh
 
 log = logging.getLogger("repro_torch.engine")
 
@@ -125,16 +145,19 @@ class SummarizerEngine:
       ``min(partitions, cpu count)``.
     * ``stages`` — dict overriding any of the five stage callables (each
       called as ``fn(engine, ctx)``); unknown names raise ``ValueError``.
+    * ``mesh`` — a `DeviceMesh` (`launch/mesh.py`) for the sharded
+      shingle/intersection dispatch (``backend="batched"``) and the
+      resident arena placement (``backend="resident"``). ``None``
+      auto-enables `make_data_mesh()` when a process group of more than one
+      rank is initialized.
     * ``device`` — where the kernels run (`resolve_device`).
-
-    The JAX engine's ``mesh`` has no counterpart until ROADMAP slice E5.
     """
 
     def __init__(self, partitions: int = 1, backend: str = "batched",
                  T: int = 20, seed: int = 0, max_group: int = 500,
                  top_j: int = 16, height_bound=None, prune_steps=(1, 2, 3),
-                 workers: int | None = None, stages: dict | None = None,
-                 device=None):
+                 workers: int | None = None, mesh=None,
+                 stages: dict | None = None, device=None):
         if backend not in ("numpy", "batched", "resident", "loop"):
             raise ValueError(
                 f"unknown backend {backend!r}; use 'batched', 'resident', "
@@ -160,17 +183,51 @@ class SummarizerEngine:
                                  f"valid: {STAGE_ORDER}")
             self.stages.update(stages)
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.stats: dict = {}
         self._shingle_provider = None
+        self._rank_dispatch = None
         self._run_ctx = None
+        self._mesh = None
+
+    def _mesh_active(self):
+        """The mesh of this run, or None: ``mesh``, else a data mesh over
+        every rank of a process group of more than one; only the batched
+        and resident backends shard. Raises when the mesh's device type is
+        not the engine's (a card engine under a gloo group)."""
+        if self.backend not in ("batched", "resident"):
+            return None
+        mesh = self.mesh
+        if mesh is None:
+            if not (dist.is_available() and dist.is_initialized()
+                    and dist.get_world_size() > 1):
+                return None
+            mesh = make_data_mesh()
+        if mesh.device_type != self.device.type:
+            raise RuntimeError(
+                f"a {mesh.device_type} mesh cannot drive a {self.device} "
+                f"engine: the card needs an NCCL process group, the CPU a "
+                f"gloo one")
+        return mesh
 
     def _setup_dispatches(self, g):
         """Every backend shingles with the unified u32 family; the resident
         backend computes the shingles on the device from its run context
         (edges uploaded once, root map advanced from the applied plans),
-        the others with the host twin — the same bits either way."""
+        the others with the host twin — the same bits either way. Under a
+        mesh the sharded provider computes them, ``"batched"`` ranks
+        through the sharded intersection dispatch and ``"resident"`` has
+        no run context."""
         self._run_ctx = None
-        if self.backend == "resident":
+        self._rank_dispatch = None
+        self._mesh = self._mesh_active()
+        if self._mesh is not None:
+            self._shingle_provider = D.shingle_provider(g, self._mesh,
+                                                        device=self.device)
+            if self.backend == "batched":
+                self._rank_dispatch = D.batched_intersections_mesh(
+                    self._mesh, device=self.device)
+        elif self.backend == "resident":
             self._run_ctx = ResidentRunContext(g, device=self.device)
             self._shingle_provider = self._run_ctx.for_roots
         else:
@@ -193,7 +250,8 @@ class SummarizerEngine:
             except faults.InjectedFault as e:
                 raise faults.BankFault(f"bank extract failed: {e!r}") from e
         return ResidentBitmapArena.from_workspace(ws, top_j=self.top_j,
-                                                  device=self.device)
+                                                  device=self.device,
+                                                  mesh=self._mesh)
 
     # --------------------------------------------------------------- stages
     def stage_shingle(self, ctx: IterationContext):
@@ -234,6 +292,7 @@ class SummarizerEngine:
                     ctx.group_children[idxs[li]]),
                 top_j=self.top_j, height_bound=self.height_bound,
                 backend=self.backend, device=self.device,
+                rank_dispatch=self._rank_dispatch,
                 resident_factory=self._resident_arena if resident else None,
                 shell_workspaces=shell)
             for li, gi in enumerate(idxs):
@@ -244,8 +303,11 @@ class SummarizerEngine:
         """Run the sweeps (ranking on the device for ``"batched"``, whole
         rounds on the device for ``"resident"``) — serial, or on
         ``workers`` threads; record mode makes the schedule irrelevant to
-        the outcome."""
-        if self.workers > 1 and len(ctx.thunks) > 1:
+        the outcome. Under a mesh of more than one rank the thunks issue
+        collectives, which pair up by their order across ranks, so they
+        run in plan order on this thread."""
+        collective = self._mesh is not None and dp_size(self._mesh) > 1
+        if self.workers > 1 and len(ctx.thunks) > 1 and not collective:
             with ThreadPoolExecutor(max_workers=self.workers) as pool:
                 list(pool.map(lambda f: f(), ctx.thunks))
         else:

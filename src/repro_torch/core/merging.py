@@ -921,6 +921,7 @@ def build_merge_work(
     height_bound=None,
     backend: str = "numpy",
     device=None,
+    rank_dispatch=None,
     resident_factory=None,
     shell_workspaces: bool = False,
 ):
@@ -937,7 +938,10 @@ def build_merge_work(
     supplies the queue-permutation generator for groups swept sequentially
     (``backend="loop"`` and oversized groups). ``device`` is where
     ``backend="batched"`` ranks and ``backend="resident"`` keeps its arenas
-    (a ``torch.device``). ``resident_factory(ws)`` builds a chunk's
+    (a ``torch.device``). ``rank_dispatch`` overrides the batched
+    intersection dispatch (the engine's sharded one under a mesh,
+    `core/distributed.batched_intersections_mesh`).
+    ``resident_factory(ws)`` builds a chunk's
     `ResidentBitmapArena` for ``backend="resident"``; ``shell_workspaces`` builds the batched chunks as shape-only shells —
     same chunking and member layout, no per-column tensors — for a factory
     that extracts them on the device from the adjacency bank. Oversized
@@ -950,8 +954,9 @@ def build_merge_work(
         def rng_of(i):
             return np.random.default_rng(group_seeds[i])
     thunks: list = []
-    dispatch = (_default_intersections_dispatch(device)
-                if backend == "batched" else None)
+    dispatch = None
+    if backend == "batched":
+        dispatch = rank_dispatch or _default_intersections_dispatch(device)
 
     def _seq_thunk(ws, rng):
         return lambda: _sweep_sequential(ws, theta, rng, top_j=top_j,

@@ -31,6 +31,13 @@ The ``host_*``/``sync_rows`` downloads are the verification contract: the
 engine never calls them. The v1 protocol (`topj_rows` ranking and the
 bitmap-only `fold`) stays for tests and tools.
 
+Under a mesh of more than one data rank (`from_workspace(mesh=)`, the
+engine's mesh path, which has no bank) each rank uploads only its block
+of the chunk's groups: the top-J and fold kernels run on the block, the
+per-row proposals are all-gathered so every host takes the same
+decisions, and each rank folds the accepted pairs of its own groups. A
+1-rank mesh shards nothing.
+
 Degradation (DESIGN.md §11): every round op goes through `_run_round_op`.
 An op failed by an injected fault (`faults.InjectedFault`, raised at the
 op's site before any device work, so the state is intact) is recorded in
@@ -50,6 +57,7 @@ import logging
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import faults
 from repro_torch.core.minhash import u32_seed_consts
@@ -57,6 +65,7 @@ from repro_torch.core.transfer import GLOBAL as TRANSFER
 from repro_torch.kernels._build import pow2
 from repro_torch.kernels.bitset_fold import carry, ops
 from repro_torch.kernels.bitset_fold.rounds import C_CLAMP
+from repro_torch.launch.mesh import all_gather_rows, block, dp_group, dp_size
 
 _COUNT_KEYS = ("CNT", "colsize", "memcol", "s", "selfc", "nd", "hgt", "cost")
 
@@ -98,33 +107,46 @@ class ResidentBitmapArena:
     """One workspace chunk's merge-round state, resident on its device."""
 
     def __init__(self, state: dict, B: int, G: int, *, top_j: int = 16,
-                 counter=TRANSFER):
+                 counter=TRANSFER, group=None):
         """Wrap a chunk's device ``state`` (`_COUNT_KEYS` plus ``bits``
         ``(Bp, G, Wp)`` int32, ``alive`` and ``dirty`` ``(Bp, G)`` int8):
         ``B`` live groups of ``G`` members, padded to ``Bp`` groups that
-        are all-dead and all-zero, inert in every op."""
+        are all-dead and all-zero, inert in every op. Under a data
+        ``group`` of n ranks, ``state`` holds this rank's block of
+        ``Bp / n`` groups (`launch.mesh`; the rank's index in the group
+        orders the blocks)."""
         self.state = state
         self.counter = counter
         self.device = state["bits"].device
         self.B = int(B)
         self.G = int(G)
-        self.Bp, _, self.Wp = state["bits"].shape
+        self.group = group
+        self.shards = 1 if group is None else dist.get_world_size(group)
+        Bl, _, self.Wp = state["bits"].shape
+        self.Bp = Bl * self.shards
+        self.lo = 0 if group is None else Bl * dist.get_rank(group)
         self.Rp = int(state["CNT"].shape[2])
         self.J = max(1, min(int(top_j), self.G - 1))
         self.rounds = 0
         self.use_kernel = True  # dropped for good by a failed round op
 
     @classmethod
-    def from_workspace(cls, ws, *, top_j: int = 16, device,
+    def from_workspace(cls, ws, *, top_j: int = 16, device, mesh=None,
                        counter=TRANSFER):
         """Upload a host-built `BatchedGroupWorkspace` chunk: its bitmaps
         (the uint32 view of its uint64 words, W padded to a power of two
         ≥ 2) and its integer count state as int32 (the workspace build
         guards every value below C_CLAMP). The batch pads to a power of
-        two. The dirty queue starts as the alive mask — the host sweep's
-        initial queue."""
+        two, times the shard count under a ``mesh`` of more than one data
+        rank, where each rank uploads only its block of groups (the
+        ledger counts the whole chunk, as the reference's does); a 1-rank
+        mesh shards nothing. The dirty queue starts as the alive mask —
+        the host sweep's initial queue."""
+        group, shards = None, 1
+        if mesh is not None and dp_size(mesh) > 1:
+            group, shards = dp_group(mesh), dp_size(mesh)
         B, G, R = ws.CNT.shape
-        Bp = pow2(int(B), floor=1)
+        Bp = shards * pow2(-(-int(B) // shards), floor=1)
         Wp = pow2(int(ws.bits.shape[2]) * 2, floor=2)
         Rp = pow2(int(R), floor=8)
         bits = np.zeros((Bp, G, Wp), dtype=np.uint32)
@@ -145,8 +167,10 @@ class ResidentBitmapArena:
             host[key] = np.zeros((Bp, G), dtype=dt)
             host[key][:B] = src
         counter.add_h2d(sum(v.nbytes for v in host.values()), phase="upload")
-        state = {k: _put(v, device) for k, v in host.items()}
-        return cls(state, B, G, top_j=top_j, counter=counter)
+        rows = (slice(None) if group is None
+                else block(Bp, dist.get_rank(group), shards))
+        state = {k: _put(v[rows], device) for k, v in host.items()}
+        return cls(state, B, G, top_j=top_j, counter=counter, group=group)
 
     @classmethod
     def from_bank(cls, bank, ws, res_map, *, top_j: int = 16,
@@ -185,20 +209,49 @@ class ResidentBitmapArena:
         host arrays of length ``rb.size``. The op ranks J = min(top_j,
         G − 1) columns and masks each row to its group's alive count.
         """
-        rows, ok, z = _run_round_op(
-            self, "kernel.bitset_fold.round",
-            lambda uk: ops.propose(self.state, self.J, theta_p, height_bound,
-                                   use_kernel=uk))
-        if rows.shape[0] != rb.size:
-            raise RuntimeError(
-                f"device dirty queue holds {rows.shape[0]} rows, the host's "
-                f"{rb.size}: the resident state left lockstep")
-        out = torch.stack([ok.to(torch.int8), z.to(torch.int8)], 1).cpu()
-        out = out.numpy()
+        if self.group is not None:
+            out = self._propose_sharded(rb, theta_p, height_bound)
+        else:
+            rows, ok, z = _run_round_op(
+                self, "kernel.bitset_fold.round",
+                lambda uk: ops.propose(self.state, self.J, theta_p,
+                                       height_bound, use_kernel=uk))
+            if rows.shape[0] != rb.size:
+                raise RuntimeError(
+                    f"device dirty queue holds {rows.shape[0]} rows, the "
+                    f"host's {rb.size}: the resident state left lockstep")
+            out = torch.stack([ok.to(torch.int8), z.to(torch.int8)], 1)
+            out = out.cpu().numpy()
         self.counter.add_d2h(out.nbytes, phase="rank")
         self.counter.tick_round()
         self.rounds += 1
         return out[:, 0] > 0, out[:, 1].astype(np.int64)
+
+    def _gather(self, local: torch.Tensor) -> torch.Tensor:
+        """Every rank's block of a per-group output, in group order."""
+        full = local.new_empty((local.shape[0] * self.shards,
+                                *local.shape[1:]))
+        all_gather_rows(full, local.contiguous(), self.group)
+        return full
+
+    def _propose_sharded(self, rb: np.ndarray, theta_p: int,
+                         height_bound) -> np.ndarray:
+        """The proposal round under a mesh: each rank proposes over its
+        block (`ops.propose_dense`) and the ``(Bp, G, 3)`` rows are
+        all-gathered, so every host reads the same ``(accept, partner)``
+        of its dirty rows — which the gathered dirty mask must list, in
+        the host's row-major order."""
+        local = _run_round_op(
+            self, "kernel.bitset_fold.round",
+            lambda uk: ops.propose_dense(self.state, self.J, theta_p,
+                                         height_bound, use_kernel=uk))
+        full = self._gather(local).cpu().numpy()
+        db, dr = np.nonzero(full[..., 0])
+        if not np.array_equal(db, rb):
+            raise RuntimeError(
+                f"the ranks' dirty queues hold {db.size} rows, the host's "
+                f"{rb.size}: the resident state left lockstep")
+        return full[db, dr, 1:]
 
     def fold_counts(self, b: np.ndarray, a: np.ndarray, z: np.ndarray):
         """Fold one round's accepted pairs (rows z into rows a of groups b,
@@ -212,6 +265,12 @@ class ResidentBitmapArena:
         up = np.stack([b, slot, a, z]).astype(np.int32)
         self.counter.add_h2d(up.nbytes, phase="fold")
         t = _put(up, self.device).to(torch.int64)
+        if self.group is not None:
+            _run_round_op(self, "kernel.bitset_fold.fold_counts",
+                          lambda uk: ops.fold_shard(
+                              self.state, t[0], t[1], t[2], t[3], P, self.lo,
+                              use_kernel=uk))
+            return
         _run_round_op(self, "kernel.bitset_fold.fold_counts",
                       lambda uk: ops.fold(self.state, t[0], t[1], t[2], t[3],
                                           P, use_kernel=uk))
@@ -229,11 +288,21 @@ class ResidentBitmapArena:
         rows[:n, 0] = rb
         rows[:n, 1] = rr
         self.counter.add_h2d(rows.nbytes, phase="rank")
-        t = _put(rows, self.device).to(torch.int64)
-        out = _run_round_op(
-            self, "kernel.bitset_fold.topj",
-            lambda uk: ops.topj(self.state, t, self.J, use_kernel=uk))
-        out = out.to(torch.int8).cpu().numpy()
+        if self.group is not None:
+            # every row of the rank's block, all-gathered, then the host's
+            out = self._gather(_run_round_op(
+                self, "kernel.bitset_fold.topj",
+                lambda uk: ops.topj(self.state, self._block_rows(), self.J,
+                                    use_kernel=uk)))
+            out = out.to(torch.int8).cpu().numpy()[rb * self.G + rr]
+            out = np.concatenate([out, np.zeros((n_pad - n, self.J),
+                                                dtype=np.int8)])
+        else:
+            t = _put(rows, self.device).to(torch.int64)
+            out = _run_round_op(
+                self, "kernel.bitset_fold.topj",
+                lambda uk: ops.topj(self.state, t, self.J, use_kernel=uk))
+            out = out.to(torch.int8).cpu().numpy()
         self.counter.add_d2h(out.nbytes, phase="rank")
         self.counter.tick_round()
         self.rounds += 1
@@ -260,13 +329,25 @@ class ResidentBitmapArena:
         instr[b, slot, 5] = cz & 31
         instr[b, slot, 6] = 1
         self.counter.add_h2d(instr.nbytes, phase="fold")
+        if self.group is not None:  # this rank's block of the slab
+            instr = instr[self.lo: self.lo + self.Bp // self.shards]
         t = _put(instr, self.device).to(torch.int32)
         _run_round_op(self, "kernel.bitset_fold.fold",
                       lambda uk: ops.fold_bits(self.state, t, use_kernel=uk))
 
+    def _block_rows(self) -> torch.Tensor:
+        """``[group, row]`` of every row of the state, (Bl·G, 2) int64."""
+        Bl = self.Bp // self.shards
+        ids = torch.arange(Bl * self.G, device=self.device)
+        return torch.stack([ids // self.G, ids % self.G], 1)
+
     # --------------------------------------------------- sync-back contract
+    def _full(self, key) -> torch.Tensor:
+        t = self.state[key]
+        return t if self.group is None else self._gather(t)
+
     def _download(self, key):
-        out = self.state[key][: self.B].cpu().numpy()
+        out = self._full(key)[: self.B].cpu().numpy()
         self.counter.add_d2h(out.nbytes, phase="sync")
         return out
 
@@ -274,7 +355,7 @@ class ResidentBitmapArena:
         """Download selected bitmap rows — ``(n, Wp)`` uint32."""
         idx = tuple(torch.as_tensor(np.asarray(v, dtype=np.int64),
                                     device=self.device) for v in (b, g))
-        rows = self.state["bits"][idx].cpu().numpy().view(np.uint32)
+        rows = self._full("bits")[idx].cpu().numpy().view(np.uint32)
         self.counter.add_d2h(rows.nbytes, phase="sync")
         return rows
 

@@ -1,12 +1,13 @@
 """Deterministic synthetic LM data pipeline (the JAX package's
-`data/pipeline.py`, single-device).
+`data/pipeline.py`).
 
 Zipf-mixture token streams packed to (batch, seq + 1), pure in (seed,
 step), so a resumed run replays its batches bit for bit. The batch
 arrays are numpy, drawn exactly as the reference draws them, so both
-packages see the same tokens, frames and patch embeddings. The
-host-sharded placement onto a mesh (``batch_sharded``) belongs to the
-multi-device slice and is not here.
+packages see the same tokens, frames and patch embeddings. Under a mesh
+(`TokenStream.batch_sharded`, ``make_batch(..., mesh=)``) each rank keeps
+only its block of rows along the data axes — the reference's host-sharded
+placement.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import resolve_device
+from repro_torch.launch.mesh import block, dp_rank, dp_size
+from repro_torch.models.sharding import batch_pspec
 from repro_torch.models.transformer import DTYPES
 
 
@@ -43,6 +46,13 @@ class TokenStream:
                 toks[i, p:p + 16] = motif
         return toks.astype(np.int32)
 
+    def batch_sharded(self, step: int, mesh, dp_axes) -> np.ndarray:
+        """This rank's rows of ``batch_np(step)``: its block along the
+        ``dp_axes`` of ``mesh`` (the reference's ``P(dp, None)``), or
+        every row when the batch does not split evenly over them (its
+        ``batch_pspec`` then replicates)."""
+        return _rows(self.batch_np(step), mesh, dp_axes)
+
 
 def _noise(seed: int, step: int, salt: int, shape, dtype, device):
     """N(0, 1) float64 noise of (seed, step, salt), cast to ``dtype``
@@ -52,20 +62,38 @@ def _noise(seed: int, step: int, salt: int, shape, dtype, device):
     return torch.from_numpy(rng.normal(size=shape)).to(dtype).to(device)
 
 
-def make_batch(cfg, stream: TokenStream, step: int, device=None) -> dict:
+def _rows(arr, mesh, dp_axes):
+    """This rank's block of ``arr``'s rows along the data axes, or all of
+    them when they do not split evenly (`sharding.batch_pspec`)."""
+    if mesh is None:
+        return arr
+    if batch_pspec(mesh, dp_axes, arr.shape[0])[0] is None:
+        return arr
+    return arr[block(arr.shape[0], dp_rank(mesh, dp_axes),
+                     dp_size(mesh, dp_axes))]
+
+
+def make_batch(cfg, stream: TokenStream, step: int, device=None, mesh=None,
+               dp_axes=("data",)) -> dict:
     """Step ``step``'s batch on ``device`` (``None``: the CUDA card, which
     must exist): ``"tokens"`` (batch, seq + 1) int32; an encoder-decoder
     adds ``"frames"`` (batch, seq, d), a VLM ``"embeds"`` (batch,
-    n_patches, d), each N(0, 1) in ``cfg.dtype`` from its own stream."""
+    n_patches, d), each N(0, 1) in ``cfg.dtype`` from its own stream.
+    Under a ``mesh`` each entry holds this rank's rows only
+    (`TokenStream.batch_sharded`)."""
     dev = resolve_device(device)
-    batch = {"tokens": torch.from_numpy(stream.batch_np(step)).to(dev)}
+    toks = (stream.batch_np(step) if mesh is None
+            else stream.batch_sharded(step, mesh, dp_axes))
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
     dtype = DTYPES[cfg.dtype]
     if cfg.encoder_layers:
-        batch["frames"] = _noise(stream.seed, step, 1,
-                                 (stream.batch, stream.seq, cfg.d_model),
-                                 dtype, dev)
+        batch["frames"] = _rows(_noise(stream.seed, step, 1,
+                                       (stream.batch, stream.seq,
+                                        cfg.d_model), dtype, dev),
+                                mesh, dp_axes)
     elif cfg.n_patches:
-        batch["embeds"] = _noise(stream.seed, step, 2,
-                                 (stream.batch, cfg.n_patches, cfg.d_model),
-                                 dtype, dev)
+        batch["embeds"] = _rows(_noise(stream.seed, step, 2,
+                                       (stream.batch, cfg.n_patches,
+                                        cfg.d_model), dtype, dev),
+                                mesh, dp_axes)
     return batch

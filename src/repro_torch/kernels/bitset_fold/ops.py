@@ -17,6 +17,11 @@ and, for the v1 protocol (tests and tools), `topj` — the ranked top-J
 columns of selected rows — and `fold_bits` — the bitmap-only fold of a
 host-built slab. The bank → arena extraction is `extract`.
 
+Under a mesh each rank holds a block of the arena's groups and runs the
+per-rank bodies on it: `propose_dense` (the proposal laid out over every
+row, so the ranks can all-gather it) and `fold_shard` (the pairs of the
+rank's groups, the others skipped).
+
 Each op checks its fault site (``kernel.bitset_fold.<op>``, `faults.check`)
 before any device work, so an injected fault leaves the state intact and
 the arena can retry the op once on the plain versions (DESIGN.md §11).
@@ -64,6 +69,37 @@ def propose(state: dict, J: int, theta_p: int, height_bound, *,
     return rows, ok, z
 
 
+def propose_dense(state: dict, J: int, theta_p: int, height_bound, *,
+                  use_kernel: bool = True) -> torch.Tensor:
+    """`propose` laid out over the whole state: ``(B, G, 3)`` int8, per row
+    ``[was dirty, accept, partner]`` (zeros for rows that were not dirty).
+    The per-rank body of the arena's proposal round under a mesh: its
+    fixed shape lets the ranks all-gather it."""
+    rows, ok, z = propose(state, J, theta_p, height_bound,
+                         use_kernel=use_kernel)
+    out = torch.zeros((*state["dirty"].shape, 3), dtype=torch.int8,
+                      device=rows.device)
+    out[rows[:, 0], rows[:, 1]] = torch.stack(
+        [torch.ones_like(z), ok.to(z.dtype), z], 1).to(torch.int8)
+    return out
+
+
+def fold_shard(state: dict, b, slot, a, z, P: int, lo: int, *,
+               use_kernel: bool = True) -> int:
+    """The per-rank body of the arena's fold under a mesh: the pairs of
+    groups ``lo .. lo + B`` (``B`` the state's groups; ``b`` global group
+    ids) folded into ``state`` as `fold` folds them, the others skipped.
+    The fault site is checked on every rank alike, pairs or none. Returns
+    the pairs folded; with none, nothing launches."""
+    faults.check("kernel.bitset_fold.fold_counts")
+    B = state["bits"].shape[0]
+    mine = (b >= lo) & (b < lo + B)
+    if not bool(mine.any()):
+        return 0
+    _fold(state, b[mine] - lo, slot[mine], a[mine], z[mine], P, use_kernel)
+    return int(mine.sum())
+
+
 def fold(state: dict, b, slot, a, z, P: int, *,
          use_kernel: bool = True) -> None:
     """Fold one round's accepted pairs (``(m,)`` int64 tensors on the
@@ -73,6 +109,10 @@ def fold(state: dict, b, slot, a, z, P: int, *,
     count phases neither read nor need (both clear ``alive`` of the
     absorbed rows)."""
     faults.check("kernel.bitset_fold.fold_counts")
+    _fold(state, b, slot, a, z, P, use_kernel)
+
+
+def _fold(state: dict, b, slot, a, z, P: int, use_kernel: bool) -> None:
     memcol = state["memcol"]
     ca = memcol[b, a]
     cz = memcol[b, z]

@@ -65,6 +65,14 @@ def group_jaccard(bits: np.ndarray, device=None) -> np.ndarray:
     return jac.to(torch.float32).cpu().numpy()
 
 
+def count_dispatch() -> None:
+    """Count one rank dispatch that passed its fault site (this one's and
+    the mesh dispatch's, `core/distributed.batched_intersections_mesh`)."""
+    global DISPATCHES
+    with _COUNT_LOCK:
+        DISPATCHES += 1
+
+
 def batched_pairwise_intersections(bits: np.ndarray,
                                    device=None) -> np.ndarray:
     """All-pairs intersection popcounts for a size-bucketed group batch.
@@ -76,10 +84,8 @@ def batched_pairwise_intersections(bits: np.ndarray,
     """
     if device is None:
         raise ValueError("the intersection dispatch needs a device")
-    global DISPATCHES
     faults.check("kernel.bitset_jaccard.intersections")
-    with _COUNT_LOCK:
-        DISPATCHES += 1
+    count_dispatch()
     B, G, W = bits.shape
     Wp = pow2(W)
     out = np.empty((B, G, G), dtype=np.int64)

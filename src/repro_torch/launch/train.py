@@ -1,5 +1,4 @@
-"""End-to-end training driver on one device (the JAX package's
-`launch/train.py`).
+"""End-to-end training driver (the JAX package's `launch/train.py`).
 
     python -m repro_torch.launch.train --arch mamba2-130m --smoke --steps 200 [--device cpu]
 
@@ -9,9 +8,17 @@ its step, bit for bit):
 
     python -m repro_torch.launch.train --arch mamba2-130m --smoke --steps 200 --resume
 
-``--data-parallel`` and ``--model-parallel`` above 1 need the
-multi-device slice (E5) and raise; nothing trains on fewer devices than
-asked.
+Data-parallel with ZeRO-1 (`train/train_step.py`), one process a card,
+NCCL (gloo with ``--device cpu``):
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --data-parallel 4 ...
+
+``--data-parallel`` must equal the world size; the process group comes
+from torchrun's environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``),
+or from a caller that has already initialized one. Checkpoints hold whole
+moments, so ``--resume`` restores under any rank count. A
+``--model-parallel`` above 1 (tensor and expert parallelism) is slice E6
+and raises; nothing trains on fewer devices than asked.
 """
 from __future__ import annotations
 
@@ -21,10 +28,12 @@ import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.registry import get_config
 from repro_torch.core.engine import resolve_device
 from repro_torch.data.pipeline import TokenStream, make_batch
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.api import get_api
 from repro_torch.optim import adamw
 from repro_torch.train import checkpoint as CKPT
@@ -53,30 +62,30 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="'cuda' (the default) or 'cpu'")
     args = ap.parse_args(argv)
-    if args.data_parallel > 1 or args.model_parallel > 1:
+    if args.model_parallel > 1:
         raise ValueError(
-            f"--data-parallel {args.data_parallel} --model-parallel "
-            f"{args.model_parallel}: training on more than one device is "
-            f"slice E5, not ported yet; this driver trains on one")
+            f"--model-parallel {args.model_parallel}: tensor and expert "
+            f"parallelism is slice E6, not ported yet")
     device = resolve_device(args.device)
+    mesh = _data_mesh(args.data_parallel, device)
 
     cfg = get_config(args.arch, smoke=args.smoke)
     plan = TrainPlan(cfg=cfg, opt=adamw.AdamWConfig(lr=args.lr),
-                     total_steps=args.steps)
+                     total_steps=args.steps, mesh=mesh)
     step_fn = build_train_step(plan)
     stream = TokenStream(cfg.vocab, args.batch, args.seq, seed=args.seed)
     params = get_api(cfg).init_params(
         cfg, torch.Generator(device=device).manual_seed(args.seed),
         device=device)
-    state = init_state(params, plan.opt)
+    state = init_state(params, plan.opt, plan)
     start_step = 0
     if args.resume:
-        restored, at = CKPT.restore(state, args.ckpt_dir)
+        restored, at = CKPT.restore(state, args.ckpt_dir, mesh=mesh)
         if restored is not None:
             state, start_step = restored, at
             print(f"[train] resumed from step {start_step}")
 
-    ckpt = CKPT.AsyncCheckpointer(args.ckpt_dir)
+    ckpt = CKPT.AsyncCheckpointer(args.ckpt_dir, mesh=mesh)
     losses = []
 
     def metrics_cb(step, metrics):
@@ -87,11 +96,12 @@ def main(argv=None):
 
     def restore_fn():
         ckpt.wait()  # a save still in flight is the checkpoint to restore
-        return CKPT.restore(loop.state, args.ckpt_dir)
+        return CKPT.restore(loop.state, args.ckpt_dir, mesh=mesh)
 
     loop = ResilientLoop(
         step_fn=step_fn, state=state,
-        make_batch=lambda s: make_batch(cfg, stream, s, device=device),
+        make_batch=lambda s: make_batch(cfg, stream, s, device=device,
+                                        mesh=mesh),
         checkpointer=ckpt,
         ft=FaultToleranceConfig(ckpt_every=args.ckpt_every),
         restore_fn=restore_fn)
@@ -109,6 +119,33 @@ def main(argv=None):
               f"({(end_step - start_step) / max(dt, 1e-9):.2f} steps/s) on "
               f"{device}; loss {losses[0]:.3f} -> {losses[-1]:.3f}")
     return losses
+
+
+def _data_mesh(n: int, device):
+    """The ``(data, model)`` mesh of ``--data-parallel n`` (model 1, as
+    the reference's `make_host_mesh`): None for 1 in a world of one; else a
+    mesh over the world, which must hold exactly ``n`` ranks.
+    Under torchrun with no group up yet, the group is started from its
+    environment — NCCL on the card (this rank's ``LOCAL_RANK``), gloo on
+    the CPU."""
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE",
+                                                        "1")) > 1:
+        if device.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo", init_method="env://")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world > 1 and device.type == "cuda" and dist.get_backend() != "nccl":
+        raise RuntimeError("training on the card needs an NCCL process "
+                           "group")
+    if n != world:
+        raise ValueError(
+            f"--data-parallel {n} needs a world of {n} ranks (torchrun "
+            f"--nproc-per-node {n}); this process runs in a world of "
+            f"{world}")
+    if n == 1:
+        return None
+    return make_host_mesh(n, 1)
 
 
 if __name__ == "__main__":

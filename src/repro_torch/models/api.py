@@ -16,6 +16,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, transformer
+from repro_torch.models.sharding import constrain
 
 
 @dataclass(frozen=True)
@@ -93,7 +94,8 @@ def lm_loss(params, cfg: ModelConfig, batch, aux_weight: float = 0.01,
            if cfg.padded_vocab != cfg.vocab else None)
 
     def chunk_nll(x_c, y_c):
-        logits = transformer._logits(params, cfg, x_c).float()
+        logits = constrain(transformer._logits(params, cfg, x_c).float(),
+                           ("dp", None, "model"))
         if pad is not None:
             logits = torch.where(pad, logits, -1e30)
         logz = torch.logsumexp(logits, dim=-1)

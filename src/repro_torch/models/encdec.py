@@ -22,6 +22,7 @@ from repro_torch.core.engine import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import rms_norm, swiglu
+from repro_torch.models.sharding import constrain
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
@@ -56,7 +57,8 @@ def _ffn(lp, cfg, x):
 
 def encode(params, cfg: ModelConfig, frames):
     """frames (b, s, d) -> the encoder's normed output (b, s, d)."""
-    x = frames.to(params["frontend"].dtype) @ params["frontend"]
+    x = constrain(frames.to(params["frontend"].dtype) @ params["frontend"],
+                  ("dp", None, None))
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     lps = T.layers(params["enc_layers"])
@@ -69,7 +71,7 @@ def _enc_layer(lp, cfg, x, positions):
     h, _ = A.gqa_full(lp["attn"], cfg, rms_norm(x, lp["ln1"], cfg.norm_eps),
                       positions, causal=False)
     x = x + h
-    return x + _ffn(lp, cfg, x)
+    return constrain(x + _ffn(lp, cfg, x), ("dp", None, None))
 
 
 def _dec_layer(lp, cfg, x, positions, enc):
@@ -80,7 +82,7 @@ def _dec_layer(lp, cfg, x, positions, enc):
     ekv = A.cross_precompute(lp["xattn"], cfg, enc)
     x = x + A.cross_full(lp["xattn"], cfg,
                          rms_norm(x, lp["lnx"], cfg.norm_eps), ekv)
-    return x + _ffn(lp, cfg, x), kv, ekv
+    return constrain(x + _ffn(lp, cfg, x), ("dp", None, None)), kv, ekv
 
 
 def _decoder(params, cfg, tokens, enc, keep: bool):

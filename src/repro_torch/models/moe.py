@@ -29,10 +29,12 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import lowp_matmul_f32
+from repro_torch.models.sharding import constrain, data_group
 
 
 def param_shapes(cfg: ModelConfig, lead: tuple = ()) -> dict:
@@ -118,10 +120,12 @@ def moe_ffn(p, cfg: ModelConfig, x):
     src = src[:, :e * cap].view(b, e, cap).transpose(0, 1).contiguous()
     x_pad = torch.cat([x, x.new_zeros(b, 1, d)], dim=1)
     # gathered expert-major, so "gecd,edf->gecf" is one batched matmul
-    xe = x_pad[gi[None], src].view(e, b * cap, d)
+    xe = constrain(x_pad[gi[None], src].view(e, b * cap, d),
+                   ("model", "dp", None))
     h = F.silu(torch.bmm(xe, p["we_gate"])) * torch.bmm(xe, p["we_up"])
     del xe
-    eo = torch.bmm(h, p["we_down"])                          # (e, b·cap, d)
+    eo = constrain(torch.bmm(h, p["we_down"]),               # (e, b·cap, d)
+                   ("model", "dp", None))
     del h
 
     # combine: each (token, k) reads its row of eo, expert-major; dropped
@@ -143,8 +147,39 @@ def moe_ffn(p, cfg: ModelConfig, x):
     return out, aux
 
 
+class _SumOverRanks(torch.autograd.Function):
+    """SUM all-reduce over ``group`` that autograd sees through: the
+    gradient of every rank's copy of the sum is the SUM of the ranks'
+    gradients, as the data-parallel mean of the gradients then needs."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def _global_mean(local_mean, group):
+    """The mean over every rank's rows of a per-rank mean (the ranks hold
+    equal row counts), differentiably."""
+    if group is None:
+        return local_mean
+    return _SumOverRanks.apply(local_mean, group) / dist.get_world_size(group)
+
+
 def _load_balance_loss(probs, top_e, n_experts):
-    """Switch-style auxiliary load-balancing loss (f32)."""
-    me = probs.mean(0)
-    ce = F.one_hot(top_e[:, 0], n_experts).float().mean(0)
+    """Switch-style auxiliary load-balancing loss (f32) over the GLOBAL
+    batch: under a data-parallel mesh context (`sharding.data_group`) both
+    per-expert means are reduced over the ranks first, so the loss is the
+    whole batch's and not a mean of per-rank products."""
+    group = data_group()
+    me = _global_mean(probs.mean(0), group)
+    ce = _global_mean(F.one_hot(top_e[:, 0], n_experts).float().mean(0), group)
     return n_experts * torch.sum(me * ce)

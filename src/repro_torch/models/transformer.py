@@ -10,7 +10,8 @@ a Python loop over views of that stack (one ``unbind`` a leaf, so
 autograd hands the stacked leaf its gradient in one stack). Where autograd
 records, each layer body runs under ``cfg.remat`` (`remat`), as the
 reference's ``_maybe_remat`` wraps its scan bodies. ``sharding.constrain``
-is the identity on one device and is left out.
+sits where the reference's does: the identity on a data axis, raising
+under a model axis above 1 (slice E6).
 
 The SSM family stacks Mamba2 blocks (``layers = {"ln", "mamba"}``); a
 hybrid (``attn_every``, Zamba2-style) follows each group of
@@ -37,6 +38,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import init_linear, rms_norm, swiglu
+from repro_torch.models.sharding import constrain
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -202,9 +204,9 @@ def attn_block_full(p, cfg: ModelConfig, x, positions):
     full = A.mla_full if cfg.mla is not None else A.gqa_full
     h, cache = full(p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps),
                     positions)
-    x = x + h
+    x = constrain(x + h, ("dp", None, None))
     f, aux = _ffn(p, cfg, rms_norm(x, p["ln2"], cfg.norm_eps))
-    return x + f, cache, aux
+    return constrain(x + f, ("dp", None, None)), cache, aux
 
 
 def attn_block_decode(p, cfg: ModelConfig, x, cache, pos):
@@ -227,7 +229,7 @@ def ssm_block_full(p, cfg: ModelConfig, x, conv_state=None, h0=None):
     h, cache = SSM.mamba2_full(p["mamba"], cfg,
                                rms_norm(x, p["ln"], cfg.norm_eps),
                                conv_state, h0)
-    return x + h, cache
+    return constrain(x + h, ("dp", None, None)), cache
 
 
 def ssm_block_decode(p, cfg: ModelConfig, x, cache):
@@ -242,7 +244,7 @@ def _embed(params, cfg, tokens, embeds):
     x = params["embed"][tokens]
     if embeds is not None:
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
-    return x
+    return constrain(x, ("dp", None, None))
 
 
 def _logits(params, cfg, x):

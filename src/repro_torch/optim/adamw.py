@@ -1,10 +1,12 @@
-"""AdamW on one device (the JAX package's `optim/adamw.py`, without the
-ZeRO-1 moment shardings, which belong to the multi-device slice).
+"""AdamW (the JAX package's `optim/adamw.py`).
 
 State mirrors the parameters: ``{"m": tree, "v": tree, "step": int32}``,
 moments in f32 or, with ``moment_dtype="bfloat16"``, stored in bf16 (the
 math runs in f32 either way). Leaves are taken in the reference's flatten
-order, sorted dict keys.
+order, sorted dict keys. Under ZeRO-1 (`train/train_step.py`) each rank
+keeps only its slice of every moment — ``shards`` names, per leaf, the
+``(dim, start, length)`` of that slice, or None where the moment is whole —
+and updates only the matching slice of each parameter.
 
 `apply_updates` updates parameters and moments IN PLACE, where the
 reference returns new trees: a functional update would hold a second copy
@@ -71,17 +73,24 @@ def unflatten(tree, flat: list):
     return build(tree)
 
 
-def init_state(params, moment_dtype: str = "float32") -> dict:
-    """Zero moments beside ``params`` (same shapes and devices) and a step
-    count of 0."""
+def _narrow(t: torch.Tensor, shard):
+    return t if shard is None else t.narrow(*shard)
+
+
+def init_state(params, moment_dtype: str = "float32", shards=None) -> dict:
+    """Zero moments beside ``params`` (same shapes and devices, or the
+    slices ``shards`` names) and a step count of 0."""
     dt = DTYPES[moment_dtype]
+    flat = leaves(params)
+    shards = shards or [None] * len(flat)
 
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
+    def zeros():
+        return unflatten(params, [
+            torch.zeros(_narrow(p, s).shape, dtype=dt, device=p.device)
+            for p, s in zip(flat, shards)])
 
-    dev = leaves(params)[0].device
-    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    return {"m": zeros(), "v": zeros(),
+            "step": torch.zeros((), dtype=torch.int32, device=flat[0].device)}
 
 
 def _slices(t: torch.Tensor) -> list:
@@ -115,11 +124,14 @@ def _update(p, g, m, v, cfg, scale, b1c, b2c, lr):
 
 
 @torch.no_grad()
-def apply_updates(params, grads, opt_state, cfg: AdamWConfig, lr_scale=1.0):
+def apply_updates(params, grads, opt_state, cfg: AdamWConfig, lr_scale=1.0,
+                  shards=None):
     """One AdamW step IN PLACE on ``params`` and ``opt_state`` (``grads``
     in the tree of ``params``, any float dtype): the update clipped to a
-    global norm of ``cfg.grad_clip``, bias-corrected at the incremented
-    step, learning rate ``cfg.lr · lr_scale``. Returns the metrics
+    global norm of ``cfg.grad_clip`` (over the whole ``grads``),
+    bias-corrected at the incremented step, learning rate ``cfg.lr ·
+    lr_scale``. With ``shards`` only the named slice of each parameter is
+    updated, against moments that hold that slice. Returns the metrics
     ``{"grad_norm", "lr"}`` (0-d f32 tensors). Raises `TornUpdate` if a
     write fails part way."""
     gnorm = global_norm(grads)
@@ -129,8 +141,11 @@ def apply_updates(params, grads, opt_state, cfg: AdamWConfig, lr_scale=1.0):
     b2c = 1.0 - torch.pow(cfg.b2, step.float())
     lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32,
                                   device=gnorm.device)
-    flat = list(zip(leaves(params), leaves(grads), leaves(opt_state["m"]),
-                    leaves(opt_state["v"])))
+    ps_, gs_ = leaves(params), leaves(grads)
+    shards = shards or [None] * len(ps_)
+    flat = list(zip([_narrow(p, s) for p, s in zip(ps_, shards)],
+                    [_narrow(g, s) for g, s in zip(gs_, shards)],
+                    leaves(opt_state["m"]), leaves(opt_state["v"])))
     try:
         for p, g, m, v in flat:
             for ps, gs, ms, vs in zip(*(_slices(t) for t in (p, g, m, v))):

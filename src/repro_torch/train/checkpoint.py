@@ -10,6 +10,13 @@ bfloat16 leaf, which ``.npy`` cannot hold, is stored as its raw bytes
 (``"raw_bytes": true``) and read back as 16-bit patterns viewed as
 bfloat16, so neither package needs the other's dtype library. A
 checkpoint written by either package restores in the other.
+
+Under a mesh (ZeRO-1, `train/train_step.py`) a state's moments are this
+rank's slices: `save` all-gathers them along the dim where a moment's
+shape differs from its parameter's and rank 0 of the data group writes
+the whole state, in the same format; ``restore(..., mesh=)`` reads whole
+leaves and gives each rank its slice of those its state holds sliced. So
+a state saved under n ranks restores under any other count, or none.
 """
 from __future__ import annotations
 
@@ -21,8 +28,10 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.optim.adamw import tree_map
+from repro_torch.launch.mesh import dp_group
+from repro_torch.optim.adamw import leaves, tree_map, unflatten
 
 
 def _paths_of(tree, prefix=""):
@@ -46,9 +55,56 @@ def _to_numpy(leaf):
     return arr, str(arr.dtype), list(arr.shape), False
 
 
-def save(state, step: int, ckpt_dir: str) -> str:
+def _sliced_dim(part: tuple, whole: tuple):
+    """The one dim along which a slice of shape ``part`` was cut from
+    ``whole``, or None when the shapes are equal."""
+    dims = [i for i, (a, b) in enumerate(zip(part, whole)) if a != b]
+    if len(part) != len(whole) or len(dims) > 1:
+        raise ValueError(f"a slice of shape {part} cannot come from {whole}")
+    return dims[0] if dims else None
+
+
+def gather_zero1(state, group):
+    """``state`` with every ZeRO-1 moment slice all-gathered over
+    ``group`` into the whole moment (in rank order, along the dim where
+    its shape differs from its parameter's); other leaves as they are.
+    Every rank of ``group`` must call it."""
+    if "opt" not in state or "params" not in state:
+        return state
+    n = dist.get_world_size(group)
+    whole = [tuple(p.shape) for p in leaves(state["params"])]
+
+    def gathered(tree):
+        out = []
+        for t, shape in zip(leaves(tree), whole):
+            dim = _sliced_dim(tuple(t.shape), shape)
+            if dim is None:
+                out.append(t)
+                continue
+            parts = [torch.empty_like(t) for _ in range(n)]
+            dist.all_gather(parts, t.contiguous(), group=group)
+            out.append(torch.cat(parts, dim=dim))
+        return unflatten(tree, out)
+
+    opt = dict(state["opt"])
+    opt["m"], opt["v"] = gathered(opt["m"]), gathered(opt["v"])
+    return {**state, "opt": opt}
+
+
+def save(state, step: int, ckpt_dir: str, mesh=None) -> str:
     """Write ``state`` (a nested dict of tensors or arrays) as checkpoint
-    ``step`` under ``ckpt_dir``; returns its directory."""
+    ``step`` under ``ckpt_dir``; returns its directory. Under ``mesh``
+    every rank of the data group calls it: the ZeRO-1 slices are gathered
+    (`gather_zero1`), rank 0 writes, and all return once it has."""
+    if mesh is not None:
+        group = dp_group(mesh)
+        state = gather_zero1(state, group)
+        try:
+            if dist.get_rank(group) == 0:
+                return save(state, step, ckpt_dir)
+            return os.path.join(ckpt_dir, f"step_{step:08d}")
+        finally:
+            dist.barrier(group=group)
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -92,11 +148,18 @@ def _load(d: str, entry: dict) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, dtype=np.dtype(entry["dtype"])))
 
 
-def restore(state_like, ckpt_dir: str, step: int = None):
+def restore(state_like, ckpt_dir: str, step: int = None, mesh=None):
     """Checkpoint ``step`` (default: the latest) read into the tree of
     ``state_like``, each leaf on the device of ``state_like``'s. Returns
-    ``(state, step)``, or ``(None, None)`` when there is none. Raises when
-    a leaf is missing or its shape or dtype is not ``state_like``'s."""
+    ``(state, step)``, or ``(None, None)`` when there is none. Under
+    ``mesh`` a leaf that ``state_like`` holds as a ZeRO-1 slice (one dim
+    1/n of the checkpoint's, n the data group's size) gets this rank's
+    slice. Raises when a leaf is missing or its shape or dtype is not
+    ``state_like``'s."""
+    rank = n = None
+    if mesh is not None:
+        group = dp_group(mesh)
+        rank, n = dist.get_rank(group), dist.get_world_size(group)
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         return None, None
@@ -111,6 +174,11 @@ def restore(state_like, ckpt_dir: str, step: int = None):
         if key not in by_key:
             raise KeyError(f"checkpoint {d} has no leaf {key!r}")
         t = _load(d, by_key[key])
+        if n is not None and tuple(t.shape) != tuple(node.shape):
+            dim = _sliced_dim(tuple(node.shape), tuple(t.shape))
+            if node.shape[dim] * n == t.shape[dim]:
+                t = t.narrow(dim, rank * node.shape[dim],
+                             node.shape[dim]).clone()
         if tuple(t.shape) != tuple(node.shape) or t.dtype != node.dtype:
             raise ValueError(f"{key}: checkpoint holds {t.dtype} "
                              f"{tuple(t.shape)}, the state {node.dtype} "
@@ -123,11 +191,16 @@ def restore(state_like, ckpt_dir: str, step: int = None):
 class AsyncCheckpointer:
     """Background-thread saver with a queue of one: `submit` blocks while
     a save is still in flight (backpressure instead of memory growth), and
-    never drops one."""
+    never drops one. Under ``mesh`` every rank of the data group calls
+    `submit`, `wait` and `close` at the same points: `submit` gathers the
+    ZeRO-1 slices (`gather_zero1`) and only rank 0 writes; `wait` and
+    `close` return on every rank once rank 0's saves are on disk."""
 
-    def __init__(self, ckpt_dir: str, keep: int = 3):
+    def __init__(self, ckpt_dir: str, keep: int = 3, mesh=None):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
+        self.group = dp_group(mesh) if mesh is not None else None
+        self.writer = self.group is None or dist.get_rank(self.group) == 0
         self.q: "queue.Queue" = queue.Queue(maxsize=1)
         self.errors: list = []
         self._t = threading.Thread(target=self._worker, daemon=True)
@@ -165,12 +238,21 @@ class AsyncCheckpointer:
                 return t.detach().to("cpu", copy=True)
             return np.array(t)
 
-        self.q.put((tree_map(host, state), step))
+        if self.group is not None:
+            state = gather_zero1(state, self.group)
+        if self.writer:
+            self.q.put((tree_map(host, state), step))
+
+    def _sync(self):
+        if self.group is not None:
+            dist.barrier(group=self.group)
 
     def wait(self):
         self.q.join()
+        self._sync()
 
     def close(self):
         self.q.join()
         self.q.put(None)
         self._t.join()
+        self._sync()

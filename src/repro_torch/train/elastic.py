@@ -1,0 +1,127 @@
+"""Elastic scaling: move a live state onto a different mesh (the JAX
+package's `train/elastic.py`).
+
+When the rank pool changes (a node lost, or added back), the caller builds
+a mesh over the ranks that remain (`make_mesh_for`), derives the specs
+against it — the divisibility guards adapt: a dim that split 4 ways may
+replicate on 3 — and `remesh_state` moves every leaf onto its new spec
+with its values unchanged. Data-pipeline determinism makes the transition
+exact: ``batch(step)`` is pure in (seed, step) whatever the mesh.
+
+A leaf placed on a mesh is a `Placed`: this rank's block of the global
+tensor under its spec (None on a rank outside the mesh), with the global
+shape beside it — what a jax array on a ``NamedSharding`` is to its
+devices. Every rank of the world runs `make_mesh_for` and `remesh_state`
+alike (SPMD), members of the meshes or not: building a mesh creates
+process groups, and the move broadcasts each block from the first rank
+that holds it.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.launch.mesh import mesh_device_type, mesh_sizes
+
+
+class Placed(NamedTuple):
+    """A leaf on ``mesh`` under ``spec``: ``local`` is this rank's block
+    (None off the mesh); ``shape`` and ``dtype`` are the global tensor's."""
+    local: Optional[torch.Tensor]
+    spec: tuple
+    mesh: object
+    shape: tuple
+    dtype: torch.dtype
+
+
+def make_mesh_for(ranks, model_parallel: int, axis_names=("data", "model")):
+    """A ``(data, model)`` `DeviceMesh` over ``ranks``: the model axis as
+    large as ``model_parallel`` allows while dividing the rank count, the
+    data axis what is left; surplus ranks stay out. Every rank of the
+    world must call it."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    ranks = list(ranks)
+    n = len(ranks)
+    model = min(model_parallel, n)
+    while n % model:
+        model -= 1
+    data = n // model
+    grid = torch.tensor(ranks[: data * model]).view(data, model)
+    return DeviceMesh(mesh_device_type(), grid, mesh_dim_names=axis_names)
+
+
+def _coords(mesh, rank: int) -> Optional[dict]:
+    """``{axis: index}`` of ``rank`` in ``mesh``, or None off it."""
+    hit = (mesh.mesh == rank).nonzero()
+    if hit.numel() == 0:
+        return None
+    return dict(zip(mesh.mesh_dim_names, hit[0].tolist()))
+
+
+def _blocks(spec: tuple, shape: tuple, mesh, coords: dict) -> tuple:
+    """The slices of ``shape`` that the rank at ``coords`` holds under
+    ``spec`` (axes of one entry split the dim major to minor)."""
+    sizes = mesh_sizes(mesh)
+    out = []
+    for dim, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
+        names = () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+        parts, idx = 1, 0
+        for a in names:
+            parts, idx = parts * sizes[a], idx * sizes[a] + coords[a]
+        per = dim // parts
+        out.append(slice(idx * per, (idx + 1) * per))
+    return tuple(out)
+
+
+def place(full: torch.Tensor, spec: tuple, mesh) -> Placed:
+    """``full`` (the same on every rank) placed on ``mesh`` under
+    ``spec``: each member keeps its block."""
+    coords = _coords(mesh, dist.get_rank())
+    local = (None if coords is None else
+             full[_blocks(spec, tuple(full.shape), mesh, coords)].clone())
+    return Placed(local, tuple(spec), mesh, tuple(full.shape), full.dtype)
+
+
+def gather_full(leaf: Placed, device) -> torch.Tensor:
+    """The global tensor of ``leaf`` on every rank of the world: each
+    distinct block is broadcast from the first rank of the mesh holding
+    it."""
+    full = torch.empty(leaf.shape, dtype=leaf.dtype, device=device)
+    me = dist.get_rank()
+    seen = set()
+    for r in leaf.mesh.mesh.flatten().tolist():
+        blk = _blocks(leaf.spec, leaf.shape, leaf.mesh,
+                      _coords(leaf.mesh, r))
+        key = tuple((s.start, s.stop) for s in blk)
+        if key in seen:
+            continue
+        seen.add(key)
+        buf = (leaf.local.contiguous() if me == r else
+               torch.empty([s.stop - s.start for s in blk],
+                           dtype=leaf.dtype, device=device))
+        dist.broadcast(buf, src=r)
+        full[blk] = buf
+    return full
+
+
+def remesh_state(state, new_mesh, spec_fn, device="cpu"):
+    """``spec_fn(state, mesh)`` gives a spec tree for ``new_mesh`` (it may
+    read each leaf's ``.shape``); every leaf of ``state`` — a `Placed`, or
+    a tensor every rank holds whole — comes back a `Placed` on
+    ``new_mesh`` under its spec, values unchanged. Collective over the
+    world; ``device`` is where the blocks travel (the rank's card under
+    NCCL)."""
+    specs = spec_fn(state, new_mesh)
+
+    def move(leaf, spec):
+        if isinstance(leaf, dict):
+            return {k: move(leaf[k], spec[k]) for k in sorted(leaf)}
+        full = (gather_full(leaf, device) if isinstance(leaf, Placed)
+                else leaf)
+        return place(full, spec, new_mesh)
+
+    return move(state, specs)

@@ -1,11 +1,20 @@
-"""The train step on one device (the JAX package's `train/train_step.py`
-without the mesh and its shardings, which belong to the multi-device
-slice): loss, gradients by autograd, optional microbatch accumulation in
-f32, the cosine schedule and an in-place AdamW update.
+"""The train step (the JAX package's `train/train_step.py`): loss,
+gradients by autograd, optional microbatch accumulation in f32, the
+cosine schedule and an in-place AdamW update — on one device, or
+data-parallel over a mesh's data axis with ZeRO-1.
 
 State is ``{"params": tree, "opt": {"m", "v", "step"}}`` (`init_state`),
-the reference's tree. The serving path (`launch/serve.py`) has its own
-driver, so ``build_serve_step`` has no counterpart here.
+the reference's tree. Under ``plan.mesh`` (SPMD, one rank a device) every
+rank holds the whole parameters and its batch rows (`data.pipeline`'s
+``mesh=``); the step runs `loss_and_grads` on those rows, SUM all-reduces
+the gradients over the data group and divides them by its size (the
+mean), clips by the global norm of the reduced gradients, and updates
+only this rank's ZeRO-1 slice of each moment (`zero1_shards`, from
+`models.sharding.zero1_spec`) and the matching parameter slice; the
+parameter slices are then all-gathered, so every rank ends the step with
+the same parameters. A model axis above 1 is slice E6 and raises. The
+serving path (`launch/serve.py`) has its own driver, so
+``build_serve_step`` waits for the model axis too.
 """
 from __future__ import annotations
 
@@ -14,8 +23,12 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import (all_gather_rows, dp_group, dp_rank,
+                                     dp_size, mesh_sizes)
+from repro_torch.models import sharding as SH
 from repro_torch.models.api import lm_loss
 from repro_torch.optim import adamw, schedules
 
@@ -24,16 +37,63 @@ from repro_torch.optim import adamw, schedules
 class TrainPlan:
     cfg: ModelConfig
     opt: adamw.AdamWConfig = adamw.AdamWConfig()
-    microbatch: Optional[int] = None   # grad-accumulation microbatch (rows)
+    # grad-accumulation microbatch (rows of the global batch)
+    microbatch: Optional[int] = None
     warmup: int = 100
     total_steps: int = 10_000
+    mesh: object = None                # a DeviceMesh (launch/mesh.py)
+    dp_axes: tuple = ("data",)
 
 
-def init_state(params, opt: adamw.AdamWConfig = adamw.AdamWConfig()) -> dict:
+def state_specs(plan: TrainPlan, params) -> dict:
+    """Specs for ``{params, opt{m, v, step}}``: `sharding.param_pspecs`
+    of the parameters, `sharding.zero1_spec` of each moment."""
+    pspecs = SH.param_pspecs(plan.cfg, params, plan.mesh, plan.dp_axes)
+    mspecs = adamw.unflatten(params, [
+        SH.zero1_spec(s, tuple(p.shape), plan.mesh, plan.dp_axes)
+        for s, p in zip(adamw.leaves(pspecs), adamw.leaves(params))])
+    return {"params": pspecs, "opt": {"m": mspecs, "v": mspecs, "step": ()}}
+
+
+def _check_plan(plan: TrainPlan) -> None:
+    if plan.mesh is not None and mesh_sizes(plan.mesh).get("model", 1) > 1:
+        raise NotImplementedError(
+            "a model axis above 1: tensor and expert parallelism in the "
+            "train step is slice E6")
+
+
+def zero1_shards(plan: TrainPlan, params) -> list:
+    """Per leaf of ``params`` (`adamw.leaves` order): ``(dim, start,
+    length)`` of this rank's ZeRO-1 moment slice — the dim `zero1_spec`
+    puts the data axes on, split in the data group's rank order — or None
+    where the moment stays whole (no mesh, or no dim divides)."""
+    flat = adamw.leaves(params)
+    if plan.mesh is None:
+        return [None] * len(flat)
+    _check_plan(plan)
+    dp = tuple(plan.dp_axes)
+    n, r = dp_size(plan.mesh, dp), dp_rank(plan.mesh, dp)
+    out = []
+    for p, spec in zip(flat, adamw.leaves(
+            state_specs(plan, params)["opt"]["m"])):
+        dims = [i for i, ax in enumerate(spec) if ax is not None and set(
+            ax if isinstance(ax, tuple) else (ax,)) & set(dp)]
+        if not dims:
+            out.append(None)
+            continue
+        length = p.shape[dims[0]] // n
+        out.append((dims[0], r * length, length))
+    return out
+
+
+def init_state(params, opt: adamw.AdamWConfig = adamw.AdamWConfig(),
+               plan: TrainPlan = None) -> dict:
     """A train state around ``params`` (kept, not copied) with zero
-    moments."""
+    moments — this rank's ZeRO-1 slices of them under ``plan.mesh``."""
+    shards = zero1_shards(plan, params) if plan is not None else None
     return {"params": params, "opt": adamw.init_state(params,
-                                                      opt.moment_dtype)}
+                                                      opt.moment_dtype,
+                                                      shards)}
 
 
 def train_config(cfg: ModelConfig) -> ModelConfig:
@@ -73,34 +133,86 @@ def build_train_step(plan: TrainPlan):
     taken ``microbatch`` at a time, gradients summed in f32 and averaged.
     Attention runs through the chunked twin (`train_config`). A failure
     before the update leaves ``state`` as it was; one during it raises
-    `adamw.TornUpdate`."""
+    `adamw.TornUpdate`.
+
+    Under ``plan.mesh`` the step is data-parallel with ZeRO-1 (module
+    docstring): ``batch`` holds this rank's rows, ``plan.microbatch``
+    counts rows of the global batch, and the loss metric is the mean of
+    the ranks' losses. The state must come from ``init_state(..., plan=
+    plan)``."""
     cfg = train_config(plan.cfg)
+    mesh, dp = plan.mesh, tuple(plan.dp_axes)
+    group, n = None, 1
+    if mesh is not None:
+        _check_plan(plan)
+        group, n = dp_group(mesh, dp), dp_size(mesh, dp)
+    shards = []  # per leaf, computed at the first step
+
+    def grads_of(params, batch):
+        rows = next(iter(batch.values())).shape[0]
+        mb = plan.microbatch or rows * n
+        if mb % n or rows % (mb // n):
+            raise ValueError(f"batch of {rows} rows on each of {n} ranks "
+                             f"does not split into microbatches of {mb}")
+        mb //= n
+        nmicro = rows // mb
+        if nmicro == 1:
+            return loss_and_grads(params, cfg, batch)
+        flat, loss = None, 0.0
+        for i in range(nmicro):
+            part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            l, g = loss_and_grads(params, cfg, part)
+            flat = ([t.float() for t in g] if flat is None
+                    else [a + t for a, t in zip(flat, g)])
+            loss = loss + l
+        return loss / nmicro, [g / nmicro for g in flat]
 
     def step(state, batch):
         params, opt = state["params"], state["opt"]
-        rows = next(iter(batch.values())).shape[0]
-        mb = plan.microbatch or rows
-        if rows % mb:
-            raise ValueError(f"batch of {rows} rows does not split into "
-                             f"microbatches of {mb}")
-        nmicro = rows // mb
-        if nmicro == 1:
-            loss, flat = loss_and_grads(params, cfg, batch)
+        if mesh is None:
+            loss, flat = grads_of(params, batch)
         else:
-            flat, loss = None, 0.0
-            for i in range(nmicro):
-                part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                l, g = loss_and_grads(params, cfg, part)
-                flat = ([t.float() for t in g] if flat is None
-                        else [a + t for a, t in zip(flat, g)])
-                loss = loss + l
-            flat = [g / nmicro for g in flat]
-            loss = loss / nmicro
+            with SH.mesh_context(mesh, dp):
+                loss, flat = grads_of(params, batch)
+            if not shards:
+                shards.extend(zero1_shards(plan, params))
+            for g in flat:  # the mean of the ranks' gradients
+                dist.all_reduce(g, group=group)
+                g.div_(n)
+            loss = loss.clone()
+            dist.all_reduce(loss, group=group)
+            loss = loss / n
         grads = adamw.unflatten(params, flat)
         lr_scale = schedules.cosine_with_warmup(
             opt["step"], warmup=plan.warmup, total=plan.total_steps)
-        metrics = adamw.apply_updates(params, grads, opt, plan.opt, lr_scale)
+        metrics = adamw.apply_updates(params, grads, opt, plan.opt, lr_scale,
+                                      shards=shards or None)
+        if mesh is not None:
+            _gather_params(params, shards, group, n)
         metrics["loss"] = loss
         return state, metrics
 
     return step
+
+
+@torch.no_grad()
+def _gather_params(params, shards, group, n) -> None:
+    """After a ZeRO-1 update every rank holds its slice of each sharded
+    parameter fresh: all-gather the slices back into every rank's whole
+    parameter, in the group's rank order. A failure here leaves the ranks'
+    parameters apart, so it raises `adamw.TornUpdate`."""
+    try:
+        for p, s in zip(adamw.leaves(params), shards):
+            if s is None:
+                continue
+            dim, start, length = s
+            local = p.narrow(dim, start, length).contiguous()
+            if dim == 0:
+                all_gather_rows(p, local, group)
+                continue
+            parts = [torch.empty_like(local) for _ in range(n)]
+            dist.all_gather(parts, local, group=group)
+            p.copy_(torch.cat(parts, dim=dim))
+    except Exception as e:
+        raise adamw.TornUpdate(f"ZeRO-1 parameter gather failed: {e!r}") \
+            from e

@@ -1199,3 +1199,126 @@ def test_cuda_train_driver_restores_bit_for_bit(tmp_path, monkeypatch):
     for e in ma["arrays"]:
         assert np.array_equal(np.load(da / e["file"]),
                               np.load(db / e["file"]))
+
+
+# ------------------------------------------- slice E5: the data axis
+@pytest.fixture
+def nccl_group(tmp_path):
+    """A one-rank NCCL process group for the test, destroyed after it."""
+    _need_card()
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["batched", "resident"])
+def test_cuda_one_rank_nccl_engine_equals_the_no_mesh_engine(nccl_group,
+                                                             backend):
+    from repro_torch.core.engine import SummarizerEngine
+    from repro_torch.graphs import generators as PG
+    from repro_torch.launch.mesh import make_data_mesh
+
+    g = PG.caveman(60, 8, 0.05, seed=3)
+    plain = SummarizerEngine(backend=backend, T=6, seed=1,
+                             device="cuda").run(g)
+    eng = SummarizerEngine(backend=backend, T=6, seed=1, device="cuda",
+                           mesh=make_data_mesh())
+    got = eng.run(g)
+    assert eng.stats["degradations"] == 0
+    assert got.validate_lossless(g)
+    assert np.array_equal(got.parent, plain.parent)
+    assert np.array_equal(got.edges, plain.edges)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_refuses_a_card_run_under_a_cpu_mesh():
+    _need_card()
+    from repro_torch.core.engine import SummarizerEngine
+    from repro_torch.graphs import generators as PG
+
+    class CpuMesh:
+        device_type = "cpu"
+
+    with pytest.raises(RuntimeError, match="NCCL"):
+        SummarizerEngine(backend="batched", T=2, device="cuda",
+                         mesh=CpuMesh()).run(PG.caveman(4, 4, 0.0, seed=0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,G,W", [(5, 8, 3), (70, 16, 9), (2, 128, 40)])
+def test_cuda_per_rank_intersection_bodies_equal_the_kernel(B, G, W):
+    _need_card()
+    from repro_torch.core import distributed as D
+
+    n = 4
+    Bs = 1 << max(0, (-(-B // n) - 1).bit_length())
+    Wp = 1 << max(3, (W - 1).bit_length())
+    batch = np.zeros((n * Bs, G, Wp), dtype=np.uint32)
+    batch[:B, :, :W] = _bits((B, G, W), B).numpy().view(np.uint32)
+    before = inter_kernel.LAUNCHES
+    got = torch.cat([D.intersections_rank(batch, B, r, n, "cuda")
+                     for r in range(n)])
+    assert inter_kernel.LAUNCHES - before == n
+    whole = inter_kernel.bitset_intersections(
+        torch.from_numpy(batch.view(np.int32)).cuda(), B)
+    assert torch.equal(got, whole)
+    _gram_checks(got.cpu(), torch.from_numpy(batch.view(np.int32)), B)
+
+
+@pytest.mark.cuda
+def test_cuda_per_rank_arena_round_equals_the_whole_arena():
+    """One proposal round and one fold on an arena of real workspace
+    chunks, shard by shard for ranks 0..3 of 4, equal to the whole
+    arena's — the kernels launched on every shard."""
+    _need_card()
+    from repro_torch.core.merging import (BatchedGroupWorkspace, MergePlan,
+                                          theta_to_p)
+    from repro_torch.core.minhash import candidate_groups, \
+        host_shingle_provider
+    from repro_torch.core.resident import ResidentBitmapArena
+    from repro_torch.core.slugger import SluggerState
+    from repro_torch.graphs import generators as PG
+    from repro_torch.kernels.bitset_fold import ops as FO
+    from repro_torch.launch.mesh import block
+
+    g = PG.caveman(200, 8, 0.05, seed=1)
+    st = SluggerState(g)
+    groups = candidate_groups(g, st.root_of, st.alive, seed=0,
+                              shingle_fn=host_shingle_provider(g)(st.root_of),
+                              max_group=16)
+    groups = [gr for gr in groups if gr.size <= 16]
+    ws = BatchedGroupWorkspace.build_bucket(
+        st, groups, 16, plans=[MergePlan(gr) for gr in groups],
+        group_seeds=np.arange(len(groups), dtype=np.uint64))[0]
+    arena = ResidentBitmapArena.from_workspace(ws, top_j=8, device="cuda")
+    state, n = arena.state, 4
+    Bp = state["bits"].shape[0]
+    assert Bp % n == 0
+    shards = [{k: v[block(Bp, r, n)].clone() for k, v in state.items()}
+              for r in range(n)]
+    t0 = fold_kernel.TOPJ_LAUNCHES
+    whole = FO.propose_dense(state, arena.J, theta_to_p(0.0), None)
+    got = torch.cat([FO.propose_dense(s, arena.J, theta_to_p(0.0), None)
+                     for s in shards])
+    assert fold_kernel.TOPJ_LAUNCHES - t0 == n + 1
+    assert torch.equal(got, whole) and whole[..., 1].any()
+    acc = whole.cpu().numpy()
+    gb, gr = np.nonzero(acc[..., 1])
+    first = np.concatenate([[True], gb[1:] != gb[:-1]])[:gb.size]
+    gb, ga, gz = gb[first], gr[first], acc[gb[first], gr[first], 2]
+    keep = ga != gz
+    gb, ga, gz = (torch.from_numpy(x[keep].astype(np.int64)).cuda()
+                  for x in (gb, ga, gz))
+    slot = torch.zeros_like(gb)
+    FO.fold(state, gb, slot, ga, gz, 2)
+    for r, s in enumerate(shards):
+        FO.fold_shard(s, gb, slot, ga, gz, 2, r * (Bp // n))
+    for k, v in state.items():
+        assert torch.equal(torch.cat([s[k] for s in shards]), v), k

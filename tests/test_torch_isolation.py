@@ -1,6 +1,7 @@
 """The port stands alone: `src/repro_torch`, `chip_smoke.py`,
-`flash_bench.py`, `popc_bench.py` and `rank_count_bench.py` import neither
-jax nor the JAX package (nor ``ml_dtypes``, which the card's machine does
+`flash_bench.py`, `popc_bench.py`, `rank_count_bench.py` and
+`multi_rank_smoke.py` import neither jax nor the JAX package (nor
+``ml_dtypes``, which the card's machine does
 not have), entry points default to the CUDA card and refuse to fall back
 to the CPU, and the unported paths say so."""
 import ast
@@ -19,7 +20,7 @@ from repro_torch.graphs import generators as PG
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "flash_bench.py", ROOT / "popc_bench.py",
-    ROOT / "rank_count_bench.py"]
+    ROOT / "rank_count_bench.py", ROOT / "multi_rank_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
@@ -78,8 +79,12 @@ def test_port_files_exist():
                  "src/repro_torch/train/checkpoint.py",
                  "src/repro_torch/train/fault_tolerance.py",
                  "src/repro_torch/launch/train.py",
+                 "src/repro_torch/core/distributed.py",
+                 "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/models/sharding.py",
+                 "src/repro_torch/train/elastic.py",
                  "chip_smoke.py", "flash_bench.py", "popc_bench.py",
-                 "rank_count_bench.py"):
+                 "rank_count_bench.py", "multi_rank_smoke.py"):
         assert want in names
     csrc = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")}
     assert {"interval_count.cu", "rowmin_hash.cu",
@@ -134,6 +139,15 @@ def test_training_runs_without_jax_or_ml_dtypes_loaded(tmp_path):
     assert "LOADED []" in out.stdout
 
 
+def test_mesh_paths_run_without_jax_or_reference_loaded(tmp_path):
+    """Two gloo ranks summarize under a data mesh and take a data-parallel
+    train step with neither jax nor the JAX package in either process."""
+    from torch_dist import spawn
+
+    for loaded in spawn(2, "isolation_world", tmp_path):
+        assert loaded == []
+
+
 def test_default_device_is_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g = PG.caveman(4, 4, 0.0, seed=0)
@@ -145,6 +159,9 @@ def test_default_device_is_the_card(monkeypatch):
         repro_torch.summarize(g, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         repro_torch.summarize(g, backend="resident")
+    from repro_torch.core.distributed import summarize_jax
+    with pytest.raises(RuntimeError, match="CUDA"):
+        summarize_jax(g, T=1)
 
 
 def test_default_backend_is_batched():

@@ -569,8 +569,10 @@ def test_train_driver_needs_the_card_or_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         port_train.main(["--smoke", "--steps", "1", "--ckpt-dir",
                          str(tmp_path)])
-    for flag in ("--data-parallel", "--model-parallel"):
-        with pytest.raises(ValueError, match="E5"):
+    # data parallelism needs a world of its size; the model axis is E6
+    for flag, why in (("--data-parallel", "world of 2"),
+                      ("--model-parallel", "E6")):
+        with pytest.raises(ValueError, match=why):
             port_train.main(["--smoke", "--device", "cpu", flag, "2",
                              "--ckpt-dir", str(tmp_path)])
     assert not any(tmp_path.iterdir())

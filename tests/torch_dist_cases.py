@@ -1,0 +1,312 @@
+"""Case functions the multi-rank tests run on every rank (`torch_dist.spawn`):
+``fn(rank, world, *args)``, inside a gloo process group of ``world`` ranks,
+returning picklable results. Torch and the port only — the tests hold the
+results to the JAX package in the parent process."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+CPU = "cpu"
+
+
+def _summary(s, g):
+    return {"parent": s.parent, "edges": s.edges,
+            "lossless": bool(s.validate_lossless(g))}
+
+
+def _engine(graph, backend, k, mesh, T, seed):
+    from repro_torch.core.engine import SummarizerEngine
+
+    eng = SummarizerEngine(partitions=k, backend=backend, T=T, seed=seed,
+                           mesh=mesh, device=CPU)
+    res = _summary(eng.run(graph), graph)
+    res["degradations"] = eng.stats["degradations"]
+    res["workers"] = eng.workers
+    return res
+
+
+# ------------------------------------------------------------ summarizer
+def summarizer_world(rank, world, graph, runs, T, seed, shingle_graph,
+                     sub_seeds):
+    """`SummarizerEngine` under `make_data_mesh()` for each ``(backend,
+    partitions, explicit mesh?)`` of ``runs`` (default workers; without
+    an explicit mesh the engine builds its own), then the sharded node
+    shingles of ``shingle_graph`` against the dense ones for each of
+    ``sub_seeds``."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core.minhash import u32_seed_consts
+    from repro_torch.launch.mesh import block, make_data_mesh
+
+    mesh = make_data_mesh()
+    out = {"runs": [_engine(graph, b, k, mesh if explicit else None, T,
+                            seed) for b, k, explicit in runs]}
+    g = shingle_graph
+    src = np.repeat(np.arange(g.n), np.diff(g.indptr)).astype(np.int64)
+    dst = g.indices.astype(np.int64)
+    pad = (-src.size) % world
+    src_p = np.concatenate([src, np.full(pad, g.n)])
+    dst_p = np.concatenate([dst, np.zeros(pad, np.int64)])
+    own = block(src_p.size, rank, world)
+    fn = D.shingles_sharded(mesh)
+    out["shingles"] = []
+    for s in sub_seeds:
+        a, b = u32_seed_consts(s)
+        got = fn(torch.from_numpy(src_p[own].copy()),
+                 torch.from_numpy(dst_p[own].copy()), g.n, a, b)
+        want = D.node_shingles_dense(torch.from_numpy(src),
+                                     torch.from_numpy(dst), g.n, a, b)
+        out["shingles"].append((got.numpy(), want.numpy()))
+    return out
+
+
+def intersections_world(rank, world, batches):
+    """`batched_intersections_mesh` over every rank on each ``(B, G, W)``
+    uint32 batch: the results, and the transfer ledger after each call."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core.transfer import GLOBAL as TRANSFER
+    from repro_torch.launch.mesh import make_data_mesh
+
+    fn = D.batched_intersections_mesh(make_data_mesh())
+    TRANSFER.reset()
+    out = []
+    for bits in batches:
+        inter = fn(bits)
+        snap = TRANSFER.snapshot()
+        out.append((inter, {k: snap[k] for k in ("bytes_h2d", "bytes_d2h",
+                                                 "rounds")}))
+    return out
+
+
+def faults_world(rank, world, graph, T, seed, cases):
+    """Each ``(backend, site, hit)`` of ``cases`` under `faults.inject` on
+    every rank alike, with `make_data_mesh()`: the summaries and each
+    run's degradations."""
+    from repro_torch import faults
+    from repro_torch.launch.mesh import make_data_mesh
+
+    mesh = make_data_mesh()
+    out = []
+    for backend, site, hit in cases:
+        with faults.inject(site, hit=hit):
+            out.append(_engine(graph, backend, 2, mesh, T, seed))
+    return out
+
+
+# ------------------------------------------------------ elastic meshes
+def elastic_world(rank, world, subsets, mps):
+    """`make_mesh_for`'s shape for each rank subset and model size; then a
+    state placed on 4 ranks (model_parallel 2), moved to 2 ranks and back
+    (`remesh_state`): each placement's local block and whole value."""
+    from repro_torch.train.elastic import (gather_full, make_mesh_for,
+                                           remesh_state)
+
+    shapes = {(n, mp): tuple(make_mesh_for(list(range(n)), mp).mesh.shape)
+              for n in subsets for mp in mps}
+    mesh4 = make_mesh_for(list(range(4)), 2)
+    mesh2 = make_mesh_for(list(range(2)), 2)
+    state = {"w": torch.arange(32.0).reshape(8, 4),
+             "step": torch.tensor(3, dtype=torch.int32)}
+
+    def spec_fn(st, mesh):
+        return {"w": ("data", None), "step": ()}
+
+    out = {"shapes": shapes, "stages": []}
+    st = state
+    for mesh in (mesh4, mesh2, mesh4):
+        st = remesh_state(st, mesh, spec_fn)
+        out["stages"].append({
+            "size": int(st["w"].mesh.mesh.numel()),
+            "local": None if st["w"].local is None else st["w"].local.numpy(),
+            "w": gather_full(st["w"], CPU).numpy(),
+            "step": gather_full(st["step"], CPU).numpy()})
+    return out
+
+
+# ------------------------------------------------------ data-parallel train
+def _leaves_np(tree):
+    from repro_torch.optim.adamw import leaves
+
+    return [t.detach().float().numpy().copy() for t in leaves(tree)]
+
+
+def dp_train(rank, world, archs, steps, batch, seq, ckpt_dir, ckpt_arch):
+    """For each smoke arch (f32, the chunked twin): ``steps`` steps of the
+    data-parallel step (ZeRO-1, this rank's rows of each batch) beside the
+    single-device step on the whole batch, from one seeded init. Returns
+    both runs' metrics and parameters, the ZeRO-1 slices and the
+    moments (gathered whole), and each rank's rows of the batches; saves
+    ``ckpt_arch``'s data-parallel state under ``ckpt_dir``."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenStream, make_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import get_api
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train import train_step as TS
+
+    mesh = make_host_mesh(world, 1)
+    out = {}
+    for arch in archs:
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  dtype="float32", attn_impl="xla_chunked")
+
+        def fresh():
+            return get_api(cfg).init_params(
+                cfg, torch.Generator().manual_seed(0), device=CPU)
+
+        plan1 = TS.TrainPlan(cfg=cfg, warmup=1, total_steps=10)
+        plan = TS.TrainPlan(cfg=cfg, warmup=1, total_steps=10, mesh=mesh)
+        s1 = TS.init_state(fresh(), plan1.opt)
+        sd = TS.init_state(fresh(), plan.opt, plan)
+        step1, stepd = TS.build_train_step(plan1), TS.build_train_step(plan)
+        stream = TokenStream(cfg.vocab, batch, seq, seed=0)
+        res = {"m1": [], "md": [], "rows": []}
+        for s in range(steps):
+            b1 = make_batch(cfg, stream, s, device=CPU)
+            bd = make_batch(cfg, stream, s, device=CPU, mesh=mesh)
+            res["rows"].append({k: v.float().numpy() for k, v in bd.items()})
+            s1, m1 = step1(s1, b1)
+            sd, md = stepd(sd, bd)
+            res["m1"].append({k: float(v) for k, v in m1.items()})
+            res["md"].append({k: float(v) for k, v in md.items()})
+        res["p1"] = _leaves_np(s1["params"])
+        res["pd"] = _leaves_np(sd["params"])
+        res["shards"] = TS.zero1_shards(plan, sd["params"])
+        res["specs"] = TS.state_specs(plan, sd["params"])["opt"]["m"]
+        res["m_local"] = [t.shape for t in _leaves_np(sd["opt"]["m"])]
+        whole = CKPT.gather_zero1(sd, mesh.get_group("data"))
+        res["mom1"] = _leaves_np(s1["opt"]["m"]) + _leaves_np(s1["opt"]["v"])
+        res["momd"] = (_leaves_np(whole["opt"]["m"])
+                       + _leaves_np(whole["opt"]["v"]))
+        if arch == ckpt_arch:
+            CKPT.save(sd, steps, ckpt_dir, mesh=mesh)
+            res["saved"] = {"p": _leaves_np(whole["params"]),
+                            "m": _leaves_np(whole["opt"]["m"]),
+                            "v": _leaves_np(whole["opt"]["v"]),
+                            "step": int(whole["opt"]["step"])}
+        out[arch] = res
+    return out
+
+
+def dp_restore(rank, world, arch, ckpt_dir):
+    """``arch``'s smoke state restored under a data mesh of this world from
+    ``ckpt_dir``, gathered whole."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import get_api
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train import train_step as TS
+
+    mesh = make_host_mesh(world, 1)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32",
+                              attn_impl="xla_chunked")
+    plan = TS.TrainPlan(cfg=cfg, mesh=mesh)
+    params = get_api(cfg).init_params(cfg, torch.Generator().manual_seed(1),
+                                      device=CPU)
+    like = TS.init_state(params, plan.opt, plan)
+    state, step = CKPT.restore(like, ckpt_dir, mesh=mesh)
+    whole = CKPT.gather_zero1(state, mesh.get_group("data"))
+    return {"p": _leaves_np(whole["params"]), "m": _leaves_np(whole["opt"]["m"]),
+            "v": _leaves_np(whole["opt"]["v"]),
+            "step": int(whole["opt"]["step"]), "at": step,
+            "m_local": [t.shape for t in _leaves_np(state["opt"]["m"])]}
+
+
+def dp_cli(rank, world, argv):
+    """`launch.train.main(argv)` on every rank: its losses."""
+    from repro_torch.launch import train as LT
+
+    return LT.main(list(argv))
+
+
+def compress_world(rank, world, g_all, reps):
+    """`compressed_psum` over the world on rank ``rank``'s row of ``g_all``
+    with a zero residual: rounded to nearest, then ``reps`` stochastic
+    draws (each rank its own generator) averaged."""
+    from repro_torch.optim.grad_compression import compressed_psum
+
+    g = torch.from_numpy(g_all[rank].copy())
+    err = torch.zeros_like(g)
+    mean, new_err = compressed_psum(g, err)
+    gen = torch.Generator().manual_seed(1000 + rank)
+    draws = torch.stack([compressed_psum(g, err, generator=gen)[0]
+                         for _ in range(reps)])
+    return mean.numpy(), new_err.numpy(), draws.mean(0).numpy()
+
+
+def isolation_world(rank, world):
+    """A mesh summary and a data-parallel train step; then the jax, JAX
+    package and ml_dtypes modules loaded in this process (none, to pass)."""
+    import dataclasses
+    import sys
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenStream, make_batch
+    from repro_torch.graphs import generators as PG
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import get_api
+    from repro_torch.train import train_step as TS
+
+    g = PG.caveman(6, 5, 0.1, seed=0)
+    assert _engine(g, "batched", 1, None, 2, 0)["lossless"]
+    cfg = dataclasses.replace(get_config("mamba2-130m", smoke=True),
+                              attn_impl="xla_chunked")
+    plan = TS.TrainPlan(cfg=cfg, mesh=make_host_mesh(world, 1))
+    params = get_api(cfg).init_params(cfg, torch.Generator().manual_seed(0),
+                                      device=CPU)
+    state = TS.init_state(params, plan.opt, plan)
+    batch = make_batch(cfg, TokenStream(cfg.vocab, 2, 24), 0, device=CPU,
+                       mesh=plan.mesh)
+    TS.build_train_step(plan)(state, batch)
+    return sorted(m for m in sys.modules if m.split(".")[0] in
+                  ("jax", "jaxlib", "repro", "ml_dtypes"))
+
+
+def arena_v1(rank, world, graph):
+    """One workspace chunk of ``graph``'s first iteration as an arena
+    split over the data mesh and as a whole one: the v1 ranking
+    (`topj_rows`) of every row, one v1 fold of the first accepted pair of
+    each group, and the downloads after it, from both."""
+    from repro_torch.core.merging import (BatchedGroupWorkspace, MergePlan,
+                                          theta_to_p)
+    from repro_torch.core.minhash import (candidate_groups,
+                                          host_shingle_provider)
+    from repro_torch.core.resident import ResidentBitmapArena
+    from repro_torch.core.slugger import SluggerState
+    from repro_torch.launch.mesh import make_data_mesh
+
+    st = SluggerState(graph)
+    groups = [g for g in candidate_groups(
+        graph, st.root_of, st.alive, seed=0,
+        shingle_fn=host_shingle_provider(graph)(st.root_of), max_group=16)
+        if g.size <= 16]
+    ws = BatchedGroupWorkspace.build_bucket(
+        st, groups, 16, plans=[MergePlan(g) for g in groups],
+        group_seeds=np.arange(len(groups), dtype=np.uint64))[0]
+    out = {}
+    for name, mesh in (("whole", None), ("split", make_data_mesh())):
+        arena = ResidentBitmapArena.from_workspace(ws, top_j=4, device=CPU,
+                                                   mesh=mesh)
+        rb, rr = np.nonzero(ws.alive)
+        ranked = arena.topj_rows(rb, rr)
+        acc, part = arena.propose_rows(rb, theta_to_p(0.0), None)
+        b = np.flatnonzero(np.concatenate([[True], rb[1:] != rb[:-1]])
+                           & acc)
+        b = b[rr[b] != part[b]]
+        arena.fold(rb[b], rr[b], part[b], ws.memcol[rb[b], rr[b]],
+                   ws.memcol[rb[b], part[b]])
+        out[name] = {"ranked": ranked, "accept": acc, "partner": part,
+                     "bits": arena.host_bits(), "alive": arena.host_alive(),
+                     "counts": arena.host_counts(),
+                     "rows": arena.sync_rows(rb[:5], rr[:5]),
+                     "shards": arena.shards}
+    return out
+
+
+def world2_cases(rank, world, graph, T, seed, cases):
+    return {"faults": faults_world(rank, world, graph, T, seed, cases),
+            "arena": arena_v1(rank, world, graph)}
