@@ -173,6 +173,21 @@ Phases, each printing one JSON line with its seconds:
            restored from step 4, its final state equal bit for bit to an
            uninterrupted run's (under deterministic algorithms if two
            uninterrupted runs differ; their gap is printed)
+  model_axis  slice E6a (`phase_model_axis`), after `multi_device`:
+           per-rank bodies of a model axis of m run for ranks 0..m-1 one
+           after the other on the card (`sharding.run_ranks`), at full
+           width in f32, each held to the unsharded block on the same
+           input within max|Δ| ≤ 1e-4·max|ref| + 1e-5 — qwen2.5-3b's
+           attention block and MLP at m 2 and 4 (a 4 × 1,024 prefill, 8
+           decode steps; at m 4 k and v gathered and the cache's time
+           over the model axis) and its vocab-parallel embedding (exact)
+           and logits at m 4; deepseek-v2-lite-16b's MLA under
+           `mla_decode` and `mla_decode_absorbed` and its MoE (16
+           experts a rank, routing integers equal); zamba2-7b's Mamba2
+           block and shared attention block (D 112); whisper-small's
+           encoder layer over 1,500 frames and cross call; each block's
+           flash launches counted from 0 and the kernel's ms at the
+           rank's head counts beside the unsharded call's
 
 The kernels phase also holds the flash-attention kernel to its plain
 version (f32, TF32 off) within the reference's tolerances at ten fixed
@@ -191,7 +206,8 @@ come from its own path's counted run (batched for the intersections and
 the histogram, resident for top-J and the fold, both serve drains for the
 interval count, the shingles phase for the row-min hash and the pairwise
 intersections, the LM drains of qwen2.5-3b, deepseek, zamba2, whisper and
-internvl2 for flash attention), its times are sums over
+internvl2 and the `model_axis` per-rank bodies for flash attention), its
+times are sums over
 every call that run made (each call, or each distinct call shape, checked
 against the plain version, timed, and weighted by its call count).
 Every engine run outside the injected ones must report
@@ -210,6 +226,7 @@ import math
 import subprocess
 import sys
 import time
+import types
 from collections import Counter
 from pathlib import Path
 
@@ -4451,6 +4468,392 @@ def serving_kernel_record(serve_calls, serve_launches, shingles, device_us,
     return out
 
 
+# ------------------------------------------------------------ model axis
+MA_DEVICE = "cuda"   # the card (a CPU rehearsal sets "cpu" and MA_SMOKE)
+MA_SMOKE = False     # the archs' smoke widths (a CPU rehearsal)
+MA_BATCH, MA_PROMPT, MA_STEPS = 4, 1024, 8
+MA_ENC_LEN, MA_DEC_LEN = 1500, 64   # whisper's encoder frames, decoder rows
+MA_RTOL, MA_ATOL = 1e-4, 1e-5       # max|Δ| ≤ 1e-4·max|ref| + 1e-5
+
+
+def ma_close(got, want):
+    """(max |Δ|, its bound, within?) of one tensor against its reference."""
+    err = (got.float() - want.float()).abs().max().item()
+    bound = MA_RTOL * want.float().abs().max().item() + MA_ATOL
+    return err, bound, err <= bound
+
+
+def ma_ranks(cfg, tree, m, body, cache=None):
+    """``body(blocks)`` on each rank r < m of a model axis of m, one after
+    the other on the card between collectives (`sharding.run_ranks`),
+    under `rank_context`: ``blocks`` the rank's blocks of ``tree``
+    (`shard_params`); ``cache``: the cache's spec tree."""
+    from repro_torch.models import sharding as SH
+
+    sizes = {"data": 1, "model": m}
+
+    def fn(r, model, data):
+        blocks = SH.shard_params(cfg, tree, sizes, ("data",),
+                                 {"data": 0, "model": r})
+        with SH.rank_context(sizes, ("data",), model, data, batch=MA_BATCH,
+                             cache=cache):
+            return body(blocks)
+
+    return SH.run_ranks(fn, m)
+
+
+def ma_compare(name, ranks, want, fields, failed):
+    """Every rank's outputs (a list of tensors) against the unsharded
+    ones: the worst error and its bound into ``fields``."""
+    worst, bound = 0.0, 0.0
+    for outs in ranks:
+        for got, w in zip(outs, want):
+            err, b, ok = ma_close(got, w)
+            worst, bound = max(worst, err), max(bound, b)
+            if not ok:
+                failed.append(f"{name}: {err} > {b}")
+    fields[name] = {"max_abs_err": worst, "bound": bound}
+
+
+def ma_flash(fn):
+    """``fn()`` with the flash kernel's calls recorded and its launches
+    counted from 0: (result, launches, recorder)."""
+    from repro_torch.kernels.flash_attn import kernel as KF
+
+    rec = FlashRecorder()
+    reset_flash_launches()
+    try:
+        out = fn()
+    finally:
+        rec.close()
+    return out, KF.LAUNCHES, rec
+
+
+def ma_flash_ms(rec):
+    """Each recorded call shape's kernel time on its first inputs: [[shape,
+    calls, ms]]."""
+    from repro_torch.kernels.flash_attn import kernel as KF
+
+    out = []
+    for key, n in rec.calls.items():
+        q, k, v = rec.inputs[key]
+        *_, causal, window = key
+        ms = (cuda_ms(lambda: KF.flash_attention_bhsd(
+            q, k, v, causal=causal, window=window), 5)
+            if MA_DEVICE == "cuda" else None)
+        out.append([list(key), n, ms])
+    return out
+
+
+def ma_layer(cfg, shapes, seed):
+    """f32 weights of ``shapes`` on the card from ``torch.Generator``."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    return T.build_params(shapes, cfg, torch.Generator(
+        device=MA_DEVICE).manual_seed(seed), device=MA_DEVICE)
+
+
+def ma_cache(cfg, c, slots):
+    """The prefill's (b, s, ·) attention cache ``c`` as an L = 1 cache of
+    ``slots`` slots: whole, or the rank's blocks under a rank context."""
+    from repro_torch.models import transformer as T
+
+    full = T.cache_shapes(cfg, MA_BATCH, slots)["attn"]
+    shapes = {"attn": {n: (1, *full[n][1:]) for n in c}}
+    specs = T.cache_specs(cfg, shapes, MA_BATCH)
+    out = T.zero_cache(shapes, specs, next(iter(c.values())).dtype,
+                       MA_DEVICE)
+    return T.fill_cache(out, {"attn": {n: t[None] for n, t in c.items()}},
+                        specs)
+
+
+def ma_cache_specs(cfg, m, slots):
+    """The spec tree of an L = 1 attention cache on a model axis of m."""
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import transformer as T
+
+    full = T.cache_shapes(cfg, MA_BATCH, slots)["attn"]
+    shapes = {"attn": {n: (1, *s[1:]) for n, s in full.items()}}
+    return SH.cache_pspecs(cfg, shapes, {"data": 1, "model": m}, ("data",),
+                           MA_BATCH)
+
+
+def ma_attention(cfg, tree, m, x, xs, full_fn, step_fn):
+    """Prefill ``full_fn(p, x)`` -> (out, cache), then a decode step
+    ``step_fn(p, x_t, cache, pos)`` for each of ``xs``, on one layer:
+    unsharded, then on each rank of m. Returns (outputs, its flash
+    recorder, each rank's outputs, the ranks' flash launches and
+    recorder)."""
+    from repro_torch.models import transformer as T
+
+    slots = x.shape[1] + len(xs)
+
+    def run(p):
+        out, c = full_fn(p, x)
+        cache = ma_cache(cfg, c, slots)
+        outs = [out]
+        for i, xt in enumerate(xs):
+            outs.append(step_fn(p, xt, T.layer(cache["attn"], 0),
+                                x.shape[1] + i))
+        return outs
+
+    want, _, whole_rec = ma_flash(lambda: run(tree))
+    ranks, launches, rec = ma_flash(lambda: ma_ranks(
+        cfg, tree, m, run, cache=ma_cache_specs(cfg, m, slots)))
+    return want, whole_rec, ranks, launches, rec
+
+
+def phase_model_axis():
+    """Slice E6a on one card: per-rank bodies of the model axis run for
+    ranks 0..m-1 one after the other (`sharding.run_ranks`: a collective
+    combines the ranks' tensors in rank order, as NCCL's would), each at
+    full width in f32, held to the unsharded block on the same inputs
+    within max|Δ| ≤ 1e-4·max|ref| + 1e-5: (a) qwen2.5-3b's attention
+    block and MLP at m = 2 (heads-sharded cache) and m = 4 (k and v
+    gathered, the cache's time over the model axis), a 4 × 1,024 prefill
+    and 8 decode steps, and the vocab-parallel ``embed`` and ``lm_head``
+    at m = 4; (b) deepseek-v2-lite-16b's MLA (prefill, 8 steps of
+    `mla_decode` and of `mla_decode_absorbed`, the latent cache's time
+    over the model axis) and its MoE FFN (16 experts a rank, the 2
+    shared experts a row block) on one input, the routing integers
+    equal; (c) zamba2-7b's Mamba2 block (``in_proj`` gathered, the norm
+    across ranks, the state's heads) and its shared attention block at
+    D 112; (d) whisper-small's encoder layer over 1,500 frames and its
+    cross call at m = 4. Each block's flash launches (counted from 0) and
+    the kernel's ms at the rank's head counts beside the unsharded
+    call's. Returns the sharded runs' flash drain for `flash_record`."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import attention as A
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    free_card()
+    t_all = time.perf_counter()
+    failed, drains = [], []
+    gen = torch.Generator(device=MA_DEVICE).manual_seed(7)
+
+    def cfg_of(arch):
+        return dataclasses.replace(get_config(arch, smoke=MA_SMOKE),
+                                   dtype="float32")
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=MA_DEVICE)
+
+    def report(part, t0, m, want_rec, launches, rec, fields):
+        if launches == 0 and MA_DEVICE == "cuda":
+            failed.append(f"{part}: no flash launch")
+        drains.append({"launches": launches, "recorder": rec,
+                       "device_us": {}})
+        emit("model_axis", t0, part=part, model=m, flash_launches=launches,
+             flash_rank_calls=ma_flash_ms(rec),
+             flash_whole_calls=ma_flash_ms(want_rec) if want_rec else [],
+             **fields)
+
+    def attention_block(part, cfg, tree, m, shared=False):
+        """One attention block + its MLP, prefill and MA_STEPS steps."""
+        t0 = time.perf_counter()
+        x = rand(MA_BATCH, MA_PROMPT, cfg.d_model)
+        xs = [rand(MA_BATCH, 1, cfg.d_model) for _ in range(MA_STEPS)]
+        pos = torch.arange(MA_PROMPT, device=MA_DEVICE).expand(MA_BATCH, -1)
+        key = "shared_attn" if shared else "layers"
+
+        def lp(p):
+            return p[key] if shared else T.layer(p[key], 0)
+
+        full = (lambda p, xx: T.attn_block_full(lp(p), cfg, xx, pos)[:2])
+        step = (lambda p, xx, c, t: T.attn_block_decode(lp(p), cfg, xx, c,
+                                                        t)[0])
+        want, whole_rec, ranks, launches, rec = ma_attention(
+            cfg, tree, m, x, xs, full, step)
+        fields = {}
+        ma_compare("prefill_and_decode", ranks, want, fields, failed)
+        report(part, t0, m, whole_rec, launches, rec, fields)
+
+    # (a) qwen2.5-3b
+    cfg = cfg_of("qwen2.5-3b")
+    tree = {"layers": ma_layer(cfg, T.attn_block_shapes(cfg, (1,)), 1)}
+    for m in (2, 4):
+        attention_block(f"a_qwen2.5-3b_block_m{m}", cfg, tree, m)
+    del tree
+    t0 = time.perf_counter()
+    V = cfg.padded_vocab
+    vt = {"embed": rand(V, cfg.d_model) * 0.02,
+          "lm_head": rand(cfg.d_model, V) / cfg.d_model ** 0.5,
+          "final_norm": torch.ones(cfg.d_model, device=MA_DEVICE)}
+    toks = torch.randint(0, cfg.vocab, (MA_BATCH, MA_PROMPT),
+                         generator=gen, device=MA_DEVICE)
+    h = rand(MA_BATCH, 1, cfg.d_model)
+
+    def vocab_body(p):
+        return [T.embed_tokens(p["embed"], cfg, toks), T._logits(p, cfg, h)]
+
+    ranks = ma_ranks(cfg, vt, 4, vocab_body)
+    fields = {"rows_a_rank": V // 4}
+    want = vocab_body(vt)
+    ma_compare("embed_and_logits", ranks, want, fields, failed)
+    if not all(torch.equal(r[0], want[0]) for r in ranks):
+        failed.append("vocab-parallel embed is not exact")
+    emit("model_axis", t0, part="a_qwen2.5-3b_vocab_m4", model=4, **fields)
+    del vt, ranks, want
+    free_card()
+
+    # (b) deepseek-v2-lite-16b: MLA, then the MoE FFN on one input
+    cfg = cfg_of("deepseek-v2-lite-16b")
+    shapes = T.attn_block_shapes(cfg, (1,))
+    tree = {"layers": ma_layer(cfg, {"attn": shapes["attn"]}, 2)}
+    for absorbed in (False, True):
+        t0 = time.perf_counter()
+        c2 = dataclasses.replace(cfg)
+        object.__setattr__(c2, "_absorbed_mla", absorbed)
+        step_fn = A.mla_decode_absorbed if absorbed else A.mla_decode
+        x = rand(MA_BATCH, MA_PROMPT, cfg.d_model)
+        xs = [rand(MA_BATCH, 1, cfg.d_model) for _ in range(MA_STEPS)]
+        pos = torch.arange(MA_PROMPT, device=MA_DEVICE).expand(MA_BATCH, -1)
+        full = (lambda p, xx: A.mla_full(T.layer(p["layers"], 0)["attn"],
+                                         c2, xx, pos))
+        step = (lambda p, xx, c, t: step_fn(T.layer(p["layers"], 0)["attn"],
+                                            c2, xx, c, t)[0])
+        want, whole_rec, ranks, launches, rec = ma_attention(
+            c2, tree, 4, x, xs, full, step)
+        fields = {}
+        ma_compare("prefill_and_decode", ranks, want, fields, failed)
+        report("b_deepseek_mla_" + ("absorbed" if absorbed else "expanded")
+               + "_m4", t0, 4, whole_rec, launches, rec, fields)
+    del tree
+    free_card()
+    t0 = time.perf_counter()
+    tree = {"layers": ma_layer(cfg, {"moe": shapes["moe"]}, 3)}
+    xs = [rand(MA_BATCH, MA_PROMPT, cfg.d_model),
+          rand(MA_BATCH, 1, cfg.d_model)]
+    routes = {}
+    orig = MOE.route
+
+    def rec_route(p, c, x):
+        r = orig(p, c, x)
+        routes.setdefault(threading_name(), []).append(
+            (r.top_e, r.slot, int(r.dropped)))
+        return r
+
+    MOE.route = rec_route
+    try:
+        def moe_body(p):
+            lp = T.layer(p["layers"], 0)["moe"]
+            return [MOE.moe_ffn(lp, cfg, x)[0] for x in xs]
+
+        want = moe_body(tree)
+        whole_routes = routes.pop(threading_name())
+        ranks = ma_ranks(cfg, tree, 4, moe_body)
+    finally:
+        MOE.route = orig
+    fields = {"experts_a_rank": cfg.moe.n_experts // 4,
+              "dropped_pairs": [d for _, _, d in whole_routes]}
+    ma_compare("moe_prefill_and_decode", ranks, want, fields, failed)
+    same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+               for got in routes.values()
+               for a, b in zip(got, whole_routes)) and len(routes) == 4
+    fields["routing_equal"] = same
+    if not same:
+        failed.append("deepseek MoE routing differs on a rank")
+    emit("model_axis", t0, part="b_deepseek_moe_m4", model=4, **fields)
+    del tree, ranks, want
+    free_card()
+
+    # (c) zamba2-7b: a Mamba2 block, then the shared attention block
+    cfg = cfg_of("zamba2-7b")
+    t0 = time.perf_counter()
+    tree = {"layers": ma_layer(cfg, {"ln": (1, cfg.d_model),
+                                     "mamba": SSM.param_shapes(cfg, (1,))},
+                               4)}
+    x = rand(MA_BATCH, MA_PROMPT, cfg.d_model)
+    xs = [rand(MA_BATCH, 1, cfg.d_model) for _ in range(MA_STEPS)]
+
+    def ssm_body(p):
+        lp = T.layer(p["layers"], 0)
+        out, c = T.ssm_block_full(lp, cfg, x)
+        outs = [out]
+        for xt in xs:
+            o, c = T.ssm_block_decode(lp, cfg, xt, c)
+            outs.append(o)
+        return outs
+
+    want = ssm_body(tree)
+    ranks = ma_ranks(cfg, tree, 4, ssm_body)
+    fields = {"heads_a_rank": SSM.dims(cfg)[1] // 4}
+    ma_compare("mamba2_prefill_and_decode", ranks, want, fields, failed)
+    emit("model_axis", t0, part="c_zamba2_mamba2_m4", model=4, **fields)
+    del tree, ranks, want
+    tree = {"shared_attn": ma_layer(cfg, T.attn_block_shapes(cfg), 5)}
+    attention_block("c_zamba2_shared_attn_m4", cfg, tree, 4, shared=True)
+    del tree
+    free_card()
+
+    # (d) whisper-small: one encoder layer, then the cross call
+    cfg = dataclasses.replace(cfg_of("whisper-small"), encoder_layers=1)
+    t0 = time.perf_counter()
+    d = cfg.d_model
+    enc_tree = ma_layer(cfg, {"frontend": (d, d), "enc_norm": (d,),
+                              "enc_layers": ED.param_shapes(cfg)[
+                                  "enc_layers"]}, 6)
+    frames = rand(MA_BATCH, MA_ENC_LEN, d)
+    xq = rand(MA_BATCH, MA_DEC_LEN, d)
+    x1 = rand(MA_BATCH, 1, d)
+    xt_tree = {"layers": {"xattn": ma_layer(
+        cfg, A.cross_param_shapes(cfg, (1,)), 7)}}
+
+    def enc_body(p):
+        return [ED.encode(p, cfg, frames)]
+
+    def cross_body(p):
+        lp = T.layer(p["layers"]["xattn"], 0)
+        kv = A.cross_precompute(lp, cfg, enc)
+        return [A.cross_full(lp, cfg, xq, kv), A.cross_full(lp, cfg, x1, kv)]
+
+    want, _, whole_rec = ma_flash(lambda: enc_body(enc_tree))
+    enc = want[0]
+    ranks, launches, rec = ma_flash(lambda: ma_ranks(cfg, enc_tree, 4,
+                                                     enc_body))
+    fields = {}
+    ma_compare("encoder_layer", ranks, want, fields, failed)
+    report("d_whisper_encoder_m4", t0, 4, whole_rec, launches, rec, fields)
+    t0 = time.perf_counter()
+    want, _, whole_rec = ma_flash(lambda: cross_body(xt_tree))
+    ranks, launches, rec = ma_flash(lambda: ma_ranks(cfg, xt_tree, 4,
+                                                     cross_body))
+    fields = {}
+    ma_compare("cross_prefill_and_decode", ranks, want, fields, failed)
+    report("d_whisper_cross_m4", t0, 4, whole_rec, launches, rec, fields)
+    del enc_tree, xt_tree, ranks, want, enc
+    free_card()
+    if failed:
+        raise AssertionError(f"model_axis failed: {failed}")
+    emit("model_axis", t_all, part="total",
+         flash_launches=sum(dd["launches"] for dd in drains))
+    merged = types.SimpleNamespace(calls=Counter(), inputs={})
+    for dd in drains:
+        merged.calls.update(dd["recorder"].calls)
+        for k, v in dd["recorder"].inputs.items():
+            merged.inputs.setdefault(k, v)
+    return {"launches": sum(dd["launches"] for dd in drains),
+            "recorder": merged, "device_us": {}}
+
+
+def threading_name():
+    import threading
+
+    return threading.current_thread().name
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print(f"chip_smoke.py: no src/repro_torch beside {ROOT}; run it from "
@@ -4502,13 +4905,14 @@ def main() -> int:
     train = phase_lm_train()
     phase_multi_device(graph, summary, main_wall, launches, res_stages,
                        res_launches, train)
+    model_axis = phase_model_axis()
     t0 = time.perf_counter()
     record = kernel_record(recorder, launches, res_recorder, res_launches,
                            rng, device_us, rates)
     record += serving_kernel_record(serve_calls + rmat_calls,
                                     serve_launches + rmat_launches, shingles,
                                     device_us, rates)
-    record += flash_record([lm, mla_moe, *ssm_encdec, vlm])
+    record += flash_record([lm, mla_moe, *ssm_encdec, vlm, model_axis])
     emit("record", t0, total_seconds=time.perf_counter() - t_all)
     print(smi, flush=True)
     print(json.dumps({"kernels": record}), flush=True)

@@ -1,8 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the port's data axis (slice E5) across ranks: one process a card
-(NCCL), or CPU processes (gloo, ``--cpu``), started by torchrun:
+"""Drive the port's data axis (slice E5) and model axis (slice E6a)
+across ranks: one process a card (NCCL), or CPU processes (gloo,
+``--cpu``), started by torchrun:
 
-    python3 -m torch.distributed.run --nproc-per-node 4 multi_rank_smoke.py [--cpu]
+    python3 -m torch.distributed.run --nproc-per-node 4 multi_rank_smoke.py [--cpu] [--parts model]
+
+``--parts`` (comma-separated: engine, train, ckpt, psum, model) runs those
+parts only; all by default.
 
 Every rank, in order:
 
@@ -20,6 +24,22 @@ Every rank, in order:
           `build/multi_rank_ckpt/`) and `restore(mesh=)` equal to the state
   psum    `compressed_psum` of 2^22 values: the same mean on every rank,
           and its largest gap to the exact mean
+  model   serving under a model axis through `build_serve_step` (world 4):
+          qwen2.5-3b whole (the smoke model with --cpu) on
+          `make_host_mesh(1, 4)` and `(2, 2)`, 16 prompts × 1,024 tokens
+          (× 64 with --cpu), 32 greedy decode steps in bf16 — the same
+          tokens on every rank of a batch shard, their agreement with the
+          one-rank run printed, prefill tokens/s, decode ms a step and
+          peak memory a card — and on its first 4 layers in f32 the
+          prefill and decode logits (decoding the one-rank run's tokens)
+          equal the one-rank run's within max|Δ| ≤ 1e-4·max|ref| + 1e-5;
+          then qwen3-moe-235b-a22b cut to 40 of its 94 layers (its smoke
+          model with --cpu), expert- and tensor-parallel over (1, 4), each
+          rank drawing its own blocks on its card (`init_params(mesh=)`):
+          16 × 1,024 prompts, 16 greedy decode steps; finite logits, the
+          same routing checksum and tokens on every rank; prefill
+          tokens/s, decode ms a step, peak memory, dropped routed pairs;
+          each timed run after one untimed prefill and decode step
 
 Rank 0 prints a JSON line a part (each rank its own `rank_*` lines); the
 script exits 0 only if every check held on every rank.
@@ -41,11 +61,13 @@ def emit(rank, what, **kw):
 
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
-    import numpy as np
     import torch
     import torch.distributed as dist
 
     cpu = "--cpu" in sys.argv
+    parts = (sys.argv[sys.argv.index("--parts") + 1].split(",")
+             if "--parts" in sys.argv else
+             ["engine", "train", "ckpt", "psum", "model"])
     rank = int(os.environ["RANK"])
     world = int(os.environ["WORLD_SIZE"])
     if cpu:
@@ -61,19 +83,38 @@ def main() -> int:
         if not cpu:
             torch.cuda.synchronize()
 
-    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+
+    ok = True
+    if "engine" in parts:
+        ok &= engine_part(rank, dev, cpu, sync)
+    tmesh = make_host_mesh(world, 1)
+    if "train" in parts:
+        ok &= train_part(rank, dev, cpu, sync, tmesh)
+    if "ckpt" in parts:
+        ok &= ckpt_part(rank, dev, cpu, tmesh)
+    if "psum" in parts:
+        ok &= psum_part(rank, world, dev)
+    if "model" in parts:
+        ok &= model_part(rank, world, dev, cpu, sync)
+
+    flag = torch.tensor([int(ok)], device=dev)
+    dist.all_reduce(flag, dist.ReduceOp.MIN)
+    emit(rank, "done", ok=bool(flag.item()), world=world, parts=parts)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0 if flag.item() else 1
+
+
+def engine_part(rank, dev, cpu, sync):
+    import numpy as np
+
     from repro_torch.core.engine import SummarizerEngine
-    from repro_torch.data.pipeline import TokenStream, make_batch
     from repro_torch.graphs import generators as GG
     from repro_torch.kernels.bitset_fold import kernel as K3
     from repro_torch.kernels.bitset_jaccard import kernel as K1
     from repro_torch.kernels.seghist import kernel as K2
-    from repro_torch.launch.mesh import make_data_mesh, make_host_mesh
-    from repro_torch.models import transformer as TR
-    from repro_torch.optim.adamw import leaves
-    from repro_torch.optim.grad_compression import compressed_psum
-    from repro_torch.train import checkpoint as CKPT
-    from repro_torch.train import train_step as TS
+    from repro_torch.launch.mesh import make_data_mesh
 
     ok = True
     g = GG.caveman(600 if cpu else 4000, 11, 0.03, seed=0)
@@ -99,8 +140,18 @@ def main() -> int:
             "launches": {"inter": K1.LAUNCHES, "hist": K2.LAUNCHES,
                          "topj": K3.TOPJ_LAUNCHES, "fold": K3.FOLD_LAUNCHES}}
     emit(rank, "rank_engine", graph={"n": g.n, "m": g.m}, T=T, runs=runs)
+    return ok
 
-    tmesh = make_host_mesh(world, 1)
+
+def train_part(rank, dev, cpu, sync, tmesh):
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenStream, make_batch
+    from repro_torch.models import transformer as TR
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train import train_step as TS
+
     cfg = get_config("qwen2.5-3b", smoke=cpu)
     plan = TS.TrainPlan(cfg=cfg, total_steps=6, mesh=tmesh)
     state = TS.init_state(TR.init_params(
@@ -123,7 +174,19 @@ def main() -> int:
          moment_bytes_m=sum(t.numel() * t.element_size()
                             for t in leaves(state["opt"]["m"])),
          rows_per_rank=int(batch["tokens"].shape[0]))
-    del state
+    return True
+
+
+def ckpt_part(rank, dev, cpu, tmesh):
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenStream, make_batch
+    from repro_torch.models import transformer as TR
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train import train_step as TS
 
     cfg = get_config("mamba2-130m", smoke=cpu)
     plan = TS.TrainPlan(cfg=cfg, total_steps=6, mesh=tmesh)
@@ -149,10 +212,19 @@ def main() -> int:
     back, at = CKPT.restore(fresh(1), str(d), mesh=tmesh)
     restored = at == 1 and all(torch.equal(a, b)
                                for a, b in zip(leaves(back), leaves(state)))
-    ok &= same_params and restored
     emit(rank, "ckpt", same_params_on_every_rank=same_params,
          restored_equal=restored, seconds=time.perf_counter() - t0)
-    del state, back
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(d, ignore_errors=True)
+    return same_params and restored
+
+
+def psum_part(rank, world, dev):
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.optim.grad_compression import compressed_psum
 
     x = torch.randn(1 << 22, generator=torch.Generator(
         device=dev).manual_seed(rank), device=dev)
@@ -163,18 +235,217 @@ def main() -> int:
     means = [torch.empty_like(mean) for _ in range(world)]
     dist.all_gather(means, mean)
     same_mean = all(torch.equal(a, means[0]) for a in means)
-    ok &= same_mean
     emit(rank, "psum", n=1 << 22, same_on_every_rank=same_mean,
          max_abs_err=float((mean - exact).abs().max()))
+    return same_mean
 
-    flag = torch.tensor([int(ok)], device=dev)
-    dist.all_reduce(flag, dist.ReduceOp.MIN)
-    emit(rank, "done", ok=bool(flag.item()), world=world)
-    dist.barrier()
-    if rank == 0:
-        shutil.rmtree(d, ignore_errors=True)
-    dist.destroy_process_group()
-    return 0 if flag.item() else 1
+
+# ----------------------------------------------------------- model axis
+MA_RTOL, MA_ATOL = 1e-4, 1e-5   # max|Δ| ≤ 1e-4·max|ref| + 1e-5
+
+
+def _prompts(cfg, rows, plen, dev):
+    from repro_torch.data.pipeline import TokenStream
+
+    import torch
+
+    return torch.from_numpy(TokenStream(cfg.vocab, rows, plen, seed=0)
+                            .batch_np(0)[:, :plen]).long().to(dev)
+
+
+def _serve(params, cfg, mesh, toks, gen, sync, feed=None):
+    """Prefill the rank's rows ``toks`` and decode ``gen`` greedy steps (or
+    the tokens ``feed``) through `build_serve_step` on ``mesh`` (None: one
+    device, no mesh), after one untimed prefill and decode step (the
+    first collectives on a group set up its NCCL communicators). Returns
+    (prefill logits, decode logits, tokens, prefill seconds, decode
+    seconds a step)."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.api import get_api
+    from repro_torch.train import train_step as TS
+
+    b, plen = toks.shape
+    B = b if mesh is None else b * mesh.mesh.shape[0]
+    slots = plen + gen
+    if mesh is None:
+        api = get_api(cfg)
+        prefill = (lambda p, batch, cache_len: api.prefill(
+            p, cfg, batch, cache_len))
+        decode = (lambda p, c, t, pos: api.decode_step(p, cfg, c, t, pos))
+    else:
+        prefill = TS.build_serve_step(cfg, mesh, ("data",), ShapeConfig(
+            "p", plen, B, "prefill"))[0]
+        decode = TS.build_serve_step(cfg, mesh, ("data",), ShapeConfig(
+            "d", slots, B, "decode"))[0]
+    with torch.no_grad():
+        _, cache = prefill(params, {"tokens": toks}, cache_len=slots)
+        decode(params, cache, toks[:, :1], plen)
+        del cache
+        sync()
+        t0 = time.perf_counter()
+        lg, cache = prefill(params, {"tokens": toks}, cache_len=slots)
+        sync()
+        t_pre = time.perf_counter() - t0
+        first = lg[:, -1].float()
+        tok = first.argmax(-1, keepdim=True)
+        outs, steps, t_dec = [tok], [], 0.0
+        for i in range(gen - 1):
+            t_in = tok if feed is None else feed[:, i:i + 1]
+            sync()
+            t0 = time.perf_counter()
+            lg, cache = decode(params, cache, t_in, plen + i)
+            sync()
+            t_dec += time.perf_counter() - t0
+            steps.append(lg[:, 0].float())
+            tok = lg[:, 0].argmax(-1, keepdim=True)
+            outs.append(tok)
+    return first, steps, torch.cat(outs, 1), t_pre, t_dec / max(1, gen - 1)
+
+
+def _close(got, want):
+    err = (got - want).abs().max().item()
+    return err, MA_RTOL * want.abs().max().item() + MA_ATOL
+
+
+def _rows(mesh, B):
+    from repro_torch.models import sharding as SH
+
+    if SH.batch_pspec(mesh, ("data",), B)[0] is None:
+        return slice(0, B)
+    per, r = B // mesh.mesh.shape[0], mesh.get_local_rank("data")
+    return slice(r * per, (r + 1) * per)
+
+
+def _same_on_shard(t, rows, world):
+    """Whether every rank holding rows ``rows`` holds the same ``t``."""
+    import torch
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(t) for _ in range(world)]
+    dist.all_gather(parts, t.contiguous())
+    rr = [None] * world
+    dist.all_gather_object(rr, (rows.start, rows.stop))
+    mine = (rows.start, rows.stop)
+    return all(torch.equal(p, t) for p, r in zip(parts, rr) if r == mine)
+
+
+def model_part(rank, world, dev, cpu, sync):
+    """The model axis (slice E6a): qwen2.5-3b on (1, 4) and (2, 2), then
+    qwen3-moe-235b-a22b's 40-layer cut on (1, 4) (module docstring)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import transformer as TR
+
+    ok = True
+    rows_all, plen = 16, 64 if cpu else 1024
+    cfg = get_config("qwen2.5-3b", smoke=cpu)
+    whole = TR.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    toks = _prompts(cfg, rows_all, plen, dev)
+    gen = 32
+    one = _serve(whole, cfg, None, toks, gen, sync)
+    cfg4 = dataclasses.replace(cfg, n_layers=min(4, cfg.n_layers),
+                               dtype="float32")
+    whole4 = {k: ({n: {m: t[:cfg4.n_layers].float() for m, t in v.items()}
+                   if isinstance(v, dict) else v[:cfg4.n_layers].float()
+                   for n, v in val.items()} if k == "layers" else val.float())
+              for k, val in whole.items()}
+    one4 = _serve(whole4, cfg4, None, toks, 8, sync, feed=one[2])
+    for shape in ((1, 4), (2, 2)):
+        mesh = make_host_mesh(*shape)
+        rows = _rows(mesh, rows_all)
+        blocks = SH.shard_params(cfg, whole, mesh, ("data",))
+        if not cpu:
+            torch.cuda.reset_peak_memory_stats()
+        got = _serve(blocks, cfg, mesh, toks[rows], gen, sync)
+        peak = 0 if cpu else torch.cuda.max_memory_allocated()
+        same = _same_on_shard(got[2], rows, world)
+        agree = float((got[2] == one[2][rows]).float().mean())
+        blocks4 = SH.shard_params(cfg4, whole4, mesh, ("data",))
+        got4 = _serve(blocks4, cfg4, mesh, toks[rows], 8, sync,
+                      feed=one[2][rows])
+        worst, bound, f32_ok = 0.0, 0.0, True
+        for g, w in zip([got4[0]] + got4[1], [one4[0]] + one4[1]):
+            err, b = _close(g, w[rows])
+            worst, bound = max(worst, err), max(bound, b)
+            f32_ok &= err <= b
+        ok &= same and f32_ok
+        emit(rank, "model_qwen2.5-3b", mesh=list(shape),
+             rows_per_rank=rows.stop - rows.start, prompt_len=plen,
+             gen=gen, prefill_tokens_per_s=rows_all * plen / got[3],
+             decode_ms_per_step=got[4] * 1e3,
+             one_rank_prefill_tokens_per_s=rows_all * plen / one[3],
+             one_rank_decode_ms_per_step=one[4] * 1e3,
+             max_memory_allocated=peak, same_tokens_on_shard=same,
+             bf16_token_agreement_with_one_rank=agree,
+             f32_4_layers={"max_abs_err": worst, "bound": bound,
+                           "ok": f32_ok})
+        del blocks, blocks4, got, got4
+    del whole, whole4
+    if not cpu:
+        torch.cuda.empty_cache()
+
+    # qwen3-moe-235b-a22b, 40 of 94 layers, each rank its blocks
+    cfg = get_config("qwen3-moe-235b-a22b", smoke=cpu)
+    cfg = dataclasses.replace(cfg, n_layers=min(40, cfg.n_layers))
+    mesh = make_host_mesh(1, 4)
+    t0 = time.perf_counter()
+    blocks = TR.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev, mesh=mesh)
+    sync()
+    init_s = time.perf_counter() - t0
+    local = sum(t.numel() for t in _leaves(blocks))
+    stats = {"checksum": 0, "dropped": 0, "pairs": 0}
+    orig = MOE.route
+
+    def route(p, c, x):
+        r = orig(p, c, x)
+        w = torch.arange(1, r.top_e.numel() + 1, device=x.device)
+        stats["checksum"] += int((r.top_e.reshape(-1).long() * w).sum())
+        stats["dropped"] += int(r.dropped)
+        stats["pairs"] += r.top_e.numel()
+        return r
+
+    MOE.route = route
+    try:
+        if not cpu:
+            torch.cuda.reset_peak_memory_stats()
+        got = _serve(blocks, cfg, mesh, toks, 16, sync)
+    finally:
+        MOE.route = orig
+    peak = 0 if cpu else torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(got[0]).all()) and all(
+        bool(torch.isfinite(s).all()) for s in got[1])
+    rows = slice(0, rows_all)
+    same_tokens = _same_on_shard(got[2], rows, world)
+    same_routing = _same_on_shard(torch.tensor([stats["checksum"]],
+                                               device=dev), rows, world)
+    ok &= finite and same_tokens and same_routing
+    emit(rank, "model_qwen3-moe-235b-a22b", mesh=[1, 4],
+         layers=cfg.n_layers, layers_published=94,
+         params_a_rank=local, init_seconds=init_s, prompt_len=plen,
+         gen=16, prefill_tokens_per_s=rows_all * plen / got[3],
+         decode_ms_per_step=got[4] * 1e3, max_memory_allocated=peak,
+         finite=finite, same_tokens=same_tokens,
+         same_routing_checksum=same_routing,
+         dropped_share=stats["dropped"] / max(1, stats["pairs"]))
+    return ok
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 if __name__ == "__main__":

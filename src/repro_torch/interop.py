@@ -49,34 +49,49 @@ def _tensor(a, device) -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_arrays(cfg, tree, device=None) -> dict:
+def params_from_arrays(cfg, tree, device=None, mesh=None,
+                       dp_axes=("data",), coords=None) -> dict:
     """The port's LM parameters from the nested dict of arrays that the
     reference's ``init_params`` gives (``np.asarray`` of each leaf, layers
     stacked on a leading L axis), for every ported family (the
     encoder-decoder's tree too): same tree, same shapes, same values and
     dtypes (an SSM's ``A_log``, ``D`` and ``dt_bias`` stay float32 in a
     bf16 model, as the MoE router does), on ``device`` (``None``: the
-    CUDA card, which must exist). Raises when the tree does not have the
-    shapes ``cfg`` implies."""
+    CUDA card, which must exist). With a ``mesh`` (a `DeviceMesh`, or a
+    ``{axis: size}`` mapping with the rank's ``coords``), only the rank's
+    block of each leaf (`models.sharding.param_pspecs`) is carried.
+    Raises when the tree does not have the shapes ``cfg`` implies."""
     from repro_torch.core.engine import resolve_device
+    from repro_torch.models import sharding as SH
     from repro_torch.models.api import param_shapes
 
-    return _carry(param_shapes(cfg), tree, resolve_device(device), "params")
+    shapes = param_shapes(cfg)
+    blocks = None
+    if mesh is not None:
+        coords = SH.mesh_coords(mesh) if coords is None else coords
+        sizes = SH.mesh_sizes(mesh)
+        specs = SH.param_pspecs(cfg, shapes, sizes, dp_axes)
+        blocks = SH._map_with_path(
+            lambda path, shape: SH.local_block(
+                shape, SH.at(specs, path), sizes, coords), shapes)
+    return _carry(shapes, tree, resolve_device(device), "params", blocks)
 
 
-def _carry(spec, node, dev, path):
+def _carry(spec, node, dev, path, blocks=None):
     """``node``'s arrays as tensors on ``dev`` in the tree of shapes
-    ``spec``; raises where the keys or a shape differ."""
+    ``spec`` (each cut to its slices in ``blocks`` where given); raises
+    where the keys or a shape differ."""
     if isinstance(spec, dict):
         if not isinstance(node, dict) or set(node) != set(spec):
             got = sorted(node) if isinstance(node, dict) else type(node)
             raise ValueError(f"{path}: keys {got} != {sorted(spec)}")
-        return {k: _carry(spec[k], node[k], dev, f"{path}/{k}")
+        return {k: _carry(spec[k], node[k], dev, f"{path}/{k}",
+                          None if blocks is None else blocks[k])
                 for k in spec}
-    t = _tensor(node, dev)
-    if tuple(t.shape) != spec:
-        raise ValueError(f"{path}: shape {tuple(t.shape)} != {spec}")
-    return t
+    shape = tuple(np.shape(node))
+    if shape != spec:
+        raise ValueError(f"{path}: shape {shape} != {spec}")
+    return _tensor(node if blocks is None else np.asarray(node)[blocks], dev)
 
 
 def train_state_from_arrays(cfg, tree, device=None) -> dict:

@@ -11,8 +11,9 @@ does (``torchrun``, the tests, ``chip_smoke.py``) with NCCL on the card or
 gloo on the CPU, and the mesh's device type follows the group's backend.
 Building a mesh without a process group raises.
 
-``make_production_mesh`` (the TPU pod shapes, with two data axes) waits
-for the model axis (ROADMAP slice E6).
+The model axis (slice E6a: tensor- and expert-parallel serving) runs
+over `model_group`. ``make_production_mesh`` (the TPU pod shapes, with
+two data axes) waits for slice E6b, with training under a model axis.
 """
 from __future__ import annotations
 
@@ -79,11 +80,11 @@ def make_data_mesh():
 def dp_group(mesh, axes=None):
     """The process group of ``mesh``'s data axes (`dp_axes_of` by
     default). One data axis only: several (the production mesh's
-    ``("pod", "data")``) wait for slice E6."""
+    ``("pod", "data")``) wait for slice E6b."""
     axes = tuple(axes) if axes is not None else dp_axes_of(mesh)
     if len(axes) != 1:
         raise NotImplementedError(
-            f"data axes {axes}: a group over several mesh axes is slice E6")
+            f"data axes {axes}: a group over several mesh axes is slice E6b")
     return mesh.get_group(axes[0])
 
 
@@ -102,6 +103,23 @@ def dp_rank(mesh, axes=None) -> int:
     """This process's shard index along the data axes: its rank in
     `dp_group`, the order `all_gather` concatenates in."""
     return dist.get_rank(dp_group(mesh, axes))
+
+
+def model_group(mesh):
+    """The process group of ``mesh``'s ``"model"`` axis: the ranks that
+    hold one batch shard's blocks of the parameters and the cache."""
+    return mesh.get_group("model")
+
+
+def model_size(mesh) -> int:
+    """The model axis' size (1 on a mesh without one)."""
+    return mesh_sizes(mesh).get("model", 1)
+
+
+def model_rank(mesh) -> int:
+    """This process's index along the model axis: its rank in
+    `model_group`, the block of every model-sharded dim it holds."""
+    return mesh.get_local_rank("model") if model_size(mesh) > 1 else 0
 
 
 def block(size: int, rank: int, world: int) -> slice:

@@ -17,8 +17,10 @@ NCCL (gloo with ``--device cpu``):
 from torchrun's environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``),
 or from a caller that has already initialized one. Checkpoints hold whole
 moments, so ``--resume`` restores under any rank count. A
-``--model-parallel`` above 1 (tensor and expert parallelism) is slice E6
-and raises; nothing trains on fewer devices than asked.
+``--model-parallel`` above 1 (training under tensor and expert
+parallelism) is slice E6b and raises; nothing trains on fewer devices than
+asked. Serving under a model axis (slice E6a) is
+`train.train_step.build_serve_step`.
 """
 from __future__ import annotations
 
@@ -64,8 +66,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.model_parallel > 1:
         raise ValueError(
-            f"--model-parallel {args.model_parallel}: tensor and expert "
-            f"parallelism is slice E6, not ported yet")
+            f"--model-parallel {args.model_parallel}: training under tensor "
+            f"and expert parallelism is slice E6b, not ported yet")
     device = resolve_device(args.device)
     mesh = _data_mesh(args.data_parallel, device)
 

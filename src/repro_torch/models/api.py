@@ -4,7 +4,10 @@ tooling, slice G). Decoder-only configs (dense, MoE, SSM, hybrid, VLM) go
 to `models/transformer.py`, whose VLM batches carry ``"embeds"`` (the
 patch prefix) beside ``"tokens"``; encoder-decoder configs go to
 `models/encdec.py`, whose batches carry ``"frames"``. `lm_loss` is the
-next-token cross-entropy with a chunked vocabulary projection.
+next-token cross-entropy with a chunked vocabulary projection. Under a
+model axis (slice E6a) the embedding and each chunk's logits are
+vocab-parallel (`transformer.embed_tokens`, `transformer._logits`: the
+logits gathered whole), and a VLM's patch embeddings are replicated.
 """
 from __future__ import annotations
 

@@ -29,12 +29,12 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import sharding as SH
 from repro_torch.models.layers import lowp_matmul_f32
-from repro_torch.models.sharding import constrain, data_group
+from repro_torch.models.sharding import constrain
 
 
 def param_shapes(cfg: ModelConfig, lead: tuple = ()) -> dict:
@@ -104,12 +104,20 @@ def route(p, cfg: ModelConfig, x) -> Routing:
 
 
 def moe_ffn(p, cfg: ModelConfig, x):
-    """x: (b, s, d) -> ((b, s, d), aux loss), routed by `route`."""
+    """x: (b, s, d) -> ((b, s, d), aux loss), routed by `route`. Under a
+    model axis that splits the experts, the rank holds a block of them
+    (``we_*``'s leading dim): it routes every token as every rank does
+    (the router is replicated), gathers only its experts' rows, and adds
+    only their contributions; the shared experts run as a column-then-
+    row block, and one SUM all-reduce covers both partial sums."""
     mo = cfg.moe
     b, s, d = x.shape
     k, e = mo.top_k, mo.n_experts
     r = route(p, cfg, x)
     cap, slot = r.cap, r.slot
+    el = p["we_gate"].shape[0]          # the rank's experts, e0 … e0+el-1
+    lo = SH.col_block(e).start * cap    # their first buffer row
+    hi = lo + el * cap
     gi = torch.arange(b, device=x.device)[:, None]
 
     # dispatch: slot -> source token within the row (sentinel -> zero row).
@@ -117,69 +125,85 @@ def moe_ffn(p, cfg: ModelConfig, x):
     tok = (torch.arange(s * k, device=x.device) // k).expand(b, s * k)
     src = torch.full((b, e * cap + 1), s, dtype=torch.int64, device=x.device)
     src.scatter_(1, slot, tok)
-    src = src[:, :e * cap].view(b, e, cap).transpose(0, 1).contiguous()
+    src = src[:, lo:hi].reshape(b, el, cap).transpose(0, 1).contiguous()
     x_pad = torch.cat([x, x.new_zeros(b, 1, d)], dim=1)
     # gathered expert-major, so "gecd,edf->gecf" is one batched matmul
-    xe = constrain(x_pad[gi[None], src].view(e, b * cap, d),
+    xe = constrain(x_pad[gi[None], src].view(el, b * cap, d),
                    ("model", "dp", None))
     h = F.silu(torch.bmm(xe, p["we_gate"])) * torch.bmm(xe, p["we_up"])
     del xe
-    eo = constrain(torch.bmm(h, p["we_down"]),               # (e, b·cap, d)
+    eo = constrain(torch.bmm(h, p["we_down"]),              # (el, b·cap, d)
                    ("model", "dp", None))
     del h
 
     # combine: each (token, k) reads its row of eo, expert-major; dropped
-    # pairs read the zero row past the end
-    eo_pad = torch.cat([eo.view(e * b * cap, d), eo.new_zeros(1, d)])
+    # pairs, and pairs of another rank's experts, read the zero row
+    eo_pad = torch.cat([eo.view(el * b * cap, d), eo.new_zeros(1, d)])
     del eo
-    row = torch.where(slot < e * cap,
-                      (slot // cap) * (b * cap) + gi * cap + slot % cap,
-                      e * b * cap)
+    row = torch.where((slot >= lo) & (slot < hi),
+                      (slot - lo) // cap * (b * cap) + gi * cap + slot % cap,
+                      el * b * cap)
     gathered = eo_pad[row].view(b, s, k, d)
-    out = (gathered * r.top_p.to(gathered.dtype)[..., None]).sum(dim=2)
-
+    routed = (gathered * r.top_p.to(gathered.dtype)[..., None]).sum(dim=2)
+    parts = [(routed, SH.split(e))]
     if mo.n_shared:
-        gs = x @ p["ws_gate"]
-        us = x @ p["ws_up"]
-        out = out + (F.silu(gs) * us) @ p["ws_down"]
+        ds = mo.d_shared or mo.d_expert
+        hs = F.silu(x @ p["ws_gate"]) * (x @ p["ws_up"])
+        parts.append(SH.row_partial(hs, p["ws_down"], ds,
+                                    SH.col_block(ds).start))
+    out = _add_parts(parts)
     aux = _load_balance_loss(r.probs.reshape(b * s, e),
                              r.top_e.reshape(b * s, k), e)
     return out, aux
 
 
+def _add_parts(parts):
+    """Σ of ``[(term, partial?)]``, in order: the partial terms summed
+    locally, then over the model axis in one SUM all-reduce."""
+    shares = [t for t, partial in parts if partial]
+    out = None
+    if shares:
+        out = shares[0]
+        for t in shares[1:]:
+            out = out + t
+        out = SH.model_axis().sum(out)
+    for t, partial in parts:
+        if not partial:
+            out = t if out is None else out + t
+    return out
+
+
 class _SumOverRanks(torch.autograd.Function):
-    """SUM all-reduce over ``group`` that autograd sees through: the
+    """SUM all-reduce over an `Axis` that autograd sees through: the
     gradient of every rank's copy of the sum is the SUM of the ranks'
     gradients, as the data-parallel mean of the gradients then needs."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return axis.sum(x)
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
+        return ctx.axis.sum(grad), None
 
 
-def _global_mean(local_mean, group):
+def _global_mean(local_mean, axis):
     """The mean over every rank's rows of a per-rank mean (the ranks hold
     equal row counts), differentiably."""
-    if group is None:
+    if axis is None or axis.size == 1:
         return local_mean
-    return _SumOverRanks.apply(local_mean, group) / dist.get_world_size(group)
+    return _SumOverRanks.apply(local_mean, axis) / axis.size
 
 
 def _load_balance_loss(probs, top_e, n_experts):
     """Switch-style auxiliary load-balancing loss (f32) over the GLOBAL
-    batch: under a data-parallel mesh context (`sharding.data_group`) both
+    batch: under a data-parallel mesh context (`sharding.data_axis`) both
     per-expert means are reduced over the ranks first, so the loss is the
-    whole batch's and not a mean of per-rank products."""
-    group = data_group()
-    me = _global_mean(probs.mean(0), group)
-    ce = _global_mean(F.one_hot(top_e[:, 0], n_experts).float().mean(0), group)
+    whole batch's and not a mean of per-rank products. Routing is
+    replicated over the model axis, so every rank of it has the same."""
+    axis = SH.data_axis()
+    me = _global_mean(probs.mean(0), axis)
+    ce = _global_mean(F.one_hot(top_e[:, 0], n_experts).float().mean(0),
+                      axis)
     return n_experts * torch.sum(me * ce)

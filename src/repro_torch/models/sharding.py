@@ -1,5 +1,6 @@
-"""Sharding rules: parameter specs and activation constraints (the JAX
-package's `models/sharding.py`).
+"""Sharding rules and the model axis (the JAX package's
+`models/sharding.py`): parameter and cache specs, the rank's blocks, and
+the collectives that tensor- and expert-parallel serving needs.
 
 A spec is a tuple with one entry per tensor dim: an axis name, a tuple of
 axis names, or ``None`` (replicated) — what a jax ``PartitionSpec`` holds.
@@ -8,61 +9,568 @@ or shape tuples) and a mesh's ``{name: size}`` (`launch.mesh.mesh_sizes`:
 a `DeviceMesh` or a plain mapping), and give the reference's tables.
 
 Axis roles: ``dp`` = the data-parallel axes, ``model`` = tensor and expert
-parallelism. A thread-local context carries the active mesh, so model
-code stays mesh-agnostic. The data axis needs no activation constraint in
-SPMD: each rank's batch rows are already its shard. A model axis above 1
-(tensor- and expert-parallel forward passes) is slice E6, and `constrain`
-raises under one.
+parallelism. A thread-local context (`mesh_context`) carries the active
+layout, so model code stays mesh-agnostic: under it each rank holds the
+block of every parameter that `param_pspecs` gives it (`shard_params`)
+and of every cache leaf that `cache_pspecs` gives it (`shard_cache`), and
+the model code communicates explicitly where GSPMD would: `Axis.sum`
+(row blocks' partial sums, the vocab-parallel lookup), `Axis.gather`
+(projections whose column block cuts through a head or a packed
+projection, the vocab-parallel logits) and `Axis.max` (the softmax
+statistics of attention over a time-sharded cache). `constrain`, the
+reference's activation constraint, is the identity on the local tensor:
+the layout is explicit. Each collective is the identity on an axis of
+one rank, so a model axis of 1 runs the single-device code unchanged.
+Training under a model axis (gradients of replicated parameters used in
+blocks, clipping across the model group, ZeRO-1 over model blocks) is
+slice E6b and raises in `train.train_step`.
+
+A per-rank body runs without a process group under `rank_context` on
+`LocalGroup` axes: the ranks of one process take turns between
+collectives, each collective combining their tensors in rank order as
+NCCL's would — how ``chip_smoke.py`` runs a model axis on one card.
 """
 from __future__ import annotations
 
 import threading
 from contextlib import contextmanager
+from dataclasses import dataclass, field
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.launch.mesh import dp_group, dp_size, mesh_sizes
 
 _CTX = threading.local()
 
 
+# --------------------------------------------------------------------------
+# Axes: one mesh axis as the model code sees it
+# --------------------------------------------------------------------------
+class Axis:
+    """One mesh axis: its ``size``, this rank's index along it and the
+    collectives over its group. This base class is the axis of one rank,
+    where every collective is the identity."""
+
+    size = 1
+    rank = 0
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """SUM all-reduce: the same tensor on every rank of the axis."""
+        return x
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """MAX all-reduce."""
+        return x
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """All-gather: every rank's ``x`` concatenated along ``dim`` in
+        rank order."""
+        return x
+
+    def sum_all(self, *xs: torch.Tensor) -> list:
+        """SUM all-reduce of several tensors in one collective: packed
+        flat in float32 (or wider), returned in their own dtypes."""
+        if self.size == 1:
+            return list(xs)
+        acc = torch.promote_types(xs[0].dtype, torch.float32)
+        flat = self.sum(torch.cat([x.reshape(-1).to(acc) for x in xs]))
+        out, at = [], 0
+        for x in xs:
+            out.append(flat[at:at + x.numel()].view(x.shape).to(x.dtype))
+            at += x.numel()
+        return out
+
+
+SOLO = Axis()
+
+
+class GroupAxis(Axis):
+    """An axis over a `torch.distributed` process group: NCCL for tensors
+    on the card (a CUDA tensor under a gloo group raises), gloo on the
+    CPU."""
+
+    def __init__(self, group):
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.backend = dist.get_backend(group)
+
+    def _check(self, x):
+        if x.is_cuda and self.backend != "nccl":
+            raise RuntimeError(
+                f"a CUDA tensor on a {self.backend} group: the model axis "
+                f"on the card needs an NCCL process group")
+        return x
+
+    def sum(self, x):
+        out = self._check(x).clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=self.group)
+        return out
+
+    def max(self, x):
+        out = self._check(x).clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
+        return out
+
+    def gather(self, x, dim):
+        x = self._check(x).contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x, group=self.group)
+        return torch.cat(parts, dim=dim)
+
+
+class _Unbound(Axis):
+    """An axis above one rank with no process group behind it (a plain
+    mapping as the mesh): its rank and collectives raise."""
+
+    def __init__(self, name, size):
+        self.name, self.size = name, size
+
+    def _raise(self, *_):
+        raise RuntimeError(
+            f"a {self.name} axis of {self.size} needs a process group: pass "
+            f"a DeviceMesh (launch.mesh.make_host_mesh) to mesh_context, or "
+            f"run the per-rank bodies under rank_context")
+
+    rank = property(_raise)
+    sum = max = _raise
+
+    def gather(self, x, dim):
+        self._raise()
+
+
+WAIT_S = 600  # a rank waiting longer in a collective: the bodies disagree
+
+
+class LocalGroup:
+    """The group of one axis over ranks of one process, one thread each.
+    The threads share one lock (`run_ranks`'s scheduler) and hold it
+    while they run, so the ranks' bodies never run at once: a rank gives
+    the lock up only inside a collective, until every rank of its group
+    has arrived. The last arrival combines the tensors in rank order (a
+    sum or max, a concatenation), so every rank reads the same result, as
+    NCCL's all-reduce gives every rank the same bits."""
+
+    def __init__(self, world: int, cond: threading.Condition):
+        self.world, self.cond = world, cond
+        self.slots = {}      # generation -> {rank: (op, dim, tensor)}
+        self.results = {}    # generation -> [result, readers left]
+        self.gen = [0] * world
+        self.failed = None
+
+    def axis(self, rank: int) -> "LocalAxis":
+        return LocalAxis(self, rank)
+
+    def _combine(self, slots):
+        ops = {(o, d) for o, d, _ in slots.values()}
+        if len(ops) != 1:
+            raise RuntimeError(f"ranks disagree on the collective: "
+                               f"{sorted(map(str, ops))}")
+        (op, dim), = ops
+        xs = [slots[r][2] for r in range(self.world)]
+        if op == "gather":
+            return torch.cat(xs, dim=dim)
+        res = xs[0].clone()
+        for t in xs[1:]:
+            res = res + t if op == "sum" else torch.maximum(res, t)
+        return res
+
+    def collective(self, rank, op, x, dim=None):
+        cond = self.cond
+        g = self.gen[rank]
+        self.gen[rank] += 1
+        slots = self.slots.setdefault(g, {})
+        slots[rank] = (op, dim, x)
+        if len(slots) == self.world:
+            del self.slots[g]
+            self.results[g] = [self._combine(slots), self.world]
+            cond.notify_all()
+
+        def ready():
+            if self.failed is not None:
+                return True
+            return g in self.results
+
+        if not cond.wait_for(ready, timeout=WAIT_S):
+            raise RuntimeError(f"rank {rank} waited {WAIT_S} s for its "
+                               f"group's collective {op}")
+        if self.failed is not None:
+            raise RuntimeError(f"another rank failed: {self.failed!r}")
+        entry = self.results[g]
+        entry[1] -= 1
+        if entry[1] == 0:
+            del self.results[g]
+        return entry[0]
+
+
+class LocalAxis(Axis):
+    """Rank ``rank`` of a `LocalGroup`."""
+
+    def __init__(self, group: LocalGroup, rank: int):
+        self.group, self.rank, self.size = group, rank, group.world
+
+    def sum(self, x):
+        return self.group.collective(self.rank, "sum", x.contiguous())
+
+    def max(self, x):
+        return self.group.collective(self.rank, "max", x.contiguous())
+
+    def gather(self, x, dim):
+        return self.group.collective(self.rank, "gather", x.contiguous(),
+                                     dim % x.dim())
+
+
+def run_ranks(fn, model: int, data: int = 1) -> list:
+    """``[fn(rank, model_axis, data_axis) for each rank]`` over a ``(data,
+    model)`` grid of ranks in one process, rank ``= data index · model +
+    model index``: the per-rank bodies of a mesh without a process group.
+    ``fn`` enters `rank_context` with the axes it is given. One thread a
+    rank, one running at a time (`LocalGroup`); an exception on one rank
+    fails them all and is re-raised."""
+    n = data * model
+    cond = threading.Condition()
+    model_groups = [LocalGroup(model, cond) for _ in range(data)]
+    data_groups = [LocalGroup(data, cond) for _ in range(model)]
+    results, errors = [None] * n, []
+
+    def body(r):
+        di, mi = divmod(r, model)
+        with cond:
+            try:
+                results[r] = fn(r, model_groups[di].axis(mi),
+                                data_groups[mi].axis(di))
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)   # the first is the cause, the rest echo it
+                for g in model_groups + data_groups:
+                    g.failed = g.failed or e
+            cond.notify_all()
+
+    threads = [threading.Thread(target=body, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results
+
+
+# --------------------------------------------------------------------------
+# The layout context
+# --------------------------------------------------------------------------
+@dataclass
+class Layout:
+    """What the model code reads of the active mesh: the axis sizes, the
+    data axes' names, the model and data `Axis`, the global batch rows
+    (``batch``, where the cache specs need it), the cache's spec tree
+    (``cache``, `cache_pspecs`'s; set by the serve step), and whether the
+    parameters are the rank's blocks (``blocks``; the data-parallel train
+    step holds them whole)."""
+    mesh: object
+    dp: tuple
+    sizes: dict
+    model: Axis = SOLO
+    data: Axis = SOLO
+    batch: int = None
+    cache: dict = None
+    blocks: bool = True
+    specs: dict = field(default_factory=dict)  # cfg -> param spec tree
+
+    def coords(self) -> dict:
+        """``{axis name: this rank's index}`` over the mesh's axes."""
+        out = {a: 0 for a in self.sizes}
+        if self.sizes.get("model", 1) > 1:
+            out["model"] = self.model.rank
+        if len(self.dp) == 1 and self.sizes.get(self.dp[0], 1) > 1:
+            out[self.dp[0]] = self.data.rank
+        return out
+
+
+def _axes_of(mesh, dp):
+    """The model and data `Axis` of ``mesh``: over its process groups for
+    a `DeviceMesh`, unbound (raising where used) for a plain mapping."""
+    sizes = mesh_sizes(mesh)
+    m, d = sizes.get("model", 1), dp_size(mesh, dp)
+    bound = not isinstance(mesh, dict)
+    model = (SOLO if m == 1 else GroupAxis(mesh.get_group("model")) if bound
+             else _Unbound("model", m))
+    data = (SOLO if d == 1 else GroupAxis(dp_group(mesh, dp)) if bound
+            else _Unbound("data", d))
+    return model, data
+
+
 @contextmanager
-def mesh_context(mesh, dp_axes):
-    """dp_axes: tuple of mesh axis names acting as data parallelism."""
+def _enter(layout):
     prev = getattr(_CTX, "v", None)
-    _CTX.v = (mesh, tuple(dp_axes))
+    _CTX.v = layout
     try:
-        yield
+        yield layout
     finally:
         _CTX.v = prev
 
 
+@contextmanager
+def mesh_context(mesh, dp_axes, batch=None, cache=None, blocks=True):
+    """Run model code SPMD on ``mesh`` (a `DeviceMesh`, or a plain
+    ``{axis: size}`` mapping, whose axes above one rank raise where the
+    model code communicates). ``dp_axes``: the mesh axes acting as data
+    parallelism; ``batch``: the global batch rows; ``cache``: the cache's
+    spec tree (`cache_pspecs`); ``blocks``: the parameters are the rank's
+    blocks (`shard_params`), not whole."""
+    dp = tuple(dp_axes)
+    model, data = _axes_of(mesh, dp)
+    with _enter(Layout(mesh, dp, mesh_sizes(mesh), model, data, batch,
+                       cache, blocks)):
+        yield
+
+
+@contextmanager
+def rank_context(sizes: dict, dp_axes, model: Axis = SOLO, data: Axis = SOLO,
+                 batch=None, cache=None):
+    """`mesh_context` for a per-rank body: the mesh's ``{axis: size}``
+    and the rank's axes (`run_ranks`'s `LocalAxis`, or any `Axis`)."""
+    with _enter(Layout(dict(sizes), tuple(dp_axes), dict(sizes), model, data,
+                       batch, cache)):
+        yield
+
+
 def current():
+    """The active `Layout`, or None outside every context."""
     return getattr(_CTX, "v", None)
 
 
+_NONE = Layout(None, ("data",), {})
+
+
+def layout() -> Layout:
+    """The active `Layout`, or that of one device."""
+    return getattr(_CTX, "v", None) or _NONE
+
+
 def constrain(x, symbolic_spec):
-    """The activation constraint of the reference: the identity with no
-    mesh context or a model axis of 1; raises under a larger model axis."""
-    ctx = current()
-    if ctx is None:
-        return x
-    if mesh_sizes(ctx[0]).get("model", 1) > 1:
-        raise NotImplementedError(
-            f"a model axis above 1 ({symbolic_spec}): tensor and expert "
-            f"parallelism is slice E6")
+    """The reference's activation constraint. The layout here is explicit
+    (each rank holds its blocks, and the model code communicates where
+    GSPMD would), so it is the identity on the local tensor."""
     return x
 
 
 def data_group():
     """The data-parallel process group of the active mesh context, or None
-    when there is none or it holds one rank — what cross-rank statistics
-    (the MoE load-balancing loss) reduce over."""
-    ctx = current()
-    if ctx is None:
+    when there is none or it holds one rank."""
+    lay = current()
+    if lay is None or lay.data.size <= 1:
         return None
-    mesh, dp = ctx
-    if dp_size(mesh, dp) <= 1:
+    return getattr(lay.data, "group", None)
+
+
+# --------------------------------------------------------------------------
+# Blocks and collectives of the model axis
+# --------------------------------------------------------------------------
+def model_axis() -> Axis:
+    return layout().model
+
+
+def data_axis() -> Axis:
+    return layout().data
+
+
+def split(n: int) -> bool:
+    """Whether a dim of ``n`` that a spec puts on ``"model"`` is split:
+    `_guard` replicates it where the model axis does not divide it."""
+    m = model_axis().size
+    return m > 1 and n % m == 0
+
+
+def col_block(n: int) -> slice:
+    """The rank's block of a dim of ``n`` on ``"model"``: its share where
+    `split`, else all of it."""
+    if not split(n):
+        return slice(0, n)
+    ax = model_axis()
+    per = n // ax.size
+    return slice(ax.rank * per, (ax.rank + 1) * per)
+
+
+def heads(h: int) -> tuple:
+    """``(h0, h1)``: the heads this rank computes — its block where the
+    model axis divides ``h``, else all of them."""
+    blk = col_block(h)
+    return blk.start, blk.stop
+
+
+def take(y: torch.Tensor, n: int, lo: int, hi: int) -> torch.Tensor:
+    """Columns ``[lo, hi)`` of a projection whose ``n`` output columns sit
+    on ``"model"`` (a weight's columns, or its output), given this rank's
+    ``y`` (its `col_block`): a view where the block holds them, else the
+    gathered whole, sliced."""
+    blk = col_block(n)
+    if blk.start <= lo and hi <= blk.stop:
+        return y[..., lo - blk.start:hi - blk.start]
+    return model_axis().gather(y, -1)[..., lo:hi]
+
+
+def row_partial(y: torch.Tensor, w: torch.Tensor, n: int, lo: int):
+    """``(y' @ w, partial?)`` for a row block ``w`` of an ``(n, d)``
+    weight on ``"model"``: ``y`` holds input columns ``[lo, lo +
+    y.shape[-1])``, and ``y'`` the rank's rows of them. ``partial``: the
+    product is this rank's share of a sum over the model axis."""
+    blk = col_block(n)
+    a, b = blk.start - lo, blk.stop - lo
+    if a < 0 or b > y.shape[-1]:
+        raise ValueError(f"input columns [{lo}, {lo + y.shape[-1]}) do not "
+                         f"cover the row block [{blk.start}, {blk.stop})")
+    if a or b != y.shape[-1]:
+        y = y[..., a:b]
+    return y @ w, split(n)
+
+
+def rows(y: torch.Tensor, w: torch.Tensor, n: int, lo: int = 0):
+    """A row-block product summed over the model axis (`row_partial`):
+    one SUM all-reduce where the block is a share."""
+    out, partial = row_partial(y, w, n, lo)
+    return model_axis().sum(out) if partial else out
+
+
+def gather_spec(tree, specs, model: bool = False):
+    """``tree``'s blocks all-gathered along every dim whose spec puts a
+    data axis on it (and the model axis, with ``model``), over that axis'
+    group: under ``cfg.fsdp`` with a data axis above 1, one layer's
+    weights just before use."""
+    lay = layout()
+    dp = set(lay.dp)
+
+    def walk(t, s):
+        if isinstance(t, dict):
+            return {k: walk(v, s[k]) for k, v in t.items()}
+        for dim, ax in enumerate(s):
+            names = set(ax if isinstance(ax, tuple) else (ax,))
+            if ax is None:
+                continue
+            if names <= dp:
+                t = lay.data.gather(t, dim)
+            elif model and names == {"model"}:
+                t = lay.model.gather(t, dim)
+        return t
+
+    return walk(tree, specs)
+
+
+def layer_specs(cfg, *path, stacked=True):
+    """The spec tree (`param_pspecs`) of the parameters at ``path`` under
+    the active layout, the layer axis dropped where ``stacked``; memoised
+    a layout."""
+    from repro_torch.models.api import param_shapes
+
+    lay = layout()
+    key = cfg
+    if key not in lay.specs:
+        lay.specs[key] = param_pspecs(cfg, param_shapes(cfg), lay.sizes,
+                                      lay.dp)
+    t = at(lay.specs[key], path)
+    if not stacked:
+        return t
+
+    def drop(s):
+        return ({k: drop(v) for k, v in s.items()} if isinstance(s, dict)
+                else tuple(s[1:]))
+
+    return drop(t)
+
+
+def fsdp_layer(lp, cfg, *path, stacked=True):
+    """`gather_spec` of one layer's parameters ``lp`` at ``path``, where
+    they are the rank's blocks."""
+    lay = layout()
+    if not cfg.fsdp or lay.data.size == 1 or not lay.blocks:
+        return lp
+    return gather_spec(lp, layer_specs(cfg, *path, stacked=stacked))
+
+
+def time_axis(spec) -> Axis:
+    """The `Axis` that a cache spec's time entry (``spec[2]`` of an
+    L-stacked leaf) puts the time on: model, data, or none."""
+    lay = layout()
+    ax = spec[2] if spec is not None else None
+    if ax is None:
+        return SOLO
+    names = ax if isinstance(ax, tuple) else (ax,)
+    if names == ("model",):
+        return lay.model
+    if set(names) <= set(lay.dp):
+        return lay.data
+    raise NotImplementedError(f"a cache time axis over {names}")
+
+
+def cache_spec(*path):
+    """The spec of the cache leaf at ``path`` in the active layout's cache
+    spec tree, or None (nothing sharded) where there is none. A model or
+    data axis above 1 needs it (the serve step sets it)."""
+    lay = layout()
+    if lay.cache is None:
+        if lay.model.size > 1 or lay.data.size > 1:
+            raise RuntimeError(
+                "a decode step under a mesh needs the cache's specs: use "
+                "train_step.build_serve_step, or mesh_context(..., cache="
+                "cache_pspecs(...))")
         return None
-    return dp_group(mesh, dp)
+    return at(lay.cache, path)
+
+
+def at(tree, path):
+    """The node of a nested dict at ``path`` (its keys in order)."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def local_block(shape, spec, sizes: dict, coords: dict) -> tuple:
+    """The slices of ``shape`` that the rank at ``coords`` (``{axis:
+    index}``) holds under ``spec`` over a mesh of ``sizes``; the axes of
+    one entry split the dim major to minor."""
+    sizes = mesh_sizes(sizes)
+    out = []
+    for dim, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
+        names = () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+        parts, idx = 1, 0
+        for a in names:
+            parts, idx = parts * sizes[a], idx * sizes[a] + coords[a]
+        per = dim // parts
+        out.append(slice(idx * per, (idx + 1) * per))
+    return tuple(out)
+
+
+def mesh_coords(mesh) -> dict:
+    """``{axis: this rank's index}`` on a `DeviceMesh`."""
+    return {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names}
+
+
+def _cut(tree, specs, sizes, coords):
+    def walk(t, s):
+        if isinstance(t, dict):
+            return {k: walk(v, s[k]) for k, v in t.items()}
+        blk = local_block(tuple(t.shape), s, sizes, coords)
+        return t[blk].clone()
+    return walk(tree, specs)
+
+
+def shard_params(cfg, tree, mesh, dp_axes, coords=None) -> dict:
+    """``tree`` (every parameter whole) cut to the rank's blocks under
+    `param_pspecs`: copies, so the whole tree can be dropped. ``coords``:
+    the rank's ``{axis: index}`` (default: this process's on a
+    `DeviceMesh`)."""
+    coords = mesh_coords(mesh) if coords is None else coords
+    specs = param_pspecs(cfg, tree, mesh, dp_axes)
+    return _cut(tree, specs, mesh_sizes(mesh), coords)
+
+
+def shard_cache(cfg, tree, mesh, dp_axes, batch: int, coords=None) -> dict:
+    """A whole cache tree cut to the rank's blocks under `cache_pspecs`
+    at ``batch`` global rows."""
+    coords = mesh_coords(mesh) if coords is None else coords
+    specs = cache_pspecs(cfg, tree, mesh, dp_axes, batch)
+    return _cut(tree, specs, mesh_sizes(mesh), coords)
 
 
 # --------------------------------------------------------------------------

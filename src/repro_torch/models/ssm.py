@@ -7,7 +7,8 @@ The reference's ``lax.scan`` over chunks is a Python loop here, carrying
 the ``(b, nh, hp, ds)`` state in f32; each chunk's matmuls are
 `torch.einsum`. There is no hand kernel: the reference computes this in
 jnp, not Pallas. `mamba2_decode` updates its cache IN PLACE, as the port's
-attention decodes do.
+attention decodes do. Under a model axis (slice E6a) the block runs on the
+rank's heads and conv channels (`_project`, `_heads`, `_out`).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import sharding as SH
 from repro_torch.models.layers import rms_norm
 
 # float32 in every model, whatever ``cfg.dtype`` (the reference's init)
@@ -115,12 +117,18 @@ def ssd_chunked(xh, dt, A, B, C, chunk: int, h0=None):
 
 def _project(p, cfg, x, conv_state):
     """in_proj, conv and the split: (z, xs, B, C, dt post-softplus in f32,
-    A, new conv history)."""
+    A, new conv history), each whole. Under a model axis ``in_proj``'s
+    packed output is gathered, the conv runs on the rank's channels (its
+    ``conv_w`` block and conv history) and its output is gathered."""
     s_cfg = cfg.ssm
-    d_inner = dims(cfg)[0]
+    d_inner, _, conv_dim, zxbcdt = dims(cfg)
     b, s = x.shape[:2]
-    z, xBC, dt = _split_zxbcdt(cfg, x @ p["in_proj"])
-    xBC, conv_state = _causal_conv(xBC, p["conv_w"], p["conv_b"], conv_state)
+    zx = SH.take(x @ p["in_proj"], zxbcdt, 0, zxbcdt)
+    z, xBC, dt = _split_zxbcdt(cfg, zx)
+    ch = SH.col_block(conv_dim)
+    xBC, conv_state = _causal_conv(xBC[..., ch], p["conv_w"],
+                                   p["conv_b"][ch], conv_state)
+    xBC = SH.take(xBC, conv_dim, 0, conv_dim)
     gs = s_cfg.n_groups * s_cfg.d_state
     B = xBC[..., d_inner:d_inner + gs].reshape(b, s, s_cfg.n_groups,
                                                s_cfg.d_state)
@@ -129,43 +137,78 @@ def _project(p, cfg, x, conv_state):
     return z, xBC[..., :d_inner], B, C, dt, -torch.exp(p["A_log"]), conv_state
 
 
-def _out(p, cfg, y, z, dtype):
-    """Gated RMSNorm and out_proj of the scan's f32 output (b, s, d_inner)."""
-    y = rms_norm(y.to(dtype) * F.silu(z), p["norm_w"], cfg.norm_eps)
-    return y @ p["out_proj"]
+def _heads(cfg, xs, dt, A, B, C):
+    """The rank's heads (`sharding.heads`) of the scan's inputs: xh (b, s,
+    hl, hp), dt, A, and B, C cut to the groups those heads read. Returns
+    (h0, xh, dt, A, B, C)."""
+    b, s = xs.shape[:2]
+    nh, hp, g = dims(cfg)[1], cfg.ssm.head_dim, cfg.ssm.n_groups
+    h0, h1 = SH.heads(nh)
+    xh = xs[..., h0 * hp:h1 * hp].reshape(b, s, h1 - h0, hp)
+    hpg = nh // g
+    g0, g1 = h0 // hpg, (h1 - 1) // hpg + 1
+    if (h1 - h0) % (g1 - g0):
+        raise NotImplementedError(f"heads {h0}..{h1} straddle the groups of "
+                                  f"{hpg} heads unevenly")
+    return (h0, xh, dt[..., h0:h1], A[h0:h1], B[:, :, g0:g1],
+            C[:, :, g0:g1])
+
+
+def _out(p, cfg, y, z, dtype, lo: int = 0):
+    """Gated RMSNorm and out_proj of the scan's f32 output (b, s, ·):
+    channels ``lo`` … of d_inner. The norm's mean of squares runs over the
+    whole d_inner: where the rank holds a block, its sum of squares is
+    SUM all-reduced over the model axis."""
+    d_inner = dims(cfg)[0]
+    zl = z[..., lo:lo + y.shape[-1]]
+    if y.shape[-1] == d_inner:
+        y = rms_norm(y.to(dtype) * F.silu(zl), p["norm_w"], cfg.norm_eps)
+    else:
+        yz = y.to(dtype) * F.silu(zl)
+        yf = yz.to(torch.promote_types(yz.dtype, torch.float32))
+        var = SH.model_axis().sum((yf * yf).sum(dim=-1, keepdim=True))
+        inv = torch.rsqrt(var / d_inner + cfg.norm_eps)
+        y = yz * inv.to(dtype) * p["norm_w"][lo:lo + y.shape[-1]]
+    return SH.rows(y, p["out_proj"], d_inner, lo)
 
 
 def mamba2_full(p, cfg: ModelConfig, x, conv_state=None, h0=None):
-    """Full-sequence Mamba2 block. Returns (out, {"state": (b,nh,hp,ds) f32,
-    "conv": (b,K-1,conv_dim) in x's dtype})."""
+    """Full-sequence Mamba2 block on the rank's heads. Returns (out,
+    {"state": (b,hl,hp,ds) f32, "conv": (b,K-1,·) in x's dtype}) — the
+    rank's heads and conv channels."""
     b, s = x.shape[:2]
-    d_inner, nh, _, _ = dims(cfg)
+    hp = cfg.ssm.head_dim
     z, xs, B, C, dt, A, conv_state = _project(p, cfg, x, conv_state)
-    xh = xs.reshape(b, s, nh, cfg.ssm.head_dim)
+    first, xh, dt, A, B, C = _heads(cfg, xs, dt, A, B, C)
     y, h_last = ssd_chunked(xh, dt, A, B, C, cfg.ssm.chunk, h0=h0)
-    y = y + p["D"][None, None, :, None] * xh.float()
-    out = _out(p, cfg, y.reshape(b, s, d_inner), z, x.dtype)
+    D = p["D"][first:first + xh.shape[2]]
+    y = y + D[None, None, :, None] * xh.float()
+    out = _out(p, cfg, y.reshape(b, s, -1), z, x.dtype, first * hp)
     return out, {"state": h_last, "conv": conv_state}
 
 
 def mamba2_decode(p, cfg: ModelConfig, x, cache):
     """Single-token recurrent update. x: (b,1,d); cache {"state": (b,nh,hp,
-    ds) f32, "conv": (b,K-1,conv_dim)}, updated IN PLACE (the reference
-    returns an updated copy). Returns (out, cache)."""
+    ds) f32, "conv": (b,K-1,conv_dim)} (the rank's heads and channels),
+    updated IN PLACE (the reference returns an updated copy). Returns
+    (out, cache)."""
     b = x.shape[0]
-    d_inner, nh, _, _ = dims(cfg)
+    hp = cfg.ssm.head_dim
     z, xs, B, C, dt, A, conv_state = _project(p, cfg, x, cache["conv"])
-    dt = dt[:, 0]                                              # (b,nh)
-    xh = xs.reshape(b, nh, cfg.ssm.head_dim).float()           # (b,nh,hp)
-    hpg = nh // cfg.ssm.n_groups
+    first, xh, dt, A, B, C = _heads(cfg, xs, dt, A, B, C)
+    hl = xh.shape[2]
+    dt = dt[:, 0]                                              # (b,hl)
+    xh = xh[:, 0].float()                                      # (b,hl,hp)
+    hpg = hl // B.shape[2]
     # head h reads group h // hpg: jnp.repeat, i.e. repeat_interleave
-    Bh = B[:, 0].float().repeat_interleave(hpg, dim=1)         # (b,nh,ds)
+    Bh = B[:, 0].float().repeat_interleave(hpg, dim=1)         # (b,hl,ds)
     Ch = C[:, 0].float().repeat_interleave(hpg, dim=1)
     decay = torch.exp(dt * A[None, :])
     h = cache["state"] * decay[:, :, None, None] \
         + (dt[:, :, None] * xh)[..., None] * Bh[:, :, None, :]
-    y = torch.einsum("bhpn,bhn->bhp", h, Ch) + p["D"][None, :, None] * xh
-    out = _out(p, cfg, y.reshape(b, 1, d_inner), z, x.dtype)
+    D = p["D"][first:first + hl]
+    y = torch.einsum("bhpn,bhn->bhp", h, Ch) + D[None, :, None] * xh
+    out = _out(p, cfg, y.reshape(b, 1, hl * hp), z, x.dtype, first * hp)
     cache["state"].copy_(h)
     cache["conv"].copy_(conv_state)
     return out, cache

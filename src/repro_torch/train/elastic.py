@@ -63,18 +63,10 @@ def _coords(mesh, rank: int) -> Optional[dict]:
 
 def _blocks(spec: tuple, shape: tuple, mesh, coords: dict) -> tuple:
     """The slices of ``shape`` that the rank at ``coords`` holds under
-    ``spec`` (axes of one entry split the dim major to minor)."""
-    sizes = mesh_sizes(mesh)
-    out = []
-    for dim, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
-        names = () if entry is None else (
-            entry if isinstance(entry, tuple) else (entry,))
-        parts, idx = 1, 0
-        for a in names:
-            parts, idx = parts * sizes[a], idx * sizes[a] + coords[a]
-        per = dim // parts
-        out.append(slice(idx * per, (idx + 1) * per))
-    return tuple(out)
+    ``spec`` (`models.sharding.local_block`)."""
+    from repro_torch.models.sharding import local_block
+
+    return local_block(shape, spec, mesh_sizes(mesh), coords)
 
 
 def place(full: torch.Tensor, spec: tuple, mesh) -> Placed:

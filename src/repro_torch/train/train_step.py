@@ -12,9 +12,13 @@ mean), clips by the global norm of the reduced gradients, and updates
 only this rank's ZeRO-1 slice of each moment (`zero1_shards`, from
 `models.sharding.zero1_spec`) and the matching parameter slice; the
 parameter slices are then all-gathered, so every rank ends the step with
-the same parameters. A model axis above 1 is slice E6 and raises. The
-serving path (`launch/serve.py`) has its own driver, so
-``build_serve_step`` waits for the model axis too.
+the same parameters. A model axis above 1 in training is slice E6b and
+raises.
+
+`build_serve_step` is the reference's serving step under a mesh (slice
+E6a): prefill or decode on the rank's blocks of the parameters and the
+cache, tensor- and expert-parallel over the model axis, the batch over
+the data axes.
 """
 from __future__ import annotations
 
@@ -59,7 +63,8 @@ def _check_plan(plan: TrainPlan) -> None:
     if plan.mesh is not None and mesh_sizes(plan.mesh).get("model", 1) > 1:
         raise NotImplementedError(
             "a model axis above 1: tensor and expert parallelism in the "
-            "train step is slice E6")
+            "train step is slice E6b (serving under a model axis is "
+            "build_serve_step)")
 
 
 def zero1_shards(plan: TrainPlan, params) -> list:
@@ -172,7 +177,7 @@ def build_train_step(plan: TrainPlan):
         if mesh is None:
             loss, flat = grads_of(params, batch)
         else:
-            with SH.mesh_context(mesh, dp):
+            with SH.mesh_context(mesh, dp, blocks=False):
                 loss, flat = grads_of(params, batch)
             if not shards:
                 shards.extend(zero1_shards(plan, params))
@@ -216,3 +221,80 @@ def _gather_params(params, shards, group, n) -> None:
     except Exception as e:
         raise adamw.TornUpdate(f"ZeRO-1 parameter gather failed: {e!r}") \
             from e
+
+
+def batch_specs(cfg: ModelConfig, mesh, dp_axes, batch: dict) -> dict:
+    """The spec of each input of a step: its rows over the data axes
+    where they divide (`sharding.batch_pspec`), the rest replicated."""
+    out = {}
+    for k, v in batch.items():
+        rows = SH.batch_pspec(mesh, dp_axes, v[0])
+        out[k] = rows + (None,) * (len(v) - 2)
+    return out
+
+
+def build_serve_step(cfg: ModelConfig, mesh, dp_axes, shape,
+                     absorbed_mla: bool = False):
+    """The reference's prefill or decode step (kind from ``shape``, a
+    `configs.base.ShapeConfig`) on ``mesh``, SPMD: returns ``(fn,
+    param_specs, input_specs, param_shapes)``.
+
+    Every rank passes its blocks of the parameters (`sharding.
+    shard_params`, `interop.params_from_arrays(..., mesh=)` or
+    `init_params(..., mesh=)`) and its rows of each input
+    (`sharding.batch_pspec` over ``shape.global_batch``). Prefill: ``fn(
+    params, batch, cache_len=None) -> (logits[:, -1:], cache)``, the
+    cache the rank's blocks (`sharding.cache_pspecs`) of ``cache_len``
+    slots (default: the prompt's length). Decode: ``fn(params, cache,
+    token, pos) -> (logits, cache)`` over a cache of ``shape.seq_len``
+    slots, updated IN PLACE. Logits are the rank's rows, every vocabulary
+    column. ``absorbed_mla`` sets the reference's ``_absorbed_mla``
+    switch on ``cfg``, as the reference does."""
+    from repro_torch.models.api import get_api, param_shapes
+
+    api = get_api(cfg)
+    dp = tuple(dp_axes)
+    shapes = param_shapes(cfg)
+    pspecs = SH.param_pspecs(cfg, shapes, mesh, dp)
+    B, S = shape.global_batch, shape.seq_len
+    if absorbed_mla:
+        object.__setattr__(cfg, "_absorbed_mla", True)
+    if shape.kind == "prefill":
+        d = cfg.d_model
+        if cfg.encoder_layers:
+            inputs = {"frames": (B, S, d), "tokens": (B, S)}
+        elif cfg.n_patches:
+            inputs = {"embeds": (B, cfg.n_patches, d),
+                      "tokens": (B, S - cfg.n_patches)}
+        else:
+            inputs = {"tokens": (B, S)}
+
+        def prefill_step(params, batch, cache_len=None):
+            with SH.mesh_context(mesh, dp, batch=B):
+                logits, cache = api.prefill(params, cfg, batch, cache_len)
+                return logits[:, -1:], cache
+
+        return prefill_step, pspecs, batch_specs(cfg, mesh, dp, inputs), \
+            shapes
+
+    cshapes = cache_shapes(cfg, B, S)
+    cspecs = SH.cache_pspecs(cfg, cshapes, mesh, dp, B)
+
+    def decode(params, cache, token, pos):
+        with SH.mesh_context(mesh, dp, batch=B, cache=cspecs):
+            return api.decode_step(params, cfg, cache, token, pos)
+
+    return decode, pspecs, {"cache": cspecs,
+                            "token": SH.batch_pspec(mesh, dp, B),
+                            "pos": ()}, shapes
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
+    """The whole decode cache's shapes of ``cfg``'s family: an
+    encoder-decoder's cross cache holds ``cache_len`` encoder positions,
+    as the reference's ``input_specs`` makes it."""
+    from repro_torch.models import encdec, transformer
+
+    if cfg.encoder_layers:
+        return encdec.cache_shapes(cfg, batch, cache_len, cache_len)
+    return transformer.cache_shapes(cfg, batch, cache_len)

@@ -1322,3 +1322,121 @@ def test_cuda_per_rank_arena_round_equals_the_whole_arena():
         FO.fold_shard(s, gb, slot, ga, gz, 2, r * (Bp // n))
     for k, v in state.items():
         assert torch.equal(torch.cat([s[k] for s in shards]), v), k
+
+
+# ------------------------------------------------- the model axis (E6a)
+MODEL_AXIS_CASES = [(a, d, m, b) for a in (
+    "qwen2.5-3b", "h2o-danube-1.8b", "qwen3-moe-235b-a22b",
+    "deepseek-v2-lite-16b", "mamba2-130m", "zamba2-7b", "whisper-small",
+    "internvl2-26b") for d, m, b in ((1, 4, 4), (2, 2, 4), (2, 2, 1))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,data,model,batch", MODEL_AXIS_CASES)
+def test_cuda_per_rank_serving_bodies_equal_the_unsharded_model(
+        arch, data, model, batch):
+    """Each smoke model in f32 served by per-rank bodies on the card
+    (`sharding.run_ranks`: the ranks take turns between collectives), a
+    prefill of 16 positions and 8 decode steps: every rank's logits equal
+    the one-device run's (max|Δ| ≤ 1e-4·max|ref| + 1e-5), the flash
+    kernel launched at the rank's heads, the MoE routing equal."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.api import get_api
+    from repro_torch.train import train_step as TS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    api = get_api(cfg)
+    params = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    P, n, off = 16, 8, cfg.n_patches
+    toks = torch.randint(0, cfg.vocab, (batch, P + n), generator=gen,
+                         device="cuda")
+    extra = {}
+    if cfg.encoder_layers:
+        extra["frames"] = torch.randn(batch, 24, cfg.d_model, generator=gen,
+                                      device="cuda")
+    if off:
+        extra["embeds"] = torch.randn(batch, off, cfg.d_model, generator=gen,
+                                      device="cuda")
+    slots = P + n + off
+    routes, orig = {}, moe.route
+
+    def route(p, c, x):
+        import threading
+
+        r = orig(p, c, x)
+        routes.setdefault(threading.current_thread().name, []).append(r.top_e)
+        return r
+
+    sizes = {"data": data, "model": model}
+    cspecs = SH.cache_pspecs(cfg, TS.cache_shapes(cfg, batch, slots), sizes,
+                             ("data",), batch)
+
+    def run(p, rows, axes=None):
+        b = {"tokens": toks[rows, :P], **{k: v[rows] for k, v in
+                                          extra.items()}}
+        outs = []
+        if axes is None:
+            lg, cache = api.prefill(p, cfg, b, cache_len=slots)
+            outs.append(lg[:, -1])
+            for i in range(n):
+                lg, cache = api.decode_step(p, cfg, cache,
+                                            toks[rows, P + i:P + i + 1],
+                                            P + off + i)
+                outs.append(lg[:, 0])
+            return outs
+        with SH.rank_context(sizes, ("data",), *axes, batch=batch):
+            lg, cache = api.prefill(p, cfg, b, cache_len=slots)
+        outs.append(lg[:, -1])
+        with SH.rank_context(sizes, ("data",), *axes, batch=batch,
+                             cache=cspecs):
+            for i in range(n):
+                lg, cache = api.decode_step(p, cfg, cache,
+                                            toks[rows, P + i:P + i + 1],
+                                            P + off + i)
+                outs.append(lg[:, 0])
+        return outs
+
+    moe.route = route
+    try:
+        want = run(params, slice(None))
+        whole_routes = routes.pop(threading_name(), [])
+        before = flash_kernel.LAUNCHES
+
+        def body(r, model_ax, data_ax):
+            coords = {"data": data_ax.rank, "model": model_ax.rank}
+            rows = slice(None)
+            if SH.batch_pspec(sizes, ("data",), batch)[0] is not None:
+                per = batch // data
+                rows = slice(data_ax.rank * per, (data_ax.rank + 1) * per)
+            blocks = SH.shard_params(cfg, params, sizes, ("data",), coords)
+            return rows, run(blocks, rows, (model_ax, data_ax)), \
+                threading_name()
+
+        ranks = SH.run_ranks(body, model, data)
+    finally:
+        moe.route = orig
+    if not cfg.ssm or cfg.attn_every:
+        assert flash_kernel.LAUNCHES > before
+    for rows, outs, name in ranks:
+        for got, w in zip(outs, want):
+            w = w[rows]
+            bound = 1e-4 * w.abs().max().item() + 1e-5
+            assert (got - w).abs().max().item() <= bound
+        got = routes.get(name, [])
+        assert len(got) == len(whole_routes)
+        for a, b in zip(got, whole_routes):
+            assert torch.equal(a, b[rows])
+
+
+def threading_name():
+    import threading
+
+    return threading.current_thread().name

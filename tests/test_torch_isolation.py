@@ -148,6 +148,16 @@ def test_mesh_paths_run_without_jax_or_reference_loaded(tmp_path):
         assert loaded == []
 
 
+def test_model_axis_serving_runs_without_jax_or_reference_loaded(tmp_path):
+    """Two gloo ranks serve the MoE smoke model tensor- and
+    expert-parallel through `build_serve_step`, each drawing its own
+    blocks, with neither jax nor the JAX package in either process."""
+    from torch_dist import spawn
+
+    for loaded in spawn(2, "isolation_serve", tmp_path):
+        assert loaded == []
+
+
 def test_default_device_is_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g = PG.caveman(4, 4, 0.0, seed=0)

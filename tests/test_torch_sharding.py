@@ -133,31 +133,92 @@ def test_batch_specs_equal_the_reference(batch):
 
 
 def test_constrain_is_the_identity_on_a_data_axis_and_raises_past_it():
+    """`constrain` is the identity on the local tensor under every axis,
+    the model axis too (the layout is explicit); past it, model code under
+    a model axis above 1 with no process group behind it raises."""
     x = torch.ones(2, 3)
     assert SH.constrain(x, ("dp", None)) is x  # no context
     with SH.mesh_context({"data": 4, "model": 1}, ("data",)):
         assert SH.constrain(x, ("dp", None)) is x
     with SH.mesh_context({"data": 2, "model": 2}, ("data",)):
-        with pytest.raises(NotImplementedError, match="E6"):
-            SH.constrain(x, ("dp", None))
+        assert SH.constrain(x, ("dp", None)) is x
+        assert SH.constrain(x, ("model", "dp")) is x
+        with pytest.raises(RuntimeError, match="process group"):
+            SH.model_axis().sum(x)
     assert SH.current() is None
 
 
-def test_the_model_code_calls_constrain_where_the_reference_does():
-    """A smoke forward under a model axis of 2 reaches `constrain` (and
-    raises); under a data axis alone it runs unchanged."""
+def _constrain_calls(monkeypatch, modules):
+    """Each module's ``constrain`` replaced by a recorder: returns the
+    list of (module, spec) calls, in order."""
+    calls = []
+    for mod in modules:
+        orig = mod.constrain
+
+        def rec(x, spec, _name=mod.__name__.rsplit(".", 1)[-1],
+                _orig=orig):
+            calls.append((_name, tuple(spec)))
+            return _orig(x, spec)
+
+        monkeypatch.setattr(mod, "constrain", rec)
+    return calls
+
+
+def test_the_model_code_calls_constrain_where_the_reference_does(
+        monkeypatch):
+    """Smoke forwards of the dense and the MoE family under a model axis
+    of 2 (per-rank bodies, `run_ranks`) reach `constrain` where the
+    reference's forwards do, module by module (the embedding, twice a
+    block, twice an MoE layer), and equal the one-device forward; under a
+    data axis alone the port runs unchanged."""
+    import dataclasses
+
+    from repro.models import moe as RM
+    from repro.models import transformer as RT
+    from repro_torch.models import moe as PM
     from repro_torch.models import transformer as T
 
-    cfg = port_config("qwen2.5-3b", smoke=True)
-    params = T.init_params(cfg, torch.Generator().manual_seed(0),
-                           device="cpu")
-    toks = torch.zeros((1, 8), dtype=torch.long)
-    plain = T.forward(params, cfg, toks)[0]
-    with SH.mesh_context({"data": 1, "model": 1}, ("data",)):
-        assert torch.equal(T.forward(params, cfg, toks)[0], plain)
-    with SH.mesh_context({"data": 1, "model": 2}, ("data",)):
-        with pytest.raises(NotImplementedError, match="E6"):
-            T.forward(params, cfg, toks)
+    for arch in ("qwen2.5-3b", "qwen3-moe-235b-a22b"):
+        cfg = dataclasses.replace(port_config(arch, smoke=True),
+                                  dtype="float32")
+        params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+        toks = torch.zeros((1, 8), dtype=torch.long)
+        plain = T.forward(params, cfg, toks)[0]
+        with SH.mesh_context({"data": 1, "model": 1}, ("data",)):
+            assert torch.equal(T.forward(params, cfg, toks)[0], plain)
+
+        with monkeypatch.context() as mp:
+            ref_calls = _constrain_calls(mp, [RT, RM])
+            rcfg = ref_config(arch, smoke=True)
+            RT.forward(RT.init_params(rcfg, jax.random.key(0)), rcfg,
+                       jax.numpy.zeros((1, 8), jax.numpy.int32))
+        with monkeypatch.context() as mp:
+            port_calls = _constrain_calls(mp, [T, PM])
+            sizes = {"data": 1, "model": 2}
+
+            def body(r, model, data):
+                blocks = SH.shard_params(cfg, params, sizes, ("data",),
+                                         {"data": 0, "model": r})
+                with SH.rank_context(sizes, ("data",), model, data):
+                    return T.forward(blocks, cfg, toks)[0]
+
+            for out in SH.run_ranks(body, 2):
+                torch.testing.assert_close(out, plain, atol=1e-4, rtol=1e-4)
+
+        def count(calls):
+            return {m: sum(1 for n, _ in calls if n == m)
+                    for m in ("transformer", "moe")}
+
+        # the reference traces its scanned layer body once: the embedding's
+        # call, then one layer's; the port runs every layer
+        per_rank, want = count(port_calls[:len(port_calls) // 2]), count(
+            ref_calls)
+        L = cfg.n_layers
+        assert per_rank["transformer"] == 1 + L * (want["transformer"] - 1)
+        assert per_rank["moe"] == L * want["moe"]
+        assert want["transformer"] == 3 and want["moe"] == (
+            2 if cfg.moe else 0), arch
 
 
 # ---------------------------------------------------------------- world 4

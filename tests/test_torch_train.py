@@ -569,9 +569,10 @@ def test_train_driver_needs_the_card_or_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         port_train.main(["--smoke", "--steps", "1", "--ckpt-dir",
                          str(tmp_path)])
-    # data parallelism needs a world of its size; the model axis is E6
+    # data parallelism needs a world of its size; training under a model
+    # axis is E6b
     for flag, why in (("--data-parallel", "world of 2"),
-                      ("--model-parallel", "E6")):
+                      ("--model-parallel", "E6b")):
         with pytest.raises(ValueError, match=why):
             port_train.main(["--smoke", "--device", "cpu", flag, "2",
                              "--ckpt-dir", str(tmp_path)])

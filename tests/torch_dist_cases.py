@@ -310,3 +310,210 @@ def arena_v1(rank, world, graph):
 def world2_cases(rank, world, graph, T, seed, cases):
     return {"faults": faults_world(rank, world, graph, T, seed, cases),
             "arena": arena_v1(rank, world, graph)}
+
+
+# ------------------------------------------------- the model axis (E6a)
+# A serving case: {"arch", "dtype", "data", "model", "B" (global rows),
+# "P" (prompt tokens), "steps" (decode steps), "S" (cache slots for text;
+# a VLM's patches come on top, whisper's frames are S long), "vocab",
+# "fsdp", "absorbed", "seed"}.
+
+
+def serve_config(case):
+    """The case's smoke config: its dtype, vocab and ``fsdp``."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    cfg = dataclasses.replace(get_config(case["arch"], smoke=True),
+                              dtype=case.get("dtype", "float32"))
+    if case.get("vocab"):
+        cfg = dataclasses.replace(cfg, vocab=case["vocab"])
+    if case.get("fsdp"):
+        cfg = dataclasses.replace(cfg, fsdp=True)
+    if case.get("absorbed"):
+        object.__setattr__(cfg, "_absorbed_mla", True)
+    return cfg
+
+
+def serve_arrays(cfg, case):
+    """The case's inputs as numpy, from its seed: tokens (B, P + steps),
+    whisper's frames (B, S, d), a VLM's patch embeddings."""
+    rng = np.random.default_rng(case.get("seed", 0))
+    B, P, n = case["B"], case["P"], case["steps"]
+    out = {"tokens": rng.integers(0, cfg.vocab, (B, P + n)).astype(np.int64)}
+    if cfg.encoder_layers:
+        out["frames"] = rng.standard_normal(
+            (B, case["S"], cfg.d_model)).astype(np.float32)
+    if cfg.n_patches:
+        out["embeds"] = rng.standard_normal(
+            (B, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def serve_lengths(cfg, case):
+    """(prefill length, decode cache slots, first decode position)."""
+    off = cfg.n_patches
+    return case["P"] + off, case["S"] + off, case["P"] + off
+
+
+class RouteLog:
+    """`moe.route` wrapped once a process: each call's integers (top_e,
+    slot) appended to the calling thread's log while one is open."""
+
+    def __init__(self):
+        import threading
+
+        from repro_torch.models import moe
+
+        self.local = threading.local()
+        self.orig = moe.route
+        moe.route = self._route
+
+    def _route(self, p, cfg, x):
+        r = self.orig(p, cfg, x)
+        log = getattr(self.local, "log", None)
+        if log is not None:
+            log.append((r.top_e.cpu().numpy().copy(),
+                        r.slot.cpu().numpy().copy()))
+        return r
+
+    def open(self):
+        self.local.log = []
+        return self.local.log
+
+    def close(self):
+        from repro_torch.models import moe
+
+        moe.route = self.orig
+
+
+def _batch(cfg, arrays, rows, P, dtype):
+    b = {"tokens": torch.from_numpy(arrays["tokens"][rows, :P].copy())}
+    for k in ("frames", "embeds"):
+        if k in arrays:
+            b[k] = torch.from_numpy(arrays[k][rows].copy()).to(dtype)
+    return b
+
+
+def serve_single(cfg, params, case, log=None):
+    """The port on one device: the prefill's last logits and each decode
+    step's, (B, V) f32 numpy each, and the routing integers."""
+    from repro_torch.models.api import get_api
+    from repro_torch.models.transformer import DTYPES
+
+    api = get_api(cfg)
+    arrays = serve_arrays(cfg, case)
+    plen, slots, pos0 = serve_lengths(cfg, case)
+    routes = log.open() if log is not None else []
+    toks = torch.from_numpy(arrays["tokens"])
+    batch = _batch(cfg, arrays, slice(None), case["P"], DTYPES[cfg.dtype])
+    with torch.no_grad():
+        lg, cache = api.prefill(params, cfg, batch, cache_len=slots)
+        out = [lg[:, -1].float().numpy()]
+        for i in range(case["steps"]):
+            t = case["P"] + i
+            lg, cache = api.decode_step(params, cfg, cache, toks[:, t:t + 1],
+                                        pos0 + i)
+            out.append(lg[:, 0].float().numpy())
+    return {"logits": out, "routes": list(routes)}
+
+
+def serve_world(rank, world, cases, trees):
+    """Each case through `train_step.build_serve_step` on
+    ``make_host_mesh(data, model)`` (data · model = world): the rank's
+    blocks of the case's tree (numpy arrays carried by
+    `params_from_arrays(mesh=)`, or tensors cut by `shard_params`), its
+    rows of the inputs; prefill then ``steps`` decode steps. Returns per
+    case the rank's rows, logits (f32 numpy), routing integers, and the
+    local shapes of the cache blocks."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.interop import params_from_arrays
+    from repro_torch.launch.mesh import (make_host_mesh, model_rank,
+                                         model_size)
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.transformer import DTYPES
+    from repro_torch.train import train_step as TS
+
+    log = RouteLog()
+    out = []
+    try:
+        for case, tree in zip(cases, trees):
+            cfg = serve_config(case)
+            mesh = make_host_mesh(case["data"], case["model"])
+            dp = ("data",)
+            if isinstance(next(iter(_leaves(tree))), np.ndarray):
+                params = params_from_arrays(cfg, tree, CPU, mesh=mesh)
+            else:
+                params = SH.shard_params(cfg, tree, mesh, dp)
+            arrays = serve_arrays(cfg, case)
+            B = case["B"]
+            plen, slots, pos0 = serve_lengths(cfg, case)
+            rows = slice(None)
+            if SH.batch_pspec(mesh, dp, B)[0] is not None:
+                per = B // case["data"]
+                r = mesh.get_local_rank("data")
+                rows = slice(r * per, (r + 1) * per)
+            routes = log.open()
+            prefill = TS.build_serve_step(
+                cfg, mesh, dp, ShapeConfig("p", plen, B, "prefill"))[0]
+            decode = TS.build_serve_step(
+                cfg, mesh, dp, ShapeConfig("d", case["S"] if
+                                           cfg.encoder_layers else slots,
+                                           B, "decode"))[0]
+            toks = torch.from_numpy(arrays["tokens"][rows].copy())
+            with torch.no_grad():
+                lg, cache = prefill(params, _batch(cfg, arrays, rows,
+                                                   case["P"],
+                                                   DTYPES[cfg.dtype]),
+                                    cache_len=slots)
+                logits = [lg[:, -1].float().numpy()]
+                for i in range(case["steps"]):
+                    t = case["P"] + i
+                    lg, cache = decode(params, cache, toks[:, t:t + 1],
+                                       pos0 + i)
+                    logits.append(lg[:, 0].float().numpy())
+            out.append({"rows": (rows.start, rows.stop), "logits": logits,
+                        "model_rank": (model_rank(mesh), model_size(mesh)),
+                        "routes": list(routes),
+                        "cache": {k: {n: tuple(t.shape) for n, t in v.items()}
+                                  for k, v in cache.items()}})
+    finally:
+        log.close()
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def isolation_serve(rank, world):
+    """Serving under a model axis of ``world`` through `build_serve_step`,
+    each rank drawing its blocks (`init_params(mesh=)`); then the jax,
+    JAX package and ml_dtypes modules loaded in this process."""
+    import sys
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_step as TS
+
+    cfg = get_config("qwen3-moe-235b-a22b", smoke=True)
+    mesh = make_host_mesh(1, world)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), device=CPU,
+                           mesh=mesh)
+    toks = torch.zeros((2, 8), dtype=torch.long)
+    prefill = TS.build_serve_step(cfg, mesh, ("data",),
+                                  ShapeConfig("p", 8, 2, "prefill"))[0]
+    decode = TS.build_serve_step(cfg, mesh, ("data",),
+                                 ShapeConfig("d", 12, 2, "decode"))[0]
+    lg, cache = prefill(params, {"tokens": toks}, cache_len=12)
+    lg, cache = decode(params, cache, toks[:, :1], 8)
+    assert bool(torch.isfinite(lg.float()).all())
+    return sorted(m for m in sys.modules if m.split(".")[0] in
+                  ("jax", "jaxlib", "repro", "ml_dtypes"))
