@@ -18,10 +18,11 @@ heads the model axis does not divide), a vocabulary that splits (256)
 and one that does not (257), ``fsdp=True`` at (2, 2), batch 1 at (2, 2)
 (the cache's time over the data axis) and a decode past the ring.
 
-The reference runs in subprocesses with
-``--xla_force_host_platform_device_count=8`` (one a mesh, side by side),
-its attention on its chunked path (its Pallas kernel cannot run MLA);
-the reference's weights come from the test process as ``.npz``.
+The reference runs in one subprocess with
+``--xla_force_host_platform_device_count=8``, as
+`tests/test_sharded_decode.py` runs it, its attention on its chunked
+path (its Pallas kernel cannot run MLA); the reference's weights come
+from the test process as ``.npz``.
 """
 import dataclasses
 import json
@@ -180,8 +181,8 @@ def _flat_np(tree, path=""):
 @pytest.fixture(scope="module")
 def served(tmp_path_factory):
     """Everything the cases compare, built once: the reference's weights
-    (jax), its sharded steps (subprocesses, one a mesh, started first),
-    the gloo worlds of 2 and 4 ranks, and the port's one-device runs."""
+    (jax), its sharded steps (one subprocess, started first), the gloo
+    worlds of 2 and 4 ranks, and the port's one-device runs."""
     wdir = tmp_path_factory.mktemp("serve_ref")
     trees = {}
     for c in WORLD2 + WORLD4:
@@ -198,15 +199,12 @@ def served(tmp_path_factory):
     # the suite's workers share the machine: one thread a process
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
-    procs = {}
-    for mesh in sorted({(c["data"], c["model"]) for c in REFERENCE}):
-        cases = [dict(c, id=_id(c), weights=trees[_key(c), "file"])
-                 for c in REFERENCE if (c["data"], c["model"]) == mesh]
-        name = f"ref{mesh[0]}x{mesh[1]}.npz"
-        procs[name] = subprocess.Popen(
-            [sys.executable, "-c", REF_SERVE, json.dumps(cases), str(wdir),
-             name], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True, env=env, cwd=ROOT)
+    cases = [dict(c, id=_id(c), weights=trees[_key(c), "file"])
+             for c in REFERENCE]
+    proc = subprocess.Popen(
+        [sys.executable, "-c", REF_SERVE, json.dumps(cases), str(wdir),
+         "ref.npz"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env, cwd=ROOT)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -221,16 +219,13 @@ def served(tmp_path_factory):
             single[_id(c)] = serve_single(
                 cfg, params_from_arrays(cfg, trees[_key(c)], "cpu"), c,
                 _route_log())
-        ref = {}
-        for name, p in procs.items():
-            stdout, stderr = p.communicate(timeout=900)
-            assert "REF_SERVE_OK" in stdout, stderr[-3000:]
-            ref.update(dict(np.load(wdir / name)))
+        stdout, stderr = proc.communicate(timeout=900)
+        assert "REF_SERVE_OK" in stdout, stderr[-3000:]
+        ref = dict(np.load(wdir / "ref.npz"))
     finally:
         torch.set_num_threads(threads)
-        for p in procs.values():
-            if p.poll() is None:
-                p.kill()
+        if proc.poll() is None:
+            proc.kill()
     by_case = {}
     for world, cases in ((2, WORLD2), (4, WORLD4)):
         for i, c in enumerate(cases):
