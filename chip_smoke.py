@@ -175,7 +175,7 @@ Phases, each printing one JSON line with its seconds:
            uninterrupted runs differ; their gap is printed)
   model_axis  slice E6a (`phase_model_axis`), after `multi_device`:
            per-rank bodies of a model axis of m run for ranks 0..m-1 one
-           after the other on the card (`sharding.run_ranks`), at full
+           after the other on the card (`local_ranks.run_ranks`), at full
            width in f32, each held to the unsharded block on the same
            input within max|Δ| ≤ 1e-4·max|ref| + 1e-5 — qwen2.5-3b's
            attention block and MLP at m 2 and 4 (a 4 × 1,024 prefill, 8
@@ -186,8 +186,9 @@ Phases, each printing one JSON line with its seconds:
            experts a rank, routing integers equal); zamba2-7b's Mamba2
            block and shared attention block (D 112); whisper-small's
            encoder layer over 1,500 frames and cross call; each block's
-           flash launches counted from 0 and the kernel's ms at the
-           rank's head counts beside the unsharded call's
+           flash launches counted from 0 (none fails the phase) and
+           the kernel's ms at the rank's head counts beside the
+           unsharded call's, on the phase's own lines
 
 The kernels phase also holds the flash-attention kernel to its plain
 version (f32, TF32 off) within the reference's tolerances at ten fixed
@@ -206,7 +207,8 @@ come from its own path's counted run (batched for the intersections and
 the histogram, resident for top-J and the fold, both serve drains for the
 interval count, the shingles phase for the row-min hash and the pairwise
 intersections, the LM drains of qwen2.5-3b, deepseek, zamba2, whisper and
-internvl2 and the `model_axis` per-rank bodies for flash attention), its
+internvl2 for flash attention; the `model_axis` phase prints its own
+flash launches and times), its
 times are sums over
 every call that run made (each call, or each distinct call shape, checked
 against the plain version, timed, and weighted by its call count).
@@ -226,7 +228,6 @@ import math
 import subprocess
 import sys
 import time
-import types
 from collections import Counter
 from pathlib import Path
 
@@ -324,6 +325,7 @@ ENC_LEN = 1500            # frame embeddings of Whisper's 30-second window
 ENC_PROMPT_LEN = 64       # whisper's decoder prompt
 VLM_ARCH = "internvl2-26b"  # 1,024 patch embeddings before each prompt
 VLM_F32_LAYERS = 4        # depth of the f32 checks (an f32 copy's cut)
+HYBRID_F32_LAYERS = 12    # zamba2's f32 flash check: 2 groups, 2 shared
 VLM_PREFIX_ROWS = 2       # rows of the prefix-identity check
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6  # qwen2.5-3b trained whole
 TRAIN_PARITY_LAYERS, TRAIN_PARITY_SEQ = 2, 128    # card == CPU, f32
@@ -2597,13 +2599,12 @@ def free_fields(free, chunked, flips):
 
 def first_layers(params, n):
     """The served weights cut to their first ``n`` layers, cast to f32."""
-    def cut(tree):
+    def cast(tree, cut):
         if isinstance(tree, dict):
-            return {k: cut(v) for k, v in tree.items()}
-        return tree[:n].float()
+            return {k: cast(v, cut) for k, v in tree.items()}
+        return (tree[:n] if cut else tree).float()
 
-    return {k: cut(v) if k == "layers" else v.float()
-            for k, v in params.items()}
+    return {k: cast(v, k == "layers") for k, v in params.items()}
 
 
 def phase_lm_mla_moe():
@@ -3038,8 +3039,9 @@ def ssm_checks(cfg, params, batch, gen, stepped):
     """Checks of an SSM or hybrid model on its served weights: (a) in a
     hybrid, prefill's last logits with the flash kernel against the
     chunked twin, in bf16 at full depth (greedy tokens agree where the
-    margin is clear; relative L2 printed) and in f32 at full depth (the
-    same weights cast beside them; atol 2e-4, rtol 1e-3); (c) the drain's
+    margin is clear; relative L2 printed) and in f32 on the first
+    `HYBRID_F32_LAYERS` layers (two groups, the shared block applied
+    after each; atol 2e-4, rtol 1e-3); (c) the drain's
     first decode steps against a teacher-forced forward in bf16 (clear
     tokens), and in f32 8 steps of one prompt replayed along the drain's
     tokens, at the reference's tolerance for these families (atol 5e-2,
@@ -3074,16 +3076,19 @@ def ssm_checks(cfg, params, batch, gen, stepped):
             failed.append("a_bf16: a clear greedy token differs")
         del flash, chunked
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    p32 = f32_tree(params)
     if cfg.attn_every:
-        flash32 = last_logits(p32, cfg32, batch, "pallas_flash")
-        chunked32 = last_logits(p32, cfg32, batch, "xla_chunked")
-        checks["a_f32"] = {"layers": cfg.n_layers,
+        cut = dataclasses.replace(cfg32, n_layers=HYBRID_F32_LAYERS)
+        pc = first_layers(params, cut.n_layers)
+        flash32 = last_logits(pc, cut, batch, "pallas_flash")
+        chunked32 = last_logits(pc, cut, batch, "xla_chunked")
+        checks["a_f32"] = {"layers": cut.n_layers,
                            "rel_l2": rel_l2(flash32, chunked32),
                            "max_abs_diff": (flash32 - chunked32).abs().max()
                            .item()}
         gate_close("a_f32", flash32, chunked32, LM_F32_ATOL, LM_F32_RTOL,
                    failed)
+        del pc, flash32, chunked32
+    p32 = f32_tree(params)
     rows, steps = 1, LM_DECODE_CHECK
     logits, cache = T.prefill(p32, cfg32, batch[:rows],
                               cache_len=batch.shape[1] + steps)
@@ -4469,8 +4474,6 @@ def serving_kernel_record(serve_calls, serve_launches, shingles, device_us,
 
 
 # ------------------------------------------------------------ model axis
-MA_DEVICE = "cuda"   # the card (a CPU rehearsal sets "cpu" and MA_SMOKE)
-MA_SMOKE = False     # the archs' smoke widths (a CPU rehearsal)
 MA_BATCH, MA_PROMPT, MA_STEPS = 4, 1024, 8
 MA_ENC_LEN, MA_DEC_LEN = 1500, 64   # whisper's encoder frames, decoder rows
 MA_RTOL, MA_ATOL = 1e-4, 1e-5       # max|Δ| ≤ 1e-4·max|ref| + 1e-5
@@ -4485,9 +4488,10 @@ def ma_close(got, want):
 
 def ma_ranks(cfg, tree, m, body, cache=None):
     """``body(blocks)`` on each rank r < m of a model axis of m, one after
-    the other on the card between collectives (`sharding.run_ranks`),
+    the other on the card between collectives (`local_ranks.run_ranks`),
     under `rank_context`: ``blocks`` the rank's blocks of ``tree``
     (`shard_params`); ``cache``: the cache's spec tree."""
+    from repro_torch.launch.local_ranks import run_ranks
     from repro_torch.models import sharding as SH
 
     sizes = {"data": 1, "model": m}
@@ -4499,7 +4503,7 @@ def ma_ranks(cfg, tree, m, body, cache=None):
                              cache=cache):
             return body(blocks)
 
-    return SH.run_ranks(fn, m)
+    return run_ranks(fn, m)
 
 
 def ma_compare(name, ranks, want, fields, failed):
@@ -4538,9 +4542,8 @@ def ma_flash_ms(rec):
     for key, n in rec.calls.items():
         q, k, v = rec.inputs[key]
         *_, causal, window = key
-        ms = (cuda_ms(lambda: KF.flash_attention_bhsd(
+        ms = cuda_ms(lambda: KF.flash_attention_bhsd(
             q, k, v, causal=causal, window=window), 5)
-            if MA_DEVICE == "cuda" else None)
         out.append([list(key), n, ms])
     return out
 
@@ -4552,7 +4555,7 @@ def ma_layer(cfg, shapes, seed):
     from repro_torch.models import transformer as T
 
     return T.build_params(shapes, cfg, torch.Generator(
-        device=MA_DEVICE).manual_seed(seed), device=MA_DEVICE)
+        device="cuda").manual_seed(seed), device="cuda")
 
 
 def ma_cache(cfg, c, slots):
@@ -4563,8 +4566,7 @@ def ma_cache(cfg, c, slots):
     full = T.cache_shapes(cfg, MA_BATCH, slots)["attn"]
     shapes = {"attn": {n: (1, *full[n][1:]) for n in c}}
     specs = T.cache_specs(cfg, shapes, MA_BATCH)
-    out = T.zero_cache(shapes, specs, next(iter(c.values())).dtype,
-                       MA_DEVICE)
+    out = T.zero_cache(shapes, specs, next(iter(c.values())).dtype, "cuda")
     return T.fill_cache(out, {"attn": {n: t[None] for n, t in c.items()}},
                         specs)
 
@@ -4607,7 +4609,7 @@ def ma_attention(cfg, tree, m, x, xs, full_fn, step_fn):
 
 def phase_model_axis():
     """Slice E6a on one card: per-rank bodies of the model axis run for
-    ranks 0..m-1 one after the other (`sharding.run_ranks`: a collective
+    ranks 0..m-1 one after the other (`local_ranks.run_ranks`: a collective
     combines the ranks' tensors in rank order, as NCCL's would), each at
     full width in f32, held to the unsharded block on the same inputs
     within max|Δ| ≤ 1e-4·max|ref| + 1e-5: (a) qwen2.5-3b's attention
@@ -4621,9 +4623,9 @@ def phase_model_axis():
     equal; (c) zamba2-7b's Mamba2 block (``in_proj`` gathered, the norm
     across ranks, the state's heads) and its shared attention block at
     D 112; (d) whisper-small's encoder layer over 1,500 frames and its
-    cross call at m = 4. Each block's flash launches (counted from 0) and
-    the kernel's ms at the rank's head counts beside the unsharded
-    call's. Returns the sharded runs' flash drain for `flash_record`."""
+    cross call at m = 4. Each block's flash launches (counted from 0;
+    none fails the phase) and the kernel's ms at the rank's head counts
+    beside the unsharded call's, on the phase's own lines."""
     import dataclasses
 
     import torch
@@ -4641,20 +4643,18 @@ def phase_model_axis():
     free_card()
     t_all = time.perf_counter()
     failed, drains = [], []
-    gen = torch.Generator(device=MA_DEVICE).manual_seed(7)
+    gen = torch.Generator(device="cuda").manual_seed(7)
 
     def cfg_of(arch):
-        return dataclasses.replace(get_config(arch, smoke=MA_SMOKE),
-                                   dtype="float32")
+        return dataclasses.replace(get_config(arch), dtype="float32")
 
     def rand(*shape):
-        return torch.randn(shape, generator=gen, device=MA_DEVICE)
+        return torch.randn(shape, generator=gen, device="cuda")
 
     def report(part, t0, m, want_rec, launches, rec, fields):
-        if launches == 0 and MA_DEVICE == "cuda":
+        if launches == 0:
             failed.append(f"{part}: no flash launch")
-        drains.append({"launches": launches, "recorder": rec,
-                       "device_us": {}})
+        drains.append(launches)
         emit("model_axis", t0, part=part, model=m, flash_launches=launches,
              flash_rank_calls=ma_flash_ms(rec),
              flash_whole_calls=ma_flash_ms(want_rec) if want_rec else [],
@@ -4665,7 +4665,7 @@ def phase_model_axis():
         t0 = time.perf_counter()
         x = rand(MA_BATCH, MA_PROMPT, cfg.d_model)
         xs = [rand(MA_BATCH, 1, cfg.d_model) for _ in range(MA_STEPS)]
-        pos = torch.arange(MA_PROMPT, device=MA_DEVICE).expand(MA_BATCH, -1)
+        pos = torch.arange(MA_PROMPT, device="cuda").expand(MA_BATCH, -1)
         key = "shared_attn" if shared else "layers"
 
         def lp(p):
@@ -4690,9 +4690,9 @@ def phase_model_axis():
     V = cfg.padded_vocab
     vt = {"embed": rand(V, cfg.d_model) * 0.02,
           "lm_head": rand(cfg.d_model, V) / cfg.d_model ** 0.5,
-          "final_norm": torch.ones(cfg.d_model, device=MA_DEVICE)}
+          "final_norm": torch.ones(cfg.d_model, device="cuda")}
     toks = torch.randint(0, cfg.vocab, (MA_BATCH, MA_PROMPT),
-                         generator=gen, device=MA_DEVICE)
+                         generator=gen, device="cuda")
     h = rand(MA_BATCH, 1, cfg.d_model)
 
     def vocab_body(p):
@@ -4719,7 +4719,7 @@ def phase_model_axis():
         step_fn = A.mla_decode_absorbed if absorbed else A.mla_decode
         x = rand(MA_BATCH, MA_PROMPT, cfg.d_model)
         xs = [rand(MA_BATCH, 1, cfg.d_model) for _ in range(MA_STEPS)]
-        pos = torch.arange(MA_PROMPT, device=MA_DEVICE).expand(MA_BATCH, -1)
+        pos = torch.arange(MA_PROMPT, device="cuda").expand(MA_BATCH, -1)
         full = (lambda p, xx: A.mla_full(T.layer(p["layers"], 0)["attn"],
                                          c2, xx, pos))
         step = (lambda p, xx, c, t: step_fn(T.layer(p["layers"], 0)["attn"],
@@ -4837,15 +4837,7 @@ def phase_model_axis():
     free_card()
     if failed:
         raise AssertionError(f"model_axis failed: {failed}")
-    emit("model_axis", t_all, part="total",
-         flash_launches=sum(dd["launches"] for dd in drains))
-    merged = types.SimpleNamespace(calls=Counter(), inputs={})
-    for dd in drains:
-        merged.calls.update(dd["recorder"].calls)
-        for k, v in dd["recorder"].inputs.items():
-            merged.inputs.setdefault(k, v)
-    return {"launches": sum(dd["launches"] for dd in drains),
-            "recorder": merged, "device_us": {}}
+    emit("model_axis", t_all, part="total", flash_launches=sum(drains))
 
 
 def threading_name():
@@ -4905,14 +4897,14 @@ def main() -> int:
     train = phase_lm_train()
     phase_multi_device(graph, summary, main_wall, launches, res_stages,
                        res_launches, train)
-    model_axis = phase_model_axis()
+    phase_model_axis()
     t0 = time.perf_counter()
     record = kernel_record(recorder, launches, res_recorder, res_launches,
                            rng, device_us, rates)
     record += serving_kernel_record(serve_calls + rmat_calls,
                                     serve_launches + rmat_launches, shingles,
                                     device_us, rates)
-    record += flash_record([lm, mla_moe, *ssm_encdec, vlm, model_axis])
+    record += flash_record([lm, mla_moe, *ssm_encdec, vlm])
     emit("record", t0, total_seconds=time.perf_counter() - t_all)
     print(smi, flush=True)
     print(json.dumps({"kernels": record}), flush=True)

@@ -39,7 +39,15 @@ Every rank, in order:
           16 × 1,024 prompts, 16 greedy decode steps; finite logits, the
           same routing checksum and tokens on every rank; prefill
           tokens/s, decode ms a step, peak memory, dropped routed pairs;
-          each timed run after one untimed prefill and decode step
+          each timed run after one untimed prefill and decode step;
+          that prefill's routing by layer (the share of pairs dropped,
+          the experts' load entropy, the tokens' router entropy, how
+          alike a row's tokens are) is printed. Before it, the same
+          model cut to 2 layers in f32 on (1, 4), 4 × 1,024 prompts and
+          8 decode steps, against the same model on one card at its
+          capacity factor and at one no pair can exceed: the logits
+          within the bound above and every routing call's expert ids
+          and slots equal
 
 Rank 0 prints a JSON line a part (each rank its own `rank_*` lines); the
 script exits 0 only if every check held on every rank.
@@ -340,7 +348,6 @@ def model_part(rank, world, dev, cpu, sync):
 
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import moe as MOE
     from repro_torch.models import sharding as SH
     from repro_torch.models import transformer as TR
 
@@ -393,6 +400,10 @@ def model_part(rank, world, dev, cpu, sync):
     if not cpu:
         torch.cuda.empty_cache()
 
+    ok &= moe_f32_part(rank, dev, cpu, sync, toks[:MOE_F32_ROWS])
+    if not cpu:
+        torch.cuda.empty_cache()
+
     # qwen3-moe-235b-a22b, 40 of 94 layers, each rank its blocks
     cfg = get_config("qwen3-moe-235b-a22b", smoke=cpu)
     cfg = dataclasses.replace(cfg, n_layers=min(40, cfg.n_layers))
@@ -403,31 +414,16 @@ def model_part(rank, world, dev, cpu, sync):
     sync()
     init_s = time.perf_counter() - t0
     local = sum(t.numel() for t in _leaves(blocks))
-    stats = {"checksum": 0, "dropped": 0, "pairs": 0}
-    orig = MOE.route
-
-    def route(p, c, x):
-        r = orig(p, c, x)
-        w = torch.arange(1, r.top_e.numel() + 1, device=x.device)
-        stats["checksum"] += int((r.top_e.reshape(-1).long() * w).sum())
-        stats["dropped"] += int(r.dropped)
-        stats["pairs"] += r.top_e.numel()
-        return r
-
-    MOE.route = route
-    try:
-        if not cpu:
-            torch.cuda.reset_peak_memory_stats()
+    if not cpu:
+        torch.cuda.reset_peak_memory_stats()
+    with RouteStats(cfg.moe.n_experts) as stats:
         got = _serve(blocks, cfg, mesh, toks, 16, sync)
-    finally:
-        MOE.route = orig
     peak = 0 if cpu else torch.cuda.max_memory_allocated()
     finite = bool(torch.isfinite(got[0]).all()) and all(
         bool(torch.isfinite(s).all()) for s in got[1])
     rows = slice(0, rows_all)
     same_tokens = _same_on_shard(got[2], rows, world)
-    same_routing = _same_on_shard(torch.tensor([stats["checksum"]],
-                                               device=dev), rows, world)
+    same_routing = _same_on_shard(stats.checksum().to(dev), rows, world)
     ok &= finite and same_tokens and same_routing
     emit(rank, "model_qwen3-moe-235b-a22b", mesh=[1, 4],
          layers=cfg.n_layers, layers_published=94,
@@ -436,7 +432,139 @@ def model_part(rank, world, dev, cpu, sync):
          decode_ms_per_step=got[4] * 1e3, max_memory_allocated=peak,
          finite=finite, same_tokens=same_tokens,
          same_routing_checksum=same_routing,
-         dropped_share=stats["dropped"] / max(1, stats["pairs"]))
+         dropped_share=stats.dropped_share(),
+         prefill_by_layer=stats.by_layer(cfg.n_layers))
+    return ok
+
+
+MOE_F32_LAYERS, MOE_F32_ROWS, MOE_F32_STEPS = 2, 4, 8
+
+
+class RouteStats:
+    """`moe.route` recorded while it is entered: every call's routing
+    (``keep``: its expert ids and slots), its dropped pairs, and, on
+    each call's device tensors (read only at the end, so the timed
+    steps do not wait for them), what the router saw: the share of
+    pairs dropped, the entropy of the experts' load and of each token's
+    router distribution (both over log E: 1 is uniform), and how alike
+    the tokens of a row are (|mean of their unit vectors|², 1 when they
+    all point one way)."""
+
+    def __init__(self, n_experts: int, keep: bool = False):
+        self.e, self.keep, self.calls = n_experts, keep, []
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+
+        self.mod, self.orig = MOE, MOE.route
+        MOE.route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.orig
+
+    def _route(self, p, c, x):
+        import math
+
+        import torch
+
+        r = self.orig(p, c, x)
+        w = torch.arange(1, r.top_e.numel() + 1, device=x.device)
+        ids = r.top_e.reshape(-1)
+        load = torch.zeros(self.e, device=x.device).index_add_(
+            0, ids, torch.ones(ids.shape, device=x.device)) / ids.numel()
+        ent = -(load * load.clamp_min(1e-30).log()).sum() / math.log(self.e)
+        tok_ent = -(r.probs * r.probs.clamp_min(1e-30).log()).sum(-1)
+        unit = torch.nn.functional.normalize(x.float(), dim=-1)
+        alike = (unit.mean(1).norm(dim=-1) ** 2).mean()
+        self.calls.append({
+            "checksum": (r.top_e.reshape(-1).long() * w).sum(),
+            "dropped": r.dropped, "pairs": r.top_e.numel(),
+            "load_entropy": ent,
+            "router_entropy": tok_ent.mean() / math.log(self.e),
+            "tokens_alike": alike,
+            "routing": (r.top_e.clone(), r.slot.clone()) if self.keep
+            else None})
+        return r
+
+    def checksum(self):
+        import torch
+
+        return torch.stack([c["checksum"] for c in self.calls]).sum()[None]
+
+    def dropped_share(self) -> float:
+        import torch
+
+        dropped = int(torch.stack([c["dropped"] for c in self.calls]).sum())
+        return dropped / max(1, sum(c["pairs"] for c in self.calls))
+
+    def by_layer(self, n_layers: int) -> dict:
+        """The first prefill's calls, one a layer in order: each field's
+        value by layer."""
+        first = self.calls[:n_layers]
+        return {"dropped_share": [int(c["dropped"]) / c["pairs"]
+                                  for c in first],
+                **{k: [float(c[k]) for c in first] for k in (
+                    "load_entropy", "router_entropy", "tokens_alike")}}
+
+
+def moe_f32_part(rank, dev, cpu, sync, toks):
+    """qwen3-moe-235b-a22b at full width cut to its first
+    `MOE_F32_LAYERS` layers in f32, expert- and tensor-parallel over (1,
+    4) through `build_serve_step`, against the same model on one card,
+    at the config's capacity factor and at ``n_experts / top_k`` (a
+    capacity of the prompt's length: no pair can drop, so every routed
+    pair reaches the output through its rank's expert block): the
+    prefill and decode logits (decoding the one-card run's tokens) within
+    max|Δ| ≤ 1e-4·max|ref| + 1e-5, and every routing call's expert ids
+    and slots equal."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import transformer as TR
+
+    cut = dataclasses.replace(
+        get_config("qwen3-moe-235b-a22b", smoke=cpu),
+        n_layers=MOE_F32_LAYERS, dtype="float32")
+    whole = TR.init_params(cut, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    mesh = make_host_mesh(1, 4)
+    blocks = SH.shard_params(cut, whole, mesh, ("data",))
+    mo, ok = cut.moe, True
+    for factor in (mo.capacity_factor, mo.n_experts / mo.top_k):
+        cfg = dataclasses.replace(cut, moe=dataclasses.replace(
+            mo, capacity_factor=factor))
+        with RouteStats(mo.n_experts, keep=True) as one_routes:
+            one = _serve(whole, cfg, None, toks, MOE_F32_STEPS, sync)
+        with RouteStats(mo.n_experts, keep=True) as routes:
+            got = _serve(blocks, cfg, mesh, toks, MOE_F32_STEPS, sync,
+                         feed=one[2])
+        worst, bound, f32_ok = 0.0, 0.0, True
+        for g, w in zip([got[0]] + got[1], [one[0]] + one[1]):
+            err, b = _close(g, w)
+            worst, bound = max(worst, err), max(bound, b)
+            f32_ok &= err <= b
+        flips = sum(int((a["routing"][0] != b["routing"][0]).sum())
+                    for a, b in zip(routes.calls, one_routes.calls))
+        same = len(routes.calls) == len(one_routes.calls) and all(
+            torch.equal(a["routing"][0], b["routing"][0])
+            and torch.equal(a["routing"][1], b["routing"][1])
+            for a, b in zip(routes.calls, one_routes.calls))
+        emit(rank, "model_qwen3-moe-235b-a22b_f32", mesh=[1, 4],
+             layers=cfg.n_layers, capacity_factor=factor,
+             rows=toks.shape[0], prompt_len=toks.shape[1],
+             decode_steps=MOE_F32_STEPS - 1, max_abs_err=worst, bound=bound,
+             logits_ok=f32_ok, routing_equal=same, flipped_choices=flips,
+             routing_calls=len(routes.calls),
+             dropped_share=routes.dropped_share(),
+             one_card_dropped_share=one_routes.dropped_share())
+        ok &= f32_ok and same
+        del got, one, routes, one_routes
+    del whole, blocks
     return ok
 
 

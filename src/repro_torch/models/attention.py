@@ -161,6 +161,11 @@ def _time_block(cache_leaf, axis):
     return S_l * axis.size, (axis.rank * S_l if axis.size > 1 else 0)
 
 
+def _slots(S_l: int, t0: int, device):
+    """The global slot indices ``t0 … t0 + S_l − 1`` of a time block."""
+    return torch.arange(t0, t0 + S_l, device=device)
+
+
 def _write(cache, new, slot, t0):
     """Write ``new`` {name: (b, 1, …)} at global ring slot ``slot`` of the
     cache blocks, where this rank's time block (from ``t0``) holds it."""
@@ -186,7 +191,9 @@ def _proj(x, w, b, n):
     axis (``w`` the rank's column block), plus the rank's slice of the
     replicated bias ``b``."""
     y = x @ w
-    return y if b is None else y + b[SH.col_block(n)]
+    if b is None:
+        return y
+    return y + (b[SH.col_block(n)] if SH.split(n) else b)
 
 
 def _project_qkv(p, cfg, x):
@@ -216,8 +223,9 @@ def _group(q, k, v, a0, c0, G):
     k0, k1 = a0 // G, (a0 + Ha - 1) // G + 1
     if (a0 % G == 0 and Ha % G == 0) or k1 - k0 == 1:
         nkv = k1 - k0
-        return (q.reshape(b, s, nkv, Ha // nkv, hd),
-                k[:, :, k0 - c0:k1 - c0], v[:, :, k0 - c0:k1 - c0])
+        if k0 != c0 or nkv != k.shape[2]:
+            k, v = k[:, :, k0 - c0:k1 - c0], v[:, :, k0 - c0:k1 - c0]
+        return q.reshape(b, s, nkv, Ha // nkv, hd), k, v
     idx = torch.arange(a0, a0 + Ha, device=q.device) // G - c0
     return q.reshape(b, s, Ha, 1, hd), k[:, :, idx], v[:, :, idx]
 
@@ -284,7 +292,7 @@ def gqa_decode(p, cfg: ModelConfig, x, cache, pos: int):
     q, a0 = _gather_heads(q, H, t_ax)
     qg, kc, vc = _group(q, cache["k"], cache["v"], a0, SH.heads(Hkv)[0],
                         H // Hkv)
-    idx = t0 + torch.arange(cache["k"].shape[1], device=x.device)[None, :]
+    idx = _slots(cache["k"].shape[1], t0, x.device)[None, :]
     valid = (idx <= slot) | (pos >= S)
     out = _attend(qg, kc, vc, valid, t_ax).reshape(b, 1, -1)
     return SH.rows(out, p["wo"], H * hd, a0 * hd), cache
@@ -396,7 +404,7 @@ def mla_decode(p, cfg: ModelConfig, x, cache, pos: int):
     ha = qh.shape[2]
     k, v = _mla_keys(p, cfg, cache["ckv"], cache["krope"], a0, a0 + ha)
     S_l = cache["ckv"].shape[1]
-    valid = t0 + torch.arange(S_l, device=x.device)[None, :] <= slot
+    valid = _slots(S_l, t0, x.device)[None, :] <= slot
     out = _attend(qh.reshape(b, 1, ha, 1, -1), k, v, valid, t_ax)
     return SH.rows(out.reshape(b, 1, -1), p["wo"], H * m.v_head_dim,
                    a0 * m.v_head_dim), cache
@@ -429,8 +437,7 @@ def mla_decode_absorbed(p, cfg: ModelConfig, x, cache, pos: int):
               + torch.einsum("bqhc,bsc->bhqs", q_rope, cache["krope"])
               ).float() * scale
     S_l = cache["ckv"].shape[1]
-    valid = (t0 + torch.arange(S_l, device=x.device)
-             )[None, None, None, :] <= slot
+    valid = _slots(S_l, t0, x.device)[None, None, None, :] <= slot
     if t_ax.size == 1:
         scores = torch.where(valid, scores, NEG_INF)
         w = torch.softmax(scores, dim=-1).to(x.dtype)

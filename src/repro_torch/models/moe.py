@@ -140,8 +140,9 @@ def moe_ffn(p, cfg: ModelConfig, x):
     # pairs, and pairs of another rank's experts, read the zero row
     eo_pad = torch.cat([eo.view(el * b * cap, d), eo.new_zeros(1, d)])
     del eo
-    row = torch.where((slot >= lo) & (slot < hi),
-                      (slot - lo) // cap * (b * cap) + gi * cap + slot % cap,
+    mine, rel = ((slot < hi, slot) if lo == 0
+                 else ((slot >= lo) & (slot < hi), slot - lo))
+    row = torch.where(mine, rel // cap * (b * cap) + gi * cap + slot % cap,
                       el * b * cap)
     gathered = eo_pad[row].view(b, s, k, d)
     routed = (gathered * r.top_p.to(gathered.dtype)[..., None]).sum(dim=2)

@@ -25,10 +25,10 @@ Training under a model axis (gradients of replicated parameters used in
 blocks, clipping across the model group, ZeRO-1 over model blocks) is
 slice E6b and raises in `train.train_step`.
 
-A per-rank body runs without a process group under `rank_context` on
-`LocalGroup` axes: the ranks of one process take turns between
-collectives, each collective combining their tensors in rank order as
-NCCL's would — how ``chip_smoke.py`` runs a model axis on one card.
+A per-rank body runs without a process group under `rank_context`, on
+any `Axis` it is given: `launch.local_ranks.run_ranks` gives it axes over
+the ranks of one process — how ``chip_smoke.py`` and the CPU tests run a
+model axis on one device.
 """
 from __future__ import annotations
 
@@ -39,7 +39,8 @@ from dataclasses import dataclass, field
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.mesh import dp_group, dp_size, mesh_sizes
+from repro_torch.launch.mesh import (dp_group, dp_size, mesh_sizes,
+                                     model_group, model_size)
 
 _CTX = threading.local()
 
@@ -140,122 +141,6 @@ class _Unbound(Axis):
         self._raise()
 
 
-WAIT_S = 600  # a rank waiting longer in a collective: the bodies disagree
-
-
-class LocalGroup:
-    """The group of one axis over ranks of one process, one thread each.
-    The threads share one lock (`run_ranks`'s scheduler) and hold it
-    while they run, so the ranks' bodies never run at once: a rank gives
-    the lock up only inside a collective, until every rank of its group
-    has arrived. The last arrival combines the tensors in rank order (a
-    sum or max, a concatenation), so every rank reads the same result, as
-    NCCL's all-reduce gives every rank the same bits."""
-
-    def __init__(self, world: int, cond: threading.Condition):
-        self.world, self.cond = world, cond
-        self.slots = {}      # generation -> {rank: (op, dim, tensor)}
-        self.results = {}    # generation -> [result, readers left]
-        self.gen = [0] * world
-        self.failed = None
-
-    def axis(self, rank: int) -> "LocalAxis":
-        return LocalAxis(self, rank)
-
-    def _combine(self, slots):
-        ops = {(o, d) for o, d, _ in slots.values()}
-        if len(ops) != 1:
-            raise RuntimeError(f"ranks disagree on the collective: "
-                               f"{sorted(map(str, ops))}")
-        (op, dim), = ops
-        xs = [slots[r][2] for r in range(self.world)]
-        if op == "gather":
-            return torch.cat(xs, dim=dim)
-        res = xs[0].clone()
-        for t in xs[1:]:
-            res = res + t if op == "sum" else torch.maximum(res, t)
-        return res
-
-    def collective(self, rank, op, x, dim=None):
-        cond = self.cond
-        g = self.gen[rank]
-        self.gen[rank] += 1
-        slots = self.slots.setdefault(g, {})
-        slots[rank] = (op, dim, x)
-        if len(slots) == self.world:
-            del self.slots[g]
-            self.results[g] = [self._combine(slots), self.world]
-            cond.notify_all()
-
-        def ready():
-            if self.failed is not None:
-                return True
-            return g in self.results
-
-        if not cond.wait_for(ready, timeout=WAIT_S):
-            raise RuntimeError(f"rank {rank} waited {WAIT_S} s for its "
-                               f"group's collective {op}")
-        if self.failed is not None:
-            raise RuntimeError(f"another rank failed: {self.failed!r}")
-        entry = self.results[g]
-        entry[1] -= 1
-        if entry[1] == 0:
-            del self.results[g]
-        return entry[0]
-
-
-class LocalAxis(Axis):
-    """Rank ``rank`` of a `LocalGroup`."""
-
-    def __init__(self, group: LocalGroup, rank: int):
-        self.group, self.rank, self.size = group, rank, group.world
-
-    def sum(self, x):
-        return self.group.collective(self.rank, "sum", x.contiguous())
-
-    def max(self, x):
-        return self.group.collective(self.rank, "max", x.contiguous())
-
-    def gather(self, x, dim):
-        return self.group.collective(self.rank, "gather", x.contiguous(),
-                                     dim % x.dim())
-
-
-def run_ranks(fn, model: int, data: int = 1) -> list:
-    """``[fn(rank, model_axis, data_axis) for each rank]`` over a ``(data,
-    model)`` grid of ranks in one process, rank ``= data index · model +
-    model index``: the per-rank bodies of a mesh without a process group.
-    ``fn`` enters `rank_context` with the axes it is given. One thread a
-    rank, one running at a time (`LocalGroup`); an exception on one rank
-    fails them all and is re-raised."""
-    n = data * model
-    cond = threading.Condition()
-    model_groups = [LocalGroup(model, cond) for _ in range(data)]
-    data_groups = [LocalGroup(data, cond) for _ in range(model)]
-    results, errors = [None] * n, []
-
-    def body(r):
-        di, mi = divmod(r, model)
-        with cond:
-            try:
-                results[r] = fn(r, model_groups[di].axis(mi),
-                                data_groups[mi].axis(di))
-            except BaseException as e:  # noqa: BLE001 — re-raised below
-                errors.append(e)   # the first is the cause, the rest echo it
-                for g in model_groups + data_groups:
-                    g.failed = g.failed or e
-            cond.notify_all()
-
-    threads = [threading.Thread(target=body, args=(r,)) for r in range(n)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if errors:
-        raise errors[0]
-    return results
-
-
 # --------------------------------------------------------------------------
 # The layout context
 # --------------------------------------------------------------------------
@@ -290,10 +175,9 @@ class Layout:
 def _axes_of(mesh, dp):
     """The model and data `Axis` of ``mesh``: over its process groups for
     a `DeviceMesh`, unbound (raising where used) for a plain mapping."""
-    sizes = mesh_sizes(mesh)
-    m, d = sizes.get("model", 1), dp_size(mesh, dp)
+    m, d = model_size(mesh), dp_size(mesh, dp)
     bound = not isinstance(mesh, dict)
-    model = (SOLO if m == 1 else GroupAxis(mesh.get_group("model")) if bound
+    model = (SOLO if m == 1 else GroupAxis(model_group(mesh)) if bound
              else _Unbound("model", m))
     data = (SOLO if d == 1 else GroupAxis(dp_group(mesh, dp)) if bound
             else _Unbound("data", d))
@@ -329,7 +213,8 @@ def mesh_context(mesh, dp_axes, batch=None, cache=None, blocks=True):
 def rank_context(sizes: dict, dp_axes, model: Axis = SOLO, data: Axis = SOLO,
                  batch=None, cache=None):
     """`mesh_context` for a per-rank body: the mesh's ``{axis: size}``
-    and the rank's axes (`run_ranks`'s `LocalAxis`, or any `Axis`)."""
+    and the rank's axes (`launch.local_ranks.run_ranks`'s, or any
+    `Axis`)."""
     with _enter(Layout(dict(sizes), tuple(dp_axes), dict(sizes), model, data,
                        batch, cache)):
         yield
@@ -406,6 +291,8 @@ def take(y: torch.Tensor, n: int, lo: int, hi: int) -> torch.Tensor:
     gathered whole, sliced."""
     blk = col_block(n)
     if blk.start <= lo and hi <= blk.stop:
+        if hi - lo == y.shape[-1]:
+            return y
         return y[..., lo - blk.start:hi - blk.start]
     return model_axis().gather(y, -1)[..., lo:hi]
 

@@ -125,10 +125,14 @@ def _project(p, cfg, x, conv_state):
     b, s = x.shape[:2]
     zx = SH.take(x @ p["in_proj"], zxbcdt, 0, zxbcdt)
     z, xBC, dt = _split_zxbcdt(cfg, zx)
-    ch = SH.col_block(conv_dim)
-    xBC, conv_state = _causal_conv(xBC[..., ch], p["conv_w"],
-                                   p["conv_b"][ch], conv_state)
-    xBC = SH.take(xBC, conv_dim, 0, conv_dim)
+    if SH.split(conv_dim):
+        ch = SH.col_block(conv_dim)
+        xBC, conv_state = _causal_conv(xBC[..., ch], p["conv_w"],
+                                       p["conv_b"][ch], conv_state)
+        xBC = SH.take(xBC, conv_dim, 0, conv_dim)
+    else:
+        xBC, conv_state = _causal_conv(xBC, p["conv_w"], p["conv_b"],
+                                       conv_state)
     gs = s_cfg.n_groups * s_cfg.d_state
     B = xBC[..., d_inner:d_inner + gs].reshape(b, s, s_cfg.n_groups,
                                                s_cfg.d_state)
@@ -144,6 +148,8 @@ def _heads(cfg, xs, dt, A, B, C):
     b, s = xs.shape[:2]
     nh, hp, g = dims(cfg)[1], cfg.ssm.head_dim, cfg.ssm.n_groups
     h0, h1 = SH.heads(nh)
+    if h1 - h0 == nh:
+        return 0, xs.reshape(b, s, nh, hp), dt, A, B, C
     xh = xs[..., h0 * hp:h1 * hp].reshape(b, s, h1 - h0, hp)
     hpg = nh // g
     g0, g1 = h0 // hpg, (h1 - 1) // hpg + 1
@@ -154,17 +160,22 @@ def _heads(cfg, xs, dt, A, B, C):
             C[:, :, g0:g1])
 
 
+def _block(t, first: int, n: int):
+    """Entries ``first … first + n`` of a per-head vector: a view, or
+    ``t`` itself where those are all of them."""
+    return t if n == t.shape[0] else t[first:first + n]
+
+
 def _out(p, cfg, y, z, dtype, lo: int = 0):
     """Gated RMSNorm and out_proj of the scan's f32 output (b, s, ·):
     channels ``lo`` … of d_inner. The norm's mean of squares runs over the
     whole d_inner: where the rank holds a block, its sum of squares is
     SUM all-reduced over the model axis."""
     d_inner = dims(cfg)[0]
-    zl = z[..., lo:lo + y.shape[-1]]
     if y.shape[-1] == d_inner:
-        y = rms_norm(y.to(dtype) * F.silu(zl), p["norm_w"], cfg.norm_eps)
+        y = rms_norm(y.to(dtype) * F.silu(z), p["norm_w"], cfg.norm_eps)
     else:
-        yz = y.to(dtype) * F.silu(zl)
+        yz = y.to(dtype) * F.silu(z[..., lo:lo + y.shape[-1]])
         yf = yz.to(torch.promote_types(yz.dtype, torch.float32))
         var = SH.model_axis().sum((yf * yf).sum(dim=-1, keepdim=True))
         inv = torch.rsqrt(var / d_inner + cfg.norm_eps)
@@ -181,7 +192,7 @@ def mamba2_full(p, cfg: ModelConfig, x, conv_state=None, h0=None):
     z, xs, B, C, dt, A, conv_state = _project(p, cfg, x, conv_state)
     first, xh, dt, A, B, C = _heads(cfg, xs, dt, A, B, C)
     y, h_last = ssd_chunked(xh, dt, A, B, C, cfg.ssm.chunk, h0=h0)
-    D = p["D"][first:first + xh.shape[2]]
+    D = _block(p["D"], first, xh.shape[2])
     y = y + D[None, None, :, None] * xh.float()
     out = _out(p, cfg, y.reshape(b, s, -1), z, x.dtype, first * hp)
     return out, {"state": h_last, "conv": conv_state}
@@ -198,7 +209,7 @@ def mamba2_decode(p, cfg: ModelConfig, x, cache):
     first, xh, dt, A, B, C = _heads(cfg, xs, dt, A, B, C)
     hl = xh.shape[2]
     dt = dt[:, 0]                                              # (b,hl)
-    xh = xh[:, 0].float()                                      # (b,hl,hp)
+    xh = xh.reshape(b, hl, hp).float()                         # (b,hl,hp)
     hpg = hl // B.shape[2]
     # head h reads group h // hpg: jnp.repeat, i.e. repeat_interleave
     Bh = B[:, 0].float().repeat_interleave(hpg, dim=1)         # (b,hl,ds)
@@ -206,7 +217,7 @@ def mamba2_decode(p, cfg: ModelConfig, x, cache):
     decay = torch.exp(dt * A[None, :])
     h = cache["state"] * decay[:, :, None, None] \
         + (dt[:, :, None] * xh)[..., None] * Bh[:, :, None, :]
-    D = p["D"][first:first + hl]
+    D = _block(p["D"], first, hl)
     y = torch.einsum("bhpn,bhn->bhp", h, Ch) + D[None, :, None] * xh
     out = _out(p, cfg, y.reshape(b, 1, hl * hp), z, x.dtype, first * hp)
     cache["state"].copy_(h)

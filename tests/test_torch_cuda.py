@@ -1336,7 +1336,7 @@ MODEL_AXIS_CASES = [(a, d, m, b) for a in (
 def test_cuda_per_rank_serving_bodies_equal_the_unsharded_model(
         arch, data, model, batch):
     """Each smoke model in f32 served by per-rank bodies on the card
-    (`sharding.run_ranks`: the ranks take turns between collectives), a
+    (`local_ranks.run_ranks`: the ranks take turns between collectives), a
     prefill of 16 positions and 8 decode steps: every rank's logits equal
     the one-device run's (max|Δ| ≤ 1e-4·max|ref| + 1e-5), the flash
     kernel launched at the rank's heads, the MoE routing equal."""
@@ -1345,6 +1345,7 @@ def test_cuda_per_rank_serving_bodies_equal_the_unsharded_model(
 
     from repro_torch.configs.registry import get_config
     from repro_torch.models import moe
+    from repro_torch.launch.local_ranks import run_ranks
     from repro_torch.models import sharding as SH
     from repro_torch.models.api import get_api
     from repro_torch.train import train_step as TS
@@ -1420,7 +1421,7 @@ def test_cuda_per_rank_serving_bodies_equal_the_unsharded_model(
             return rows, run(blocks, rows, (model_ax, data_ax)), \
                 threading_name()
 
-        ranks = SH.run_ranks(body, model, data)
+        ranks = run_ranks(body, model, data)
     finally:
         moe.route = orig
     if not cfg.ssm or cfg.attn_every:

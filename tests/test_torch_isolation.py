@@ -1,6 +1,6 @@
 """The port stands alone: `src/repro_torch`, `chip_smoke.py`,
-`flash_bench.py`, `popc_bench.py`, `rank_count_bench.py` and
-`multi_rank_smoke.py` import neither jax nor the JAX package (nor
+`flash_bench.py`, `popc_bench.py`, `rank_count_bench.py`,
+`serve_bench.py` and `multi_rank_smoke.py` import neither jax nor the JAX package (nor
 ``ml_dtypes``, which the card's machine does
 not have), entry points default to the CUDA card and refuse to fall back
 to the CPU, and the unported paths say so."""
@@ -20,7 +20,8 @@ from repro_torch.graphs import generators as PG
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "flash_bench.py", ROOT / "popc_bench.py",
-    ROOT / "rank_count_bench.py", ROOT / "multi_rank_smoke.py"]
+    ROOT / "rank_count_bench.py", ROOT / "multi_rank_smoke.py",
+    ROOT / "serve_bench.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
@@ -44,6 +45,7 @@ def test_port_files_exist():
                  "src/repro_torch/kernels/seghist/kernel.py",
                  "src/repro_torch/core/query_batch.py",
                  "src/repro_torch/launch/serve.py",
+                 "src/repro_torch/launch/local_ranks.py",
                  "src/repro_torch/launch/summary_serve.py",
                  "src/repro_torch/kernels/interval_expand/kernel.py",
                  "src/repro_torch/kernels/interval_expand/ops.py",
@@ -84,7 +86,8 @@ def test_port_files_exist():
                  "src/repro_torch/models/sharding.py",
                  "src/repro_torch/train/elastic.py",
                  "chip_smoke.py", "flash_bench.py", "popc_bench.py",
-                 "rank_count_bench.py", "multi_rank_smoke.py"):
+                 "rank_count_bench.py", "multi_rank_smoke.py",
+                 "serve_bench.py"):
         assert want in names
     csrc = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")}
     assert {"interval_count.cu", "rowmin_hash.cu",

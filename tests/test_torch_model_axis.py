@@ -1,10 +1,10 @@
 """Slice E6a of the port, the model axis for serving, on per-rank bodies
 in one process: the rank's blocks of the parameters and the cache
 (`models/sharding.shard_params`, `shard_cache`, `local_block`), the
-`LocalGroup` collectives, blocks drawn and carried by rank
+`launch.local_ranks` collectives, blocks drawn and carried by rank
 (`init_params(mesh=)`, `interop.params_from_arrays(mesh=)`), and every
 family's smoke model served tensor- and expert-parallel on
-`sharding.run_ranks` (one thread a rank, ranks taking turns between
+`local_ranks.run_ranks` (one thread a rank, ranks taking turns between
 collectives) against the same model on one device.
 
 The block cases run for every configuration in the registry, at model 2,
@@ -31,6 +31,7 @@ import torch
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.configs.registry import ARCH_NAMES, get_config
 from repro_torch.interop import params_from_arrays
+from repro_torch.launch.local_ranks import run_ranks
 from repro_torch.models import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.models.api import get_api, param_shapes
@@ -154,7 +155,7 @@ def test_local_group_collectives_combine_in_rank_order():
                 model.gather(x[None], -1), model.sum_all(x, x[:1] * 2),
                 model.rank, model.size, data.size)
 
-    res = SH.run_ranks(body, 4)
+    res = run_ranks(body, 4)
     want = torch.tensor([6.0, 60.0, -6.0])
     for r, (s, m, g0, g1, (a, b), rank, size, dsize) in enumerate(res):
         assert torch.equal(s, want) and torch.equal(m,
@@ -163,6 +164,24 @@ def test_local_group_collectives_combine_in_rank_order():
         assert torch.equal(g0[2], torch.tensor([2.0, 20.0, -2.0]))
         assert torch.equal(a, want) and torch.equal(b, torch.tensor([12.0]))
         assert (rank, size, dsize) == (r, 4, 1)
+
+
+def test_local_group_gives_each_rank_its_own_result():
+    """A rank that writes into what a collective returned changes no other
+    rank's tensor, as each NCCL rank holds its own buffer."""
+    def body(r, model, data):
+        s = model.sum(torch.ones(2))
+        g = model.gather(torch.full((1,), float(r)), 0)
+        s += r
+        g[0] = -1.0 - r
+        model.sum(torch.zeros(1))   # every rank has written before it reads
+        return s, g
+
+    res = run_ranks(body, 3)
+    for r, (s, g) in enumerate(res):
+        assert torch.equal(s, torch.full((2,), 3.0 + r))
+        assert torch.equal(g, torch.tensor([-1.0 - r, 1.0, 2.0]))
+    assert len({id(s) for s, _ in res}) == 3
 
 
 def test_local_group_runs_one_rank_at_a_time_and_fails_together():
@@ -178,7 +197,7 @@ def test_local_group_runs_one_rank_at_a_time_and_fails_together():
         live[0] -= 1
         return data.sum(torch.tensor([float(r)]))
 
-    res = SH.run_ranks(body, 2, data=2)
+    res = run_ranks(body, 2, data=2)
     assert most[0] == 1
     # ranks (0, 2) and (1, 3) share a data group
     assert [float(t) for t in res] == [2.0, 4.0, 2.0, 4.0]
@@ -189,13 +208,13 @@ def test_local_group_runs_one_rank_at_a_time_and_fails_together():
         return model.sum(torch.ones(1))
 
     with pytest.raises(ValueError, match="rank 1 fails"):
-        SH.run_ranks(bad, 3)
+        run_ranks(bad, 3)
 
     def mismatched(r, model, data):
         return model.sum(torch.ones(1)) if r else model.max(torch.ones(1))
 
     with pytest.raises(RuntimeError, match="disagree"):
-        SH.run_ranks(mismatched, 2)
+        run_ranks(mismatched, 2)
 
 
 def test_a_model_axis_without_a_process_group_raises():
@@ -354,7 +373,7 @@ def serve_ranks(cfg, params, case, log):
                 out.append(lg[:, 0].float().numpy())
         return rows, out, list(routes), cache
 
-    return SH.run_ranks(body, case["model"], case["data"])
+    return run_ranks(body, case["model"], case["data"])
 
 
 FAMILIES = ["qwen2.5-3b", "h2o-danube-1.8b", "qwen3-moe-235b-a22b",

@@ -324,6 +324,26 @@ def test_first_layers_cuts_and_casts():
         assert torch.equal(t[0], params["layers"]["moe"][name][0].float())
 
 
+def test_first_layers_casts_a_hybrids_shared_block_whole():
+    """zamba2's f32 flash check in `chip_smoke.py` runs on its first
+    layers: the stacked Mamba2 layers cut, the unstacked shared block
+    (a tree, not a tensor) cast whole, and the cut model's prefill runs
+    on them."""
+    CS = _chip_smoke()
+    _, pc = _configs("zamba2-7b", "bfloat16")
+    params = PT.init_params(pc, torch.Generator().manual_seed(0),
+                            device="cpu")
+    cut = CS.first_layers(params, pc.attn_every)
+    for name, t in cut["shared_attn"]["attn"].items():
+        assert t.dtype == torch.float32
+        assert torch.equal(t, params["shared_attn"]["attn"][name].float())
+    assert cut["layers"]["mamba"]["in_proj"].shape[0] == pc.attn_every
+    cfg = dataclasses.replace(pc, n_layers=pc.attn_every, dtype="float32")
+    toks = torch.zeros((1, 8), dtype=torch.long)
+    logits = CS.last_logits(cut, cfg, toks, "xla_chunked")
+    assert logits.shape == (1, pc.vocab) and torch.isfinite(logits).all()
+
+
 def test_routing_pin_replays_the_recorded_choices():
     """`chip_smoke.RoutingPin`: a pinned run takes each layer's recorded
     experts, ranks and slots (its weights renormalised from its own

@@ -27,6 +27,7 @@ from repro.configs.registry import ARCH_NAMES, get_config as ref_config
 from repro.models import sharding as RS
 from repro.models.api import abstract_params, get_api as ref_api
 from repro_torch.configs.registry import get_config as port_config
+from repro_torch.launch.local_ranks import run_ranks
 from repro_torch.models import sharding as SH
 from repro_torch.models.api import get_api, param_shapes
 
@@ -203,7 +204,7 @@ def test_the_model_code_calls_constrain_where_the_reference_does(
                 with SH.rank_context(sizes, ("data",), model, data):
                     return T.forward(blocks, cfg, toks)[0]
 
-            for out in SH.run_ranks(body, 2):
+            for out in run_ranks(body, 2):
                 torch.testing.assert_close(out, plain, atol=1e-4, rtol=1e-4)
 
         def count(calls):
