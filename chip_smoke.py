@@ -189,6 +189,21 @@ Phases, each printing one JSON line with its seconds:
            flash launches counted from 0 (none fails the phase) and
            the kernel's ms at the rank's head counts beside the
            unsharded call's, on the phase's own lines
+  model_axis_train  slice E6b (`phase_model_axis_train`), after
+           `model_axis`: the same per-rank bodies forward and backward at
+           full width in f32, 4 × 1,024 tokens, each leaf's gradient
+           SUMmed by the train step's reduction (`train_step.
+           reduce_grads`) and assembled from the ranks' blocks, and each
+           input's gradient summed over the ranks, held to the unsharded
+           ones within max|Δ| ≤ 1e-4·max|ref| + 1e-5 — qwen2.5-3b cut to
+           one layer with its vocabulary-parallel embedding, lm_head and
+           loss at m 2 and 4, deepseek-v2-lite-16b's MLA block and MoE
+           FFN (routing integers equal) at m 4, zamba2-7b cut to one
+           Mamba2 layer and its shared block, whisper-small cut to one
+           encoder and one decoder layer (m 4) — then two AdamW steps of
+           qwen2.5-3b cut to 2 layers at m 2 (the clipping norm across
+           the ranks) against one device's `build_train_step`; no flash
+           launch (training attends through the chunked twin)
 
 The kernels phase also holds the flash-attention kernel to its plain
 version (f32, TF32 off) within the reference's tolerances at ten fixed
@@ -2681,7 +2696,8 @@ def phase_lm_mla_moe():
     tw = time.perf_counter()
     wall, by_name = traced(lambda: server.run(prompts[:LM_SLOTS],
                                               gen_tokens=MLA_MOE_TRACE_GEN),
-                           warmup=True)
+                           warmup=lambda: server.run(prompts[:1],
+                                                     gen_tokens=2))
     emit_trace(tw, "lm-mla-moe", wall, by_name, top=16)
     prompt_tokens = LM_PROMPTS * LM_PROMPT_LEN
     fields = dict( arch=MLA_MOE_ARCH, layers=cfg.n_layers,
@@ -3122,7 +3138,8 @@ def hybrid_trace(cfg, params, server, prompts, batch):
     tw = time.perf_counter()
     wall, by_name = traced(lambda: server.run(prompts[:LM_SLOTS],
                                               gen_tokens=HYBRID_TRACE_GEN),
-                           warmup=True)
+                           warmup=lambda: server.run(prompts[:1],
+                                                     gen_tokens=2))
     emit_trace(tw, "lm-hybrid", wall, by_name, top=16)
     timer = ScanTimer()
     try:
@@ -4255,12 +4272,14 @@ def tensor_leaves(tree):
 
 
 def phase_trace_lm(lm):
-    """The whole drain once more under the profiler, after a warm-up run:
-    the device's busy share and its top ops over prefill and decode."""
+    """The whole drain once more under the profiler, after a warm-up run
+    of one prompt and 2 tokens: the device's busy share and its top ops
+    over prefill and decode."""
     t0 = time.perf_counter()
     wall, by_name = traced(lambda: lm["server"].run(lm["prompts"],
                                                     gen_tokens=LM_GEN),
-                           warmup=True)
+                           warmup=lambda: lm["server"].run(
+                               lm["prompts"][:1], gen_tokens=2))
     emit_trace(t0, "lm-serve", wall, by_name, top=12)
     return by_name
 
@@ -4325,15 +4344,17 @@ def traced(fn, warmup=False):
     """Run ``fn`` once under `torch.profiler`: its wall and the device's
     busy time by kernel, copy and torch op. The profiler drops the device
     activities of its first millisecond or so (seen as missing launches in
-    short traces), so with ``warmup`` ``fn`` runs once first in a discarded
-    warm-up step and the second run is the one recorded."""
+    short traces), so with ``warmup`` a discarded warm-up step runs first
+    — ``fn`` itself, or ``warmup`` where it is a function (a shorter run
+    of what ``fn`` runs, whose shapes an earlier phase has already warmed)
+    — and the run of ``fn`` after it is the one recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     steps = schedule(wait=0, warmup=1, active=1, repeat=1) if warmup else None
     with profile(activities=[ProfilerActivity.CUDA], schedule=steps) as prof:
         if warmup:
-            fn()
+            (warmup if callable(warmup) else fn)()
             torch.cuda.synchronize()
             prof.step()
         tw = time.perf_counter()
@@ -4548,14 +4569,14 @@ def ma_flash_ms(rec):
     return out
 
 
-def ma_layer(cfg, shapes, seed):
-    """f32 weights of ``shapes`` on the card from ``torch.Generator``."""
+def ma_layer(cfg, shapes, seed, device="cuda"):
+    """f32 weights of ``shapes`` on ``device`` from ``torch.Generator``."""
     import torch
 
     from repro_torch.models import transformer as T
 
     return T.build_params(shapes, cfg, torch.Generator(
-        device="cuda").manual_seed(seed), device="cuda")
+        device=device).manual_seed(seed), device=device)
 
 
 def ma_cache(cfg, c, slots):
@@ -4840,6 +4861,317 @@ def phase_model_axis():
     emit("model_axis", t_all, part="total", flash_launches=sum(drains))
 
 
+# ------------------------------------------------------ model-axis training
+MT_DEVICE = "cuda"    # the card (a CPU rehearsal sets "cpu")
+MT_SMOKE = False      # full width (a CPU rehearsal sets the smoke configs)
+MT_BATCH, MT_SEQ = 4, 1024   # tokens of each backward: 4 × 1,024
+MT_STEP_LAYERS, MT_STEPS = 2, 2  # the AdamW check: qwen2.5-3b cut, steps
+
+
+def mt_config(arch, **cut):
+    """``arch`` in f32 through the chunked twin (the training path), cut
+    to ``cut`` (layers), at full width (or its smoke model)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.train import train_step as TS
+
+    return TS.train_config(dataclasses.replace(
+        get_config(arch, smoke=MT_SMOKE), dtype="float32", **cut))
+
+
+def mt_backward(cfg, tree, loss_fn, inputs, m, routes=None):
+    """``loss_fn(params, *inputs)`` and its gradients, unsharded and then
+    on each rank of a model axis of m one after the other
+    (`local_ranks.run_ranks`) on the rank's blocks of ``tree``: the
+    backward seeded with 1/m of the loss and each leaf SUMmed over the
+    axes its spec replicates it on (`train_step.reduce_grads`, the train
+    step's reduction); the inputs' gradients are the ranks' partials.
+    Returns ((loss, leaf grads, input grads) unsharded, [the same per
+    rank], the rank coordinates' mesh sizes)."""
+    import torch
+
+    from repro_torch.launch.local_ranks import run_ranks
+    from repro_torch.models import sharding as SH
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+
+    sizes = {"data": 1, "model": m}
+    sums = TS.grad_sums(cfg, sizes, ("data",), tree)
+
+    def grads(params, scale):
+        flat = adamw.leaves(params)
+        xs = [x.detach().requires_grad_(True) for x in inputs]
+        for t in flat:
+            t.requires_grad_(True)
+        try:
+            loss = loss_fn(params, *xs)
+            g = torch.autograd.grad(loss * scale, flat + xs,
+                                    materialize_grads=True)
+        finally:
+            for t in flat:
+                t.requires_grad_(False)
+        return loss.detach(), list(g[:len(flat)]), list(g[len(flat):])
+
+    want = grads(tree, 1.0)
+
+    def fn(r, model, data):
+        blocks = SH.shard_params(cfg, tree, sizes, ("data",),
+                                 {"data": 0, "model": r})
+        with SH.rank_context(sizes, ("data",), model, data):
+            loss, g, gx = grads(blocks, 1.0 / m)
+            return loss, TS.reduce_grads(g, sums, 1), gx
+
+    return want, run_ranks(fn, m), sizes
+
+
+def mt_compare(name, cfg, tree, want, ranks, sizes, fields, failed):
+    """Each leaf's gradient assembled from the ranks' blocks, and the
+    inputs' gradients summed over the ranks, against the unsharded ones
+    (`ma_close`'s bound); the ranks' losses against the unsharded loss."""
+    import torch
+
+    from repro_torch.models import sharding as SH
+    from repro_torch.optim import adamw
+
+    specs = adamw.leaves(SH.param_pspecs(cfg, tree, sizes, ("data",)))
+    worst = {}  # kind -> (max |Δ|, its bound) of the worst err / bound
+
+    def check(kind, what, got, w):
+        err, bound, ok = ma_close(got, w)
+        if kind not in worst or err / bound > worst[kind][0] / worst[kind][1]:
+            worst[kind] = (err, bound)
+        if not ok:
+            failed.append(f"{name} {what}: {err} > {bound}")
+
+    for i, (w, spec) in enumerate(zip(want[1], specs)):
+        whole = torch.empty_like(w)
+        for r, (_, g, _) in enumerate(ranks):
+            whole[SH.local_block(tuple(w.shape), spec, sizes,
+                                 {"data": 0, "model": r})] = g[i]
+        check("leaf", f"leaf {i}", whole, w)
+    for j, w in enumerate(want[2]):
+        check("input", f"input {j}", sum(gx[j] for _, _, gx in ranks), w)
+    for loss, _, _ in ranks:
+        check("loss", "loss", loss, want[0])
+    fields[name] = {"leaves": len(specs),
+                    **{f"{k}_max_abs_err": v[0] for k, v in worst.items()},
+                    **{f"{k}_bound": v[1] for k, v in worst.items()}}
+
+
+def phase_model_axis_train():
+    """Training under a model axis on one card (`phase_model_axis`'s
+    per-rank bodies, now forward and backward): at full width in f32,
+    4 × 1,024 tokens, each leaf's gradient SUMmed by the train step's
+    reduction and assembled from the ranks' blocks, and each input's
+    gradient summed over the ranks, held to the unsharded one within
+    max|Δ| ≤ 1e-4·max|ref| + 1e-5: (a) qwen2.5-3b cut to one layer with
+    its vocabulary-parallel embedding, lm_head and loss (`lm_loss`) at m 2
+    and 4; (b) deepseek-v2-lite-16b's MLA block and MoE FFN (+ its aux
+    loss) on one input at m 4, the routing integers equal; (c) zamba2-7b
+    cut to one Mamba2 layer and its shared block, through `lm_loss`, at
+    m 4; (d) whisper-small cut to one encoder and one decoder layer,
+    through `lm_loss`, at m 4; (e) qwen2.5-3b cut to 2 layers through 2
+    AdamW steps at m 2 (the gradients reduced as the train step reduces
+    them, the clipping norm across the ranks by `norm_axes`): the loss,
+    grad norm and every parameter equal one device's
+    `build_train_step`. No flash launch: training attends through the
+    chunked twin."""
+    import torch
+
+    from repro_torch.data.pipeline import TokenStream, make_batch
+    from repro_torch.kernels.flash_attn import kernel as KF
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    from repro_torch.models.api import lm_loss, param_shapes
+    from repro_torch.models.layers import rms_norm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    free_card()
+    t_all = time.perf_counter()
+    failed = []
+    launches = KF.LAUNCHES
+    gen = torch.Generator(device=MT_DEVICE).manual_seed(11)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=MT_DEVICE)
+
+    def batch_of(cfg):
+        stream = TokenStream(cfg.vocab, MT_BATCH, MT_SEQ, seed=0)
+        return make_batch(cfg, stream, 0, device=MT_DEVICE)
+
+    def whole_model(part, arch, m, seed, **cut):
+        t0 = time.perf_counter()
+        cfg = mt_config(arch, **cut)
+        tree = ma_layer(cfg, param_shapes(cfg), seed, MT_DEVICE)
+        batch = batch_of(cfg)
+        want, ranks, sizes = mt_backward(
+            cfg, tree, lambda p: lm_loss(p, cfg, batch), (), m)
+        fields = {"params": sum(t.numel() for t in tensor_leaves(tree))}
+        mt_compare("lm_loss", cfg, tree, want, ranks, sizes, fields, failed)
+        del tree, want, ranks
+        free_card()
+        emit("model_axis_train", t0, part=part, model=m, **cut, **fields)
+
+    # (a) qwen2.5-3b: one layer, the vocabulary-parallel ends and the loss
+    for m in (2, 4):
+        whole_model(f"a_qwen2.5-3b_m{m}", LM_ARCH, m, 1, n_layers=1)
+
+    # (b) deepseek-v2-lite-16b: the MLA block, then the MoE FFN
+    t0 = time.perf_counter()
+    cfg = mt_config(MLA_MOE_ARCH)
+    shapes = T.attn_block_shapes(cfg, (1,))
+    x = rand(MT_BATCH, MT_SEQ, cfg.d_model)
+    dy = rand(MT_BATCH, MT_SEQ, cfg.d_model)
+    pos = torch.arange(MT_SEQ, device=MT_DEVICE).expand(MT_BATCH, -1)
+    tree = ma_layer(cfg, {"layers": {"ln1": shapes["ln1"],
+                                     "attn": shapes["attn"]}}, 2, MT_DEVICE)
+
+    def mla_loss(p, xx):
+        lp = T.layer(p["layers"], 0)
+        out, _ = A.mla_full(lp["attn"], cfg, rms_norm(xx, lp["ln1"],
+                                                      cfg.norm_eps), pos)
+        return (out * dy).sum()
+
+    want, ranks, sizes = mt_backward(cfg, tree, mla_loss, (x,), 4)
+    fields = {}
+    mt_compare("mla_block", cfg, tree, want, ranks, sizes, fields, failed)
+    del tree, want, ranks
+    tree = ma_layer(cfg, {"layers": {"moe": shapes["moe"]}}, 3, MT_DEVICE)
+    routes = {}
+    orig = MOE.route
+
+    def rec_route(p, c, xx):
+        r = orig(p, c, xx)
+        routes.setdefault(threading_name(), []).append((r.top_e, r.slot))
+        return r
+
+    def moe_loss(p, xx):
+        out, aux = MOE.moe_ffn(T.layer(p["layers"], 0)["moe"], cfg, xx)
+        return (out * dy).sum() + 0.01 * aux
+
+    MOE.route = rec_route
+    try:
+        want, ranks, sizes = mt_backward(cfg, tree, moe_loss, (x,), 4)
+    finally:
+        MOE.route = orig
+    mt_compare("moe_ffn", cfg, tree, want, ranks, sizes, fields, failed)
+    mine = routes.pop(threading_name())
+    same = len(routes) == 4 and all(
+        len(got) == len(mine) and all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            for a, b in zip(got, mine)) for got in routes.values())
+    if not same:
+        failed.append("deepseek MoE routing differs on a rank")
+    fields["routing_equal"] = same
+    fields["experts_a_rank"] = cfg.moe.n_experts // 4
+    del tree, want, ranks, x, dy
+    free_card()
+    emit("model_axis_train", t0, part="b_deepseek_mla_moe_m4", model=4,
+         **fields)
+
+    # (c) zamba2-7b: one Mamba2 layer and the shared block; (d) whisper
+    whole_model("c_zamba2-7b_m4", HYBRID_ARCH, 4, 4, n_layers=1)
+    whole_model("d_whisper-small_m4", ENCDEC_ARCH, 4, 5, n_layers=1,
+                encoder_layers=1)
+
+    # (e) two AdamW steps of qwen2.5-3b cut to 2 layers at m 2
+    t0 = time.perf_counter()
+    fields = mt_steps(failed)
+    emit("model_axis_train", t0, part="e_qwen2.5-3b_adamw_m2", model=2,
+         n_layers=MT_STEP_LAYERS, **fields)
+    free_card()
+    if KF.LAUNCHES != launches:
+        failed.append(f"{KF.LAUNCHES - launches} flash launches in training")
+    if failed:
+        raise AssertionError(f"model_axis_train failed: {failed}")
+    emit("model_axis_train", t_all, part="total")
+
+
+def mt_steps(failed):
+    """`MT_STEPS` AdamW steps (warmup 1: the second moves the weights) of
+    qwen2.5-3b cut to `MT_STEP_LAYERS` layers, by one device's
+    `build_train_step` and by per-rank bodies at m 2 — `loss_and_grads`
+    on the rank's blocks, `reduce_grads`, `adamw.apply_updates` with the
+    clipping norm over the ranks (`norm_axes`) — their losses, grad
+    norms and parameters after the steps compared."""
+    import torch
+
+    from repro_torch.data.pipeline import TokenStream, make_batch
+    from repro_torch.launch.local_ranks import run_ranks
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.api import param_shapes
+    from repro_torch.optim import adamw, schedules
+    from repro_torch.train import train_step as TS
+
+    cfg = mt_config(LM_ARCH, n_layers=MT_STEP_LAYERS)
+    tree = ma_layer(cfg, param_shapes(cfg), 6, MT_DEVICE)
+    plan = TS.TrainPlan(cfg=cfg, warmup=1, total_steps=10)
+    sizes = {"data": 1, "model": 2}
+    blocks = [SH.shard_params(cfg, tree, sizes, ("data",),
+                              {"data": 0, "model": r}) for r in range(2)]
+    stream = TokenStream(cfg.vocab, MT_BATCH, MT_SEQ, seed=0)
+    batches = [make_batch(cfg, stream, s, device=MT_DEVICE)
+               for s in range(MT_STEPS)]
+    state = TS.init_state(tree, plan.opt)
+    step = TS.build_train_step(plan)
+    want = []
+    for b in batches:
+        state, met = step(state, b)
+        want.append({k: float(v) for k, v in met.items()})
+    sums = TS.grad_sums(cfg, sizes, ("data",))
+    held = TS.norm_axes(cfg, sizes, ("data",))
+
+    def fn(r, model, data):
+        st = TS.init_state(blocks[r], plan.opt)
+        out = []
+        with SH.rank_context(sizes, ("data",), model, data):
+            lay = SH.layout()
+            norms = [lay.axis(a) if a else None for a in held]
+            for b in batches:
+                loss, flat = TS.loss_and_grads(st["params"], cfg, b)
+                flat = TS.reduce_grads(flat, sums, 1)
+                lr = schedules.cosine_with_warmup(
+                    st["opt"]["step"], warmup=plan.warmup,
+                    total=plan.total_steps)
+                met = adamw.apply_updates(
+                    st["params"], adamw.unflatten(st["params"], flat),
+                    st["opt"], plan.opt, lr, norm_axes=norms)
+                out.append({"loss": float(loss), **{
+                    k: float(v) for k, v in met.items()}})
+        return out
+
+    ranks = run_ranks(fn, 2)
+    fields = {"losses": [w["loss"] for w in want],
+              "grad_norms": [w["grad_norm"] for w in want],
+              "rank_metrics": ranks[0]}
+    for got in ranks:
+        for g, w in zip(got, want):
+            for k in ("loss", "grad_norm", "lr"):
+                err, bound, ok = ma_close(torch.tensor(g[k]),
+                                          torch.tensor(w[k]))
+                if not ok:
+                    failed.append(f"adamw step {k}: {err} > {bound}")
+    specs = adamw.leaves(SH.param_pspecs(cfg, param_shapes(cfg), sizes,
+                                         ("data",)))
+    worst, bound_at = 0.0, 1.0
+    for i, (w, spec) in enumerate(zip(adamw.leaves(state["params"]), specs)):
+        whole = torch.empty_like(w)
+        for r in range(2):
+            whole[SH.local_block(tuple(w.shape), spec, sizes,
+                                 {"data": 0, "model": r})] = \
+                adamw.leaves(blocks[r])[i]
+        err, bound, ok = ma_close(whole, w)
+        if err / bound >= worst / bound_at:
+            worst, bound_at = err, bound
+        if not ok:
+            failed.append(f"adamw step leaf {i}: {err} > {bound}")
+    fields.update(param_max_abs_err=worst, param_bound=bound_at)
+    return fields
+
+
 def threading_name():
     import threading
 
@@ -4898,6 +5230,7 @@ def main() -> int:
     phase_multi_device(graph, summary, main_wall, launches, res_stages,
                        res_launches, train)
     phase_model_axis()
+    phase_model_axis_train()
     t0 = time.perf_counter()
     record = kernel_record(recorder, launches, res_recorder, res_launches,
                            rng, device_us, rates)

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the port's data axis (slice E5) and model axis (slice E6a)
-across ranks: one process a card (NCCL), or CPU processes (gloo,
+"""Drive the port's data axis (slice E5) and model axis (slices E6a and
+E6b) across ranks: one process a card (NCCL), or CPU processes (gloo,
 ``--cpu``), started by torchrun:
 
     python3 -m torch.distributed.run --nproc-per-node 4 multi_rank_smoke.py [--cpu] [--parts model]
 
-``--parts`` (comma-separated: engine, train, ckpt, psum, model) runs those
-parts only; all by default.
+``--parts`` (comma-separated: engine, train, ckpt, psum, model,
+train_model) runs those parts only; all by default.
 
 Every rank, in order:
 
@@ -49,6 +49,19 @@ Every rank, in order:
           within the bound above and every routing call's expert ids
           and slots equal
 
+  train_model  training under a model axis (world 4): qwen2.5-3b whole
+          (the smoke model with --cpu), bf16, remat full, 10 AdamW steps
+          of 4 × 1,024 tokens (× 64 with --cpu) on one card (rank 0
+          alone), then through `build_train_step` on `make_host_mesh(1,
+          4)` and `(2, 2)` from the same weights (each rank its blocks):
+          losses and their gaps to one card's, seconds a step, peak
+          memory a card; its 2-layer cut in f32, two steps (warmup 1) on
+          (1, 4) and (2, 2): losses, grad norms and every parameter equal
+          one card's within max|Δ| ≤ 1e-4·max|ref| + 1e-5; then
+          deepseek-v2-lite-16b whole on (1, 4), each rank drawing its
+          blocks (`init_params(mesh=)`), 4 steps with f32 moments: finite
+          losses, the state's bytes a rank, seconds a step, peak memory
+
 Rank 0 prints a JSON line a part (each rank its own `rank_*` lines); the
 script exits 0 only if every check held on every rank.
 """
@@ -75,7 +88,7 @@ def main() -> int:
     cpu = "--cpu" in sys.argv
     parts = (sys.argv[sys.argv.index("--parts") + 1].split(",")
              if "--parts" in sys.argv else
-             ["engine", "train", "ckpt", "psum", "model"])
+             ["engine", "train", "ckpt", "psum", "model", "train_model"])
     rank = int(os.environ["RANK"])
     world = int(os.environ["WORLD_SIZE"])
     if cpu:
@@ -105,6 +118,8 @@ def main() -> int:
         ok &= psum_part(rank, world, dev)
     if "model" in parts:
         ok &= model_part(rank, world, dev, cpu, sync)
+    if "train_model" in parts:
+        ok &= train_model_part(rank, world, dev, cpu, sync)
 
     flag = torch.tensor([int(ok)], device=dev)
     dist.all_reduce(flag, dist.ReduceOp.MIN)
@@ -565,6 +580,176 @@ def moe_f32_part(rank, dev, cpu, sync, toks):
         ok &= f32_ok and same
         del got, one, routes, one_routes
     del whole, blocks
+    return ok
+
+
+# ------------------------------------------------------ model-axis training
+TM_STEPS, TM_BATCH, TM_SEQ = 10, 4, 1024   # qwen2.5-3b, 4 × 1,024 a step
+TM_MLA_STEPS = 4                           # deepseek-v2-lite-16b at (1, 4)
+
+
+def _train(state, step, cfg, mesh, steps, dev, sync, seq):
+    """``steps`` steps from the same `TokenStream` batches (this rank's
+    rows under ``mesh``): losses, grad norms and seconds a step."""
+    from repro_torch.data.pipeline import TokenStream, make_batch
+
+    stream = TokenStream(cfg.vocab, TM_BATCH, seq, seed=0)
+    losses, norms, times = [], [], []
+    for s in range(steps):
+        batch = make_batch(cfg, stream, s, device=dev, mesh=mesh)
+        sync()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        sync()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return state, losses, norms, times
+
+
+def _peak(cpu):
+    import torch
+
+    return 0 if cpu else torch.cuda.max_memory_allocated()
+
+
+def _reset_peak(cpu):
+    import torch
+
+    if not cpu:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def train_model_part(rank, world, dev, cpu, sync):
+    """Training under a model axis (module docstring): qwen2.5-3b on one
+    card (rank 0), on (1, 4) and on (2, 2); its 2-layer f32 cut against
+    one card; deepseek-v2-lite-16b whole on (1, 4)."""
+    import dataclasses
+    import math
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import transformer as TR
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+
+    ok = True
+    seq = 64 if cpu else TM_SEQ
+    cfg = get_config("qwen2.5-3b", smoke=cpu)
+
+    def whole_params(c, seed=0):
+        return TR.init_params(c, torch.Generator(device=dev).manual_seed(
+            seed), device=dev)
+
+    # one card: rank 0 alone, the others wait
+    one = [None]
+    if rank == 0:
+        plan = TS.TrainPlan(cfg=cfg, total_steps=TM_STEPS)
+        state = TS.init_state(whole_params(cfg), plan.opt)
+        _reset_peak(cpu)
+        state, losses, norms, times = _train(
+            state, TS.build_train_step(plan), cfg, None, TM_STEPS, dev, sync,
+            seq)
+        one[0] = {"losses": losses, "grad_norms": norms,
+                  "step_seconds": times, "max_memory_allocated": _peak(cpu)}
+        del state
+    dist.broadcast_object_list(one, src=0)
+    one = one[0]
+    emit(rank, "train_model_qwen2.5-3b", mesh=[1, 1], layers=cfg.n_layers,
+         tokens_per_step=TM_BATCH * seq,
+         steady_step_seconds=statistics.median(one["step_seconds"][1:]),
+         **one)
+    for shape in ((1, 4), (2, 2)):
+        mesh = make_host_mesh(*shape)
+        plan = TS.TrainPlan(cfg=cfg, total_steps=TM_STEPS, mesh=mesh)
+        state = TS.init_state(SH.shard_params(cfg, whole_params(cfg), mesh,
+                                              plan.dp_axes), plan.opt, plan)
+        _reset_peak(cpu)
+        state, losses, norms, times = _train(
+            state, TS.build_train_step(plan), cfg, mesh, TM_STEPS, dev, sync,
+            seq)
+        del state
+        finite = all(math.isfinite(x) for x in losses)
+        gaps = [abs(a - b) for a, b in zip(losses, one["losses"])]
+        ok &= finite
+        emit(rank, "train_model_qwen2.5-3b", mesh=list(shape),
+             layers=cfg.n_layers, tokens_per_step=TM_BATCH * seq,
+             losses=losses, grad_norms=norms, step_seconds=times,
+             steady_step_seconds=statistics.median(times[1:]),
+             one_card_steady_step_seconds=statistics.median(
+                 one["step_seconds"][1:]),
+             max_memory_allocated=_peak(cpu), finite=finite,
+             loss_gap_to_one_card=gaps, max_loss_gap=max(gaps))
+
+    # the 2-layer f32 cut: two steps (warmup 1) against one card
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plan = TS.TrainPlan(cfg=cfg2, warmup=1, total_steps=10)
+    ref = TS.init_state(whole_params(cfg2, 1), plan.opt)
+    ref, ref_losses, ref_norms, _ = _train(ref, TS.build_train_step(plan),
+                                           cfg2, None, 2, dev, sync, seq)
+    for shape in ((1, 4), (2, 2)):
+        mesh = make_host_mesh(*shape)
+        mplan = dataclasses.replace(plan, mesh=mesh)
+        specs = TS.state_specs(mplan)["params"]
+        state = TS.init_state(SH.shard_params(cfg2, whole_params(cfg2, 1),
+                                              mesh, mplan.dp_axes),
+                              plan.opt, mplan)
+        state, losses, norms, _ = _train(state, TS.build_train_step(mplan),
+                                         cfg2, mesh, 2, dev, sync, seq)
+        got = SH.gather_blocks(state["params"], specs, mesh)
+        worst, bound, f32_ok = 0.0, 0.0, True
+        pairs = [(torch.tensor(a), torch.tensor(b)) for a, b in zip(
+            losses + norms, ref_losses + ref_norms)] + list(zip(
+                adamw.leaves(got), adamw.leaves(ref["params"])))
+        for g, w in pairs:
+            err, b = _close(g.float(), w.float())
+            worst, bound = max(worst, err), max(bound, b)
+            f32_ok &= err <= b
+        ok &= f32_ok
+        emit(rank, "train_model_f32_2_layers", mesh=list(shape),
+             losses=losses, one_card_losses=ref_losses, grad_norms=norms,
+             one_card_grad_norms=ref_norms, max_abs_err=worst, bound=bound,
+             ok=f32_ok)
+        del state, got
+    del ref
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    # deepseek-v2-lite-16b whole on (1, 4), each rank drawing its blocks
+    cfg = get_config("deepseek-v2-lite-16b", smoke=cpu)
+    mesh = make_host_mesh(1, 4)
+    plan = TS.TrainPlan(cfg=cfg, total_steps=TM_MLA_STEPS, mesh=mesh)
+    _reset_peak(cpu)
+    t0 = time.perf_counter()
+    state = TS.init_state(TR.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+        mesh=mesh), plan.opt, plan)
+    sync()
+    init_s = time.perf_counter() - t0
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves(state))
+    params_a_rank = sum(t.numel() for t in _leaves(state["params"]))
+    _reset_peak(cpu)
+    state, losses, norms, times = _train(
+        state, TS.build_train_step(plan), cfg, mesh, TM_MLA_STEPS, dev, sync,
+        seq)
+    del state
+    finite = all(math.isfinite(x) for x in losses + norms)
+    ok &= finite
+    emit(rank, "train_model_deepseek-v2-lite-16b", mesh=[1, 4],
+         layers=cfg.n_layers, params=cfg.param_count(),
+         params_a_rank=params_a_rank,
+         state_bytes_a_rank=state_bytes, init_seconds=init_s,
+         tokens_per_step=TM_BATCH * seq, losses=losses, grad_norms=norms,
+         step_seconds=times, steady_step_seconds=statistics.median(
+             times[1:]), max_memory_allocated=_peak(cpu), finite=finite)
     return ok
 
 

@@ -7,8 +7,9 @@ for every rank of a ``(data, model)`` grid, each in its own thread, with
 ranks' tensors in rank order, as NCCL's would. The body enters
 `models.sharding.rank_context` with them and runs the model code on the
 rank's blocks. ``chip_smoke.py`` runs a model axis on one card this way,
-and the CPU tests run every family's per-rank bodies this way; serving
-itself runs over `torch.distributed` (`models.sharding.GroupAxis`).
+and the CPU tests run every family's per-rank bodies this way, forward
+and backward; serving and training themselves run over
+`torch.distributed` (`models.sharding.GroupAxis`).
 
 Each rank reads its own copy of a collective's result, as each NCCL rank
 holds its own buffer: a body that writes into what a collective returned
@@ -89,18 +90,21 @@ class LocalGroup:
 
 
 class LocalAxis(Axis):
-    """Rank ``rank`` of a `LocalGroup`."""
+    """Rank ``rank`` of a `LocalGroup`: `Axis`'s collectives (and their
+    backward passes) over the ranks' threads."""
+
+    identity = False
 
     def __init__(self, group: LocalGroup, rank: int):
         self.group, self.rank, self.size = group, rank, group.world
 
-    def sum(self, x):
+    def _sum(self, x):
         return self.group.collective(self.rank, "sum", x.contiguous())
 
-    def max(self, x):
+    def _max(self, x):
         return self.group.collective(self.rank, "max", x.contiguous())
 
-    def gather(self, x, dim):
+    def _gather(self, x, dim):
         return self.group.collective(self.rank, "gather", x.contiguous(),
                                      dim % x.dim())
 
@@ -111,7 +115,13 @@ def run_ranks(fn, model: int, data: int = 1) -> list:
     model index``: the per-rank bodies of a mesh without a process group.
     ``fn`` enters `models.sharding.rank_context` with the axes it is
     given. One thread a rank, one running at a time (`LocalGroup`); an
-    exception on one rank fails them all and is re-raised."""
+    exception on one rank fails them all and is re-raised.
+
+    A body may differentiate through the collectives: each rank's
+    backward runs on its own thread (autograd's multithreading is off in
+    the rank threads), because on the card autograd would otherwise run
+    every caller's backward on one worker thread a device, where a rank
+    waiting in a collective would block the ranks it waits for."""
     n = data * model
     cond = threading.Condition()
     model_groups = [LocalGroup(model, cond) for _ in range(data)]
@@ -120,7 +130,7 @@ def run_ranks(fn, model: int, data: int = 1) -> list:
 
     def body(r):
         di, mi = divmod(r, model)
-        with cond:
+        with cond, torch.autograd.set_multithreading_enabled(False):
             try:
                 results[r] = fn(r, model_groups[di].axis(mi),
                                 data_groups[mi].axis(di))

@@ -11,11 +11,15 @@ does (``torchrun``, the tests, ``chip_smoke.py``) with NCCL on the card or
 gloo on the CPU, and the mesh's device type follows the group's backend.
 Building a mesh without a process group raises.
 
-The model axis (slice E6a: tensor- and expert-parallel serving) runs
-over `model_group`. ``make_production_mesh`` (the TPU pod shapes, with
-two data axes) waits for slice E6b, with training under a model axis.
+The model axis (tensor and expert parallelism, for serving and
+training) runs over `model_group`. Several data axes — the production
+meshes' ``("pod", "data")`` (`make_production_mesh`) — act as one data
+group (`dp_group`, built by `axes_group`), in the reference's row-major
+rank order.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.distributed as dist
@@ -35,14 +39,34 @@ def mesh_device_type() -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
-def _make_mesh(shape: tuple, names: tuple):
+def make_mesh(shape: tuple, names: tuple):
+    """A mesh of ``shape`` with axes ``names`` over the first ``prod(
+    shape)`` ranks of the world, laid out row-major (the last axis
+    fastest). Raises when the world holds fewer."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    n = 1
-    for s in shape:
-        n *= s
+    _require_group()
+    n = math.prod(shape)
+    if n > dist.get_world_size():
+        raise ValueError(f"a {tuple(shape)} mesh needs {n} ranks; the world "
+                         f"holds {dist.get_world_size()}")
     ranks = torch.arange(n).view(*shape)
-    return DeviceMesh(mesh_device_type(), ranks, mesh_dim_names=names)
+    return DeviceMesh(mesh_device_type(), ranks, mesh_dim_names=tuple(names))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production meshes: ``(16, 16)`` over ``("data",
+    "model")``, or with ``multi_pod`` ``(2, 16, 16)`` over ``("pod",
+    "data", "model")``. The world must hold exactly that many ranks:
+    nothing is clamped."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    _require_group()
+    if dist.get_world_size() != math.prod(shape):
+        raise ValueError(f"the production mesh {shape} needs a world of "
+                         f"{math.prod(shape)} ranks; this one holds "
+                         f"{dist.get_world_size()}")
+    return make_mesh(shape, names)
 
 
 def mesh_sizes(mesh) -> dict:
@@ -66,7 +90,7 @@ def make_host_mesh(data: int = 1, model: int = 1):
     n = dist.get_world_size()
     model = min(model, n)
     data = max(1, min(data, n // model))
-    return _make_mesh((data, model), ("data", "model"))
+    return make_mesh((data, model), ("data", "model"))
 
 
 def make_data_mesh():
@@ -74,18 +98,53 @@ def make_data_mesh():
     engine's sharded shingle, intersection and arena paths shard over
     (`core/engine.SummarizerEngine`)."""
     _require_group()
-    return _make_mesh((dist.get_world_size(),), ("data",))
+    return make_mesh((dist.get_world_size(),), ("data",))
+
+
+def axes_group(mesh, axes):
+    """The process group over ``axes`` of ``mesh`` that holds this rank:
+    the ranks sharing its index on every other axis, their group ranks in
+    row-major order over ``axes`` (taken in the mesh's order). One axis is
+    the mesh's own group; the whole mesh over the whole world is the
+    world's. Several axes build a group for every cell of the other axes
+    the first time, so every rank of the world calls this alike; the
+    groups are kept on the mesh."""
+    names = tuple(mesh.mesh_dim_names)
+    want = set(axes)
+    if not want <= set(names):
+        raise ValueError(f"axes {tuple(axes)} are not all axes of a mesh "
+                         f"over {names}")
+    axes = tuple(a for a in names if a in want)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    cache = mesh.__dict__.setdefault("_repro_groups", {})
+    if axes not in cache:
+        flat = mesh.mesh.flatten().tolist()
+        if axes == names and flat == list(range(dist.get_world_size())):
+            cache[axes] = dist.group.WORLD
+        else:
+            rest = [i for i, a in enumerate(names) if a not in want]
+            inner = [names.index(a) for a in axes]
+            rows = mesh.mesh.permute(*rest, *inner).reshape(
+                -1, math.prod(mesh.mesh.shape[i] for i in inner))
+            me = dist.get_rank()
+            cache[axes] = None                     # a rank off the mesh
+            for row in rows.tolist():
+                if row != sorted(row):
+                    raise ValueError(f"mesh ranks {row} are not in row-major "
+                                     f"order over {axes}")
+                group = dist.new_group(row)
+                if me in row:
+                    cache[axes] = group
+    return cache[axes]
 
 
 def dp_group(mesh, axes=None):
     """The process group of ``mesh``'s data axes (`dp_axes_of` by
-    default). One data axis only: several (the production mesh's
-    ``("pod", "data")``) wait for slice E6b."""
+    default): one group over all of them (`axes_group`), so the
+    production mesh's ``("pod", "data")`` is one data group."""
     axes = tuple(axes) if axes is not None else dp_axes_of(mesh)
-    if len(axes) != 1:
-        raise NotImplementedError(
-            f"data axes {axes}: a group over several mesh axes is slice E6b")
-    return mesh.get_group(axes[0])
+    return axes_group(mesh, axes)
 
 
 def dp_size(mesh, axes=None) -> int:

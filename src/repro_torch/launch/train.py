@@ -13,14 +13,18 @@ NCCL (gloo with ``--device cpu``):
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --data-parallel 4 ...
 
-``--data-parallel`` must equal the world size; the process group comes
-from torchrun's environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``),
-or from a caller that has already initialized one. Checkpoints hold whole
-moments, so ``--resume`` restores under any rank count. A
-``--model-parallel`` above 1 (training under tensor and expert
-parallelism) is slice E6b and raises; nothing trains on fewer devices than
-asked. Serving under a model axis (slice E6a) is
-`train.train_step.build_serve_step`.
+Tensor- and expert-parallel as well, on a ``(data, model)`` mesh:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --data-parallel 2 --model-parallel 2 ...
+
+The world must hold exactly ``--data-parallel`` × ``--model-parallel``
+ranks, or the driver raises: nothing trains on fewer devices than asked.
+The process group comes from torchrun's environment (``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR``), or from a caller that has already
+initialized one. The weights are drawn whole from ``--seed`` (the
+one-device draw) and each rank keeps its blocks. Checkpoints hold whole
+arrays, so ``--resume`` restores under any mesh shape, or none. Serving
+under a model axis is `train.train_step.build_serve_step`.
 """
 from __future__ import annotations
 
@@ -37,12 +41,14 @@ from repro_torch.core.engine import resolve_device
 from repro_torch.data.pipeline import TokenStream, make_batch
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.api import get_api
+from repro_torch.models.sharding import shard_params
 from repro_torch.optim import adamw
 from repro_torch.train import checkpoint as CKPT
 from repro_torch.train.fault_tolerance import (FaultToleranceConfig,
                                                ResilientLoop)
-from repro_torch.train.train_step import TrainPlan, build_train_step, \
-    init_state
+from repro_torch.train.train_step import (TrainPlan, build_train_step,
+                                          init_state, model_parallel,
+                                          state_specs)
 
 
 def main(argv=None):
@@ -64,12 +70,8 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="'cuda' (the default) or 'cpu'")
     args = ap.parse_args(argv)
-    if args.model_parallel > 1:
-        raise ValueError(
-            f"--model-parallel {args.model_parallel}: training under tensor "
-            f"and expert parallelism is slice E6b, not ported yet")
     device = resolve_device(args.device)
-    mesh = _data_mesh(args.data_parallel, device)
+    mesh = _mesh(args.data_parallel, args.model_parallel, device)
 
     cfg = get_config(args.arch, smoke=args.smoke)
     plan = TrainPlan(cfg=cfg, opt=adamw.AdamWConfig(lr=args.lr),
@@ -79,15 +81,20 @@ def main(argv=None):
     params = get_api(cfg).init_params(
         cfg, torch.Generator(device=device).manual_seed(args.seed),
         device=device)
+    specs = None
+    if model_parallel(plan):
+        specs = state_specs(plan)
+        params = shard_params(cfg, params, mesh, plan.dp_axes)
     state = init_state(params, plan.opt, plan)
     start_step = 0
     if args.resume:
-        restored, at = CKPT.restore(state, args.ckpt_dir, mesh=mesh)
+        restored, at = CKPT.restore(state, args.ckpt_dir, mesh=mesh,
+                                    specs=specs)
         if restored is not None:
             state, start_step = restored, at
             print(f"[train] resumed from step {start_step}")
 
-    ckpt = CKPT.AsyncCheckpointer(args.ckpt_dir, mesh=mesh)
+    ckpt = CKPT.AsyncCheckpointer(args.ckpt_dir, mesh=mesh, specs=specs)
     losses = []
 
     def metrics_cb(step, metrics):
@@ -98,7 +105,8 @@ def main(argv=None):
 
     def restore_fn():
         ckpt.wait()  # a save still in flight is the checkpoint to restore
-        return CKPT.restore(loop.state, args.ckpt_dir, mesh=mesh)
+        return CKPT.restore(loop.state, args.ckpt_dir, mesh=mesh,
+                            specs=specs)
 
     loop = ResilientLoop(
         step_fn=step_fn, state=state,
@@ -123,13 +131,13 @@ def main(argv=None):
     return losses
 
 
-def _data_mesh(n: int, device):
-    """The ``(data, model)`` mesh of ``--data-parallel n`` (model 1, as
-    the reference's `make_host_mesh`): None for 1 in a world of one; else a
-    mesh over the world, which must hold exactly ``n`` ranks.
-    Under torchrun with no group up yet, the group is started from its
-    environment — NCCL on the card (this rank's ``LOCAL_RANK``), gloo on
-    the CPU."""
+def _mesh(data: int, model: int, device):
+    """The ``(data, model)`` mesh of ``--data-parallel`` and
+    ``--model-parallel`` (`make_host_mesh`): None for (1, 1) in a world of
+    one; else a mesh over the world, which must hold exactly ``data ·
+    model`` ranks. Under torchrun with no group up yet, the group is
+    started from its environment — NCCL on the card (this rank's
+    ``LOCAL_RANK``), gloo on the CPU."""
     if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE",
                                                         "1")) > 1:
         if device.type == "cuda":
@@ -140,14 +148,14 @@ def _data_mesh(n: int, device):
     if world > 1 and device.type == "cuda" and dist.get_backend() != "nccl":
         raise RuntimeError("training on the card needs an NCCL process "
                            "group")
-    if n != world:
+    if data * model != world:
         raise ValueError(
-            f"--data-parallel {n} needs a world of {n} ranks (torchrun "
-            f"--nproc-per-node {n}); this process runs in a world of "
-            f"{world}")
-    if n == 1:
+            f"--data-parallel {data} --model-parallel {model} needs a world "
+            f"of {data * model} ranks (torchrun --nproc-per-node "
+            f"{data * model}); this process runs in a world of {world}")
+    if world == 1:
         return None
-    return make_host_mesh(n, 1)
+    return make_host_mesh(data, model)
 
 
 if __name__ == "__main__":

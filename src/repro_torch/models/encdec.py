@@ -10,9 +10,10 @@ axis (``enc_layers`` on ``encoder_layers``, ``layers`` on ``n_layers``),
 so `interop.params_from_arrays` carries its weights as they are. Where
 autograd records, each encoder and decoder layer runs under ``cfg.remat``
 (`transformer.remat`), as the reference's scan bodies do. Under a mesh
-context (slice E6a) every block runs on the rank's heads and FFN columns
-as the decoder-only families' do, the cross K/V cache holds the rank's
-heads, and ``frontend`` is replicated.
+context (tensor- and expert-parallel serving and training) every block
+runs on the rank's heads and FFN columns as the decoder-only families'
+do, the cross K/V cache holds the rank's heads, and ``frontend`` is
+replicated.
 """
 from __future__ import annotations
 
@@ -76,7 +77,9 @@ def _encoder_blocks(params, cfg):
     layers. The spec table (the reference's) gives ``enc_layers`` no
     layer axis — its path holds no ``"layers"`` — so a rank holds blocks
     of other dims (``wq``'s d, ``wo``'s layers): they are gathered whole
-    over the axes they sit on, then cut as a stacked layer's are."""
+    over the axes they sit on, then cut as a stacked layer's are. In
+    training the gathers' backward (a reduce-scatter) returns every
+    rank's gradient of the whole to the blocks of the table's cut."""
     lay = SH.layout()
     if lay.mesh is None or not lay.blocks or (
             lay.model.size == 1 and lay.data.size == 1):

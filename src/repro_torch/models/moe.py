@@ -1,5 +1,5 @@
 """Mixture-of-Experts FFN with sort+gather dispatch (the JAX package's
-`models/moe.py`, forward only).
+`models/moe.py`).
 
 Top-k routing into per-expert capacity buffers, grouped per batch row.
 Ranks within an expert come from a stable argsort of the flat expert
@@ -174,27 +174,12 @@ def _add_parts(parts):
     return out
 
 
-class _SumOverRanks(torch.autograd.Function):
-    """SUM all-reduce over an `Axis` that autograd sees through: the
-    gradient of every rank's copy of the sum is the SUM of the ranks'
-    gradients, as the data-parallel mean of the gradients then needs."""
-
-    @staticmethod
-    def forward(ctx, x, axis):
-        ctx.axis = axis
-        return axis.sum(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return ctx.axis.sum(grad), None
-
-
 def _global_mean(local_mean, axis):
     """The mean over every rank's rows of a per-rank mean (the ranks hold
-    equal row counts), differentiably."""
+    equal row counts), differentiably (`sharding.Axis.sum`)."""
     if axis is None or axis.size == 1:
         return local_mean
-    return _SumOverRanks.apply(local_mean, axis) / axis.size
+    return axis.sum(local_mean) / axis.size
 
 
 def _load_balance_loss(probs, top_e, n_experts):

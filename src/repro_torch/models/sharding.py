@@ -1,6 +1,7 @@
 """Sharding rules and the model axis (the JAX package's
 `models/sharding.py`): parameter and cache specs, the rank's blocks, and
-the collectives that tensor- and expert-parallel serving needs.
+the collectives that tensor- and expert-parallel serving and training
+need.
 
 A spec is a tuple with one entry per tensor dim: an axis name, a tuple of
 axis names, or ``None`` (replicated) — what a jax ``PartitionSpec`` holds.
@@ -16,14 +17,26 @@ and of every cache leaf that `cache_pspecs` gives it (`shard_cache`), and
 the model code communicates explicitly where GSPMD would: `Axis.sum`
 (row blocks' partial sums, the vocab-parallel lookup), `Axis.gather`
 (projections whose column block cuts through a head or a packed
-projection, the vocab-parallel logits) and `Axis.max` (the softmax
-statistics of attention over a time-sharded cache). `constrain`, the
-reference's activation constraint, is the identity on the local tensor:
-the layout is explicit. Each collective is the identity on an axis of
-one rank, so a model axis of 1 runs the single-device code unchanged.
-Training under a model axis (gradients of replicated parameters used in
-blocks, clipping across the model group, ZeRO-1 over model blocks) is
-slice E6b and raises in `train.train_step`.
+projection, the vocab-parallel logits, ``cfg.fsdp``'s weights) and
+`Axis.max` (the softmax statistics of attention over a time-sharded
+cache). `constrain`, the reference's activation constraint, is the
+identity on the local tensor: the layout is explicit. Each collective is
+the identity on an axis of one rank, so a model axis of 1 runs the
+single-device code unchanged.
+
+**Gradients** (training under a model axis, `train.train_step`). Every
+collective is an autograd function with its exact adjoint: `Axis.sum`'s
+backward is a SUM over the axis, `Axis.gather`'s a reduce-scatter (the
+SUM, then the rank's block), and `Axis.max` has none (it raises: only
+decode uses it). The convention that follows, and the only one here: the
+gradient a rank holds of a replicated activation is its partial, and the
+axis' SUM of the ranks' partials is the true gradient. So each rank of a
+model group seeds its backward with 1/m of the (replicated) loss, a
+collective's backward turns partials into the true gradient of its input,
+a block's gradient is the rank's own, and the gradient of EVERY leaf
+replicated over an axis is SUMmed over that axis — no list of names. A
+leaf's data blocks under ``cfg.fsdp`` arrive SUMmed over the data group
+already (the data gather's reduce-scatter).
 
 A per-rank body runs without a process group under `rank_context`, on
 any `Axis` it is given: `launch.local_ranks.run_ranks` gives it axes over
@@ -32,6 +45,7 @@ model axis on one device.
 """
 from __future__ import annotations
 
+import math
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass, field
@@ -39,8 +53,8 @@ from dataclasses import dataclass, field
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.mesh import (dp_group, dp_size, mesh_sizes,
-                                     model_group, model_size)
+from repro_torch.launch.mesh import (axes_group, dp_group, dp_size,
+                                     mesh_sizes, model_group, model_size)
 
 _CTX = threading.local()
 
@@ -48,26 +62,96 @@ _CTX = threading.local()
 # --------------------------------------------------------------------------
 # Axes: one mesh axis as the model code sees it
 # --------------------------------------------------------------------------
+def _records(x) -> bool:
+    """Whether autograd records an op on ``x``."""
+    return torch.is_grad_enabled() and getattr(x, "requires_grad", False)
+
+
+class _Sum(torch.autograd.Function):
+    """SUM all-reduce; its adjoint is the SUM of the ranks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return axis._sum(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis._sum(grad), None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim``; its adjoint is a reduce-scatter: the SUM
+    of the ranks' gradients of the whole, then this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.n = axis, dim, x.shape[dim]
+        return axis._gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis._reduce_scatter(grad, ctx.dim, ctx.n), None, None
+
+
+class _Max(torch.autograd.Function):
+    """MAX all-reduce, which training never differentiates."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis._max(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise RuntimeError(
+            "Axis.max has no backward: only decode over a time-sharded "
+            "cache uses it, and training never decodes")
+
+
 class Axis:
     """One mesh axis: its ``size``, this rank's index along it and the
     collectives over its group. This base class is the axis of one rank,
-    where every collective is the identity."""
+    where every collective is the identity (and records nothing).
+    Subclasses over groups of ranks implement `_sum`, `_max` and
+    `_gather` (and may `_reduce_scatter`); the public collectives wrap
+    them in autograd functions wherever autograd records, so every kind
+    of axis has the same backward (module docstring)."""
 
     size = 1
     rank = 0
+    identity = True   # every collective returns its input
+
+    def _sum(self, x):
+        return x
+
+    def _max(self, x):
+        return x
+
+    def _gather(self, x, dim):
+        return x
+
+    def _reduce_scatter(self, x, dim: int, n: int):
+        """The SUM over the axis of ``x``, then this rank's block of ``n``
+        entries along ``dim``."""
+        return self._sum(x).narrow(dim, self.rank * n, n)
+
+    def _autograd(self, x) -> bool:
+        return not self.identity and _records(x)
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """SUM all-reduce: the same tensor on every rank of the axis."""
-        return x
+        return _Sum.apply(x, self) if self._autograd(x) else self._sum(x)
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
-        """MAX all-reduce."""
-        return x
+        """MAX all-reduce (no backward)."""
+        return _Max.apply(x, self) if self._autograd(x) else self._max(x)
 
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """All-gather: every rank's ``x`` concatenated along ``dim`` in
         rank order."""
-        return x
+        if self._autograd(x):
+            return _Gather.apply(x, self, dim % x.dim())
+        return self._gather(x, dim)
 
     def sum_all(self, *xs: torch.Tensor) -> list:
         """SUM all-reduce of several tensors in one collective: packed
@@ -91,6 +175,8 @@ class GroupAxis(Axis):
     on the card (a CUDA tensor under a gloo group raises), gloo on the
     CPU."""
 
+    identity = False
+
     def __init__(self, group):
         self.group = group
         self.size = dist.get_world_size(group)
@@ -104,26 +190,36 @@ class GroupAxis(Axis):
                 f"on the card needs an NCCL process group")
         return x
 
-    def sum(self, x):
+    def _sum(self, x):
         out = self._check(x).clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, group=self.group)
         return out
 
-    def max(self, x):
+    def _max(self, x):
         out = self._check(x).clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
         return out
 
-    def gather(self, x, dim):
+    def _gather(self, x, dim):
         x = self._check(x).contiguous()
         parts = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(parts, x, group=self.group)
         return torch.cat(parts, dim=dim)
 
+    def _reduce_scatter(self, x, dim, n):
+        if self.backend != "nccl":
+            return super()._reduce_scatter(x, dim, n)
+        xt = self._check(x).movedim(dim, 0).contiguous()
+        out = xt.new_empty((n, *xt.shape[1:]))
+        dist.reduce_scatter_tensor(out, xt, group=self.group)
+        return out.movedim(0, dim)
+
 
 class _Unbound(Axis):
     """An axis above one rank with no process group behind it (a plain
     mapping as the mesh): its rank and collectives raise."""
+
+    identity = False
 
     def __init__(self, name, size):
         self.name, self.size = name, size
@@ -135,10 +231,33 @@ class _Unbound(Axis):
             f"run the per-rank bodies under rank_context")
 
     rank = property(_raise)
-    sum = max = _raise
+    _sum = _max = _raise
 
-    def gather(self, x, dim):
+    def _gather(self, x, dim):
         self._raise()
+
+
+class _Chain(Axis):
+    """The product of two axes with no group over both (a per-rank body's
+    model and data axes): a SUM over one, then over the other. Only SUMs
+    chain."""
+
+    identity = False
+
+    def __init__(self, *axes):
+        self.axes = axes
+        self.size = math.prod(a.size for a in axes)
+
+    def _sum(self, x):
+        for a in self.axes:
+            x = a._sum(x)
+        return x
+
+    def _max(self, x):
+        raise NotImplementedError("only a SUM runs over a chain of axes")
+
+    def _gather(self, x, dim):
+        self._max(x)
 
 
 # --------------------------------------------------------------------------
@@ -161,14 +280,38 @@ class Layout:
     cache: dict = None
     blocks: bool = True
     specs: dict = field(default_factory=dict)  # cfg -> param spec tree
+    axes: dict = field(default_factory=dict)   # axis names -> `Axis`
+
+    def axis(self, names) -> Axis:
+        """The `Axis` over the mesh axes ``names``: the model or the data
+        axis, or (on a `DeviceMesh`) the group of any other set of axes,
+        such as one of several data axes."""
+        names = frozenset(names if isinstance(names, tuple) else (names,))
+        if names == {"model"}:
+            return self.model
+        if names == set(self.dp):
+            return self.data
+        if math.prod(self.sizes[a] for a in names) == 1:
+            return SOLO
+        if isinstance(self.mesh, dict):
+            if names != {"model", *self.dp}:
+                raise RuntimeError(f"an axis over {sorted(names)} needs a "
+                                   f"DeviceMesh")
+            return _Chain(self.model, self.data)
+        if names not in self.axes:
+            self.axes[names] = GroupAxis(axes_group(self.mesh, names))
+        return self.axes[names]
 
     def coords(self) -> dict:
-        """``{axis name: this rank's index}`` over the mesh's axes."""
+        """``{axis name: this rank's index}`` over the mesh's axes; the
+        data group's rank split row-major over the data axes."""
         out = {a: 0 for a in self.sizes}
         if self.sizes.get("model", 1) > 1:
             out["model"] = self.model.rank
-        if len(self.dp) == 1 and self.sizes.get(self.dp[0], 1) > 1:
-            out[self.dp[0]] = self.data.rank
+        if self.data.size > 1:
+            r = self.data.rank
+            for a in reversed(self.dp):
+                r, out[a] = divmod(r, self.sizes[a])
         return out
 
 
@@ -334,10 +477,8 @@ def gather_spec(tree, specs, model: bool = False):
             names = set(ax if isinstance(ax, tuple) else (ax,))
             if ax is None:
                 continue
-            if names <= dp:
-                t = lay.data.gather(t, dim)
-            elif model and names == {"model"}:
-                t = lay.model.gather(t, dim)
+            if names <= dp or (model and names == {"model"}):
+                t = lay.axis(tuple(names)).gather(t, dim)
         return t
 
     return walk(tree, specs)
@@ -439,6 +580,28 @@ def _cut(tree, specs, sizes, coords):
             return {k: walk(v, s[k]) for k, v in t.items()}
         blk = local_block(tuple(t.shape), s, sizes, coords)
         return t[blk].clone()
+    return walk(tree, specs)
+
+
+def gather_blocks(tree, specs, mesh, device=None) -> dict:
+    """The whole tensors of ``tree``, this rank's blocks under ``specs``
+    on the `DeviceMesh` ``mesh`` (every rank of it calls this): each dim
+    all-gathered over the group of the axes its spec entry names
+    (`launch.mesh.axes_group`, row-major), leaf by leaf, each whole leaf
+    moved to ``device`` (default: where it is) before the next."""
+    sizes = mesh_sizes(mesh)
+
+    def walk(t, s):
+        if isinstance(t, dict):
+            return {k: walk(v, s[k]) for k, v in t.items()}
+        for dim, entry in enumerate(s):
+            names = tuple(a for a in (entry if isinstance(entry, tuple)
+                                      else (entry,))
+                          if a is not None and sizes[a] > 1)
+            if names:
+                t = GroupAxis(axes_group(mesh, names))._gather(t, dim)
+        return t if device is None else t.to(device)
+
     return walk(tree, specs)
 
 

@@ -12,13 +12,14 @@ records, each layer body runs under ``cfg.remat`` (`remat`), as the
 reference's ``_maybe_remat`` wraps its scan bodies. ``sharding.constrain``
 sits where the reference's does, the identity on the local tensor.
 
-Under a mesh context (slice E6a, tensor- and expert-parallel serving)
+Under a mesh context (tensor- and expert-parallel serving and training)
 each rank holds its blocks of the parameters (`sharding.shard_params`)
 and of the cache, and the code communicates where GSPMD would: the
 vocab-parallel `embed_tokens` and `_logits`, column-then-row blocks with
 one SUM all-reduce (`swiglu_ffn`, attention, the MoE and Mamba2 blocks),
 and ``cfg.fsdp``'s data-sharded weights gathered a layer at a time
-(`sharding.fsdp_layer`). Training under a model axis is slice E6b.
+(`sharding.fsdp_layer`). The collectives carry their own backward
+passes, so autograd differentiates the same code (`models.sharding`).
 
 The SSM family stacks Mamba2 blocks (``layers = {"ln", "mamba"}``); a
 hybrid (``attn_every``, Zamba2-style) follows each group of

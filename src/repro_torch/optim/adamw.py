@@ -102,10 +102,26 @@ def _slices(t: torch.Tensor) -> list:
     return list(t.split(rows))
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt(Σ g²) over every leaf, squares and sums in f32."""
-    return torch.sqrt(sum(torch.square(s.float()).sum()
-                          for g in leaves(tree) for s in _slices(g)))
+def _sq(g: torch.Tensor) -> torch.Tensor:
+    return sum(torch.square(s.float()).sum() for s in _slices(g))
+
+
+def global_norm(tree, axes=None) -> torch.Tensor:
+    """sqrt(Σ g²) over every leaf, squares and sums in f32. Under a model
+    axis, ``axes`` names per leaf (`leaves` order) the `models.sharding.
+    Axis` over which the ranks hold its blocks, or None where every rank
+    holds it whole: the squares of the leaves on one axis are SUMmed over
+    it (each block counted once), the whole leaves counted once."""
+    flat = leaves(tree)
+    if axes is None:
+        return torch.sqrt(sum(torch.square(s.float()).sum()
+                              for g in flat for s in _slices(g)))
+    parts = {}  # id(axis) -> [axis, this rank's Σ g²]
+    for g, ax in zip(flat, axes):
+        entry = parts.setdefault(id(ax), [ax, 0.0])
+        entry[1] = entry[1] + _sq(g)
+    return torch.sqrt(sum(sq if ax is None else ax.sum(sq)
+                          for ax, sq in parts.values()))
 
 
 def _update(p, g, m, v, cfg, scale, b1c, b2c, lr):
@@ -125,16 +141,17 @@ def _update(p, g, m, v, cfg, scale, b1c, b2c, lr):
 
 @torch.no_grad()
 def apply_updates(params, grads, opt_state, cfg: AdamWConfig, lr_scale=1.0,
-                  shards=None):
+                  shards=None, norm_axes=None):
     """One AdamW step IN PLACE on ``params`` and ``opt_state`` (``grads``
     in the tree of ``params``, any float dtype): the update clipped to a
-    global norm of ``cfg.grad_clip`` (over the whole ``grads``),
+    global norm of ``cfg.grad_clip`` (over the whole ``grads``; across
+    the ranks' blocks with ``norm_axes``, `global_norm`'s ``axes``),
     bias-corrected at the incremented step, learning rate ``cfg.lr ·
     lr_scale``. With ``shards`` only the named slice of each parameter is
     updated, against moments that hold that slice. Returns the metrics
     ``{"grad_norm", "lr"}`` (0-d f32 tensors). Raises `TornUpdate` if a
     write fails part way."""
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, norm_axes)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = opt_state["step"] + 1
     b1c = 1.0 - torch.pow(cfg.b1, step.float())

@@ -11,12 +11,18 @@ bfloat16 leaf, which ``.npy`` cannot hold, is stored as its raw bytes
 bfloat16, so neither package needs the other's dtype library. A
 checkpoint written by either package restores in the other.
 
-Under a mesh (ZeRO-1, `train/train_step.py`) a state's moments are this
-rank's slices: `save` all-gathers them along the dim where a moment's
-shape differs from its parameter's and rank 0 of the data group writes
-the whole state, in the same format; ``restore(..., mesh=)`` reads whole
-leaves and gives each rank its slice of those its state holds sliced. So
-a state saved under n ranks restores under any other count, or none.
+Under a data mesh (ZeRO-1, `train/train_step.py`) a state's moments are
+this rank's slices: `save` all-gathers them along the dim where a
+moment's shape differs from its parameter's and rank 0 of the data group
+writes the whole state, in the same format; ``restore(..., mesh=)`` reads
+whole leaves and gives each rank its slice of those its state holds
+sliced. Under a model axis the state is the rank's blocks, so the caller
+names them: with ``specs`` (`train_step.state_specs`) `save` gathers every
+leaf whole over the axes its spec names (`sharding.gather_blocks`: the
+model blocks, ``fsdp``'s data blocks and the ZeRO-1 slices) and rank 0 of
+the mesh writes, and `restore` cuts each whole leaf to the rank's block
+(`sharding.local_block`). So a state saved on one mesh restores on any
+other shape, or on none.
 """
 from __future__ import annotations
 
@@ -30,7 +36,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.mesh import dp_group
+from repro_torch.launch.mesh import axes_group, dp_group, model_size
+from repro_torch.models import sharding as SH
 from repro_torch.optim.adamw import leaves, tree_map, unflatten
 
 
@@ -91,14 +98,29 @@ def gather_zero1(state, group):
     return {**state, "opt": opt}
 
 
-def save(state, step: int, ckpt_dir: str, mesh=None) -> str:
+def _gathered(state, mesh, specs):
+    """(the whole state, the group whose rank 0 writes it) under ``mesh``:
+    every leaf gathered by its spec (to the host), or the ZeRO-1 slices
+    over the data group where no ``specs`` are given (a model axis of 1
+    only)."""
+    if specs is not None:
+        return (SH.gather_blocks(state, specs, mesh, "cpu"),
+                axes_group(mesh, mesh.mesh_dim_names))
+    if model_size(mesh) > 1:
+        raise ValueError("a state under a model axis holds the rank's "
+                         "blocks: pass specs= (train_step.state_specs)")
+    group = dp_group(mesh)
+    return gather_zero1(state, group), group
+
+
+def save(state, step: int, ckpt_dir: str, mesh=None, specs=None) -> str:
     """Write ``state`` (a nested dict of tensors or arrays) as checkpoint
     ``step`` under ``ckpt_dir``; returns its directory. Under ``mesh``
-    every rank of the data group calls it: the ZeRO-1 slices are gathered
-    (`gather_zero1`), rank 0 writes, and all return once it has."""
+    every rank of it calls it: the state is gathered whole (by ``specs``,
+    or its ZeRO-1 slices over the data group), rank 0 of the group
+    writes, and all return once it has."""
     if mesh is not None:
-        group = dp_group(mesh)
-        state = gather_zero1(state, group)
+        state, group = _gathered(state, mesh, specs)
         try:
             if dist.get_rank(group) == 0:
                 return save(state, step, ckpt_dir)
@@ -148,16 +170,20 @@ def _load(d: str, entry: dict) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, dtype=np.dtype(entry["dtype"])))
 
 
-def restore(state_like, ckpt_dir: str, step: int = None, mesh=None):
+def restore(state_like, ckpt_dir: str, step: int = None, mesh=None,
+            specs=None):
     """Checkpoint ``step`` (default: the latest) read into the tree of
     ``state_like``, each leaf on the device of ``state_like``'s. Returns
     ``(state, step)``, or ``(None, None)`` when there is none. Under
-    ``mesh`` a leaf that ``state_like`` holds as a ZeRO-1 slice (one dim
-    1/n of the checkpoint's, n the data group's size) gets this rank's
-    slice. Raises when a leaf is missing or its shape or dtype is not
-    ``state_like``'s."""
+    ``mesh`` with ``specs`` each leaf is cut to this rank's block under
+    its spec; with no ``specs`` a leaf that ``state_like`` holds as a
+    ZeRO-1 slice (one dim 1/n of the checkpoint's, n the data group's
+    size) gets this rank's slice. Raises when a leaf is missing or its
+    shape or dtype is not ``state_like``'s."""
     rank = n = None
-    if mesh is not None:
+    if mesh is not None and specs is not None:
+        sizes, coords = SH.mesh_sizes(mesh), SH.mesh_coords(mesh)
+    elif mesh is not None:
         group = dp_group(mesh)
         rank, n = dist.get_rank(group), dist.get_world_size(group)
     step = step if step is not None else latest_step(ckpt_dir)
@@ -174,7 +200,10 @@ def restore(state_like, ckpt_dir: str, step: int = None, mesh=None):
         if key not in by_key:
             raise KeyError(f"checkpoint {d} has no leaf {key!r}")
         t = _load(d, by_key[key])
-        if n is not None and tuple(t.shape) != tuple(node.shape):
+        if specs is not None and mesh is not None:
+            t = t[SH.local_block(tuple(t.shape), SH.at(specs, key.split(
+                "/")), sizes, coords)].clone()
+        elif n is not None and tuple(t.shape) != tuple(node.shape):
             dim = _sliced_dim(tuple(node.shape), tuple(t.shape))
             if node.shape[dim] * n == t.shape[dim]:
                 t = t.narrow(dim, rank * node.shape[dim],
@@ -191,15 +220,20 @@ def restore(state_like, ckpt_dir: str, step: int = None, mesh=None):
 class AsyncCheckpointer:
     """Background-thread saver with a queue of one: `submit` blocks while
     a save is still in flight (backpressure instead of memory growth), and
-    never drops one. Under ``mesh`` every rank of the data group calls
-    `submit`, `wait` and `close` at the same points: `submit` gathers the
-    ZeRO-1 slices (`gather_zero1`) and only rank 0 writes; `wait` and
+    never drops one. Under ``mesh`` every rank of it calls `submit`,
+    `wait` and `close` at the same points: `submit` gathers the state
+    whole (by ``specs`` under a model axis, else its ZeRO-1 slices over
+    the data group) and only rank 0 of that group writes; `wait` and
     `close` return on every rank once rank 0's saves are on disk."""
 
-    def __init__(self, ckpt_dir: str, keep: int = 3, mesh=None):
+    def __init__(self, ckpt_dir: str, keep: int = 3, mesh=None, specs=None):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
-        self.group = dp_group(mesh) if mesh is not None else None
+        self.mesh, self.specs = mesh, specs
+        self.group = None
+        if mesh is not None:
+            self.group = (axes_group(mesh, mesh.mesh_dim_names)
+                          if specs is not None else dp_group(mesh))
         self.writer = self.group is None or dist.get_rank(self.group) == 0
         self.q: "queue.Queue" = queue.Queue(maxsize=1)
         self.errors: list = []
@@ -238,8 +272,8 @@ class AsyncCheckpointer:
                 return t.detach().to("cpu", copy=True)
             return np.array(t)
 
-        if self.group is not None:
-            state = gather_zero1(state, self.group)
+        if self.mesh is not None:
+            state = _gathered(state, self.mesh, self.specs)[0]
         if self.writer:
             self.q.put((tree_map(host, state), step))
 

@@ -13,9 +13,10 @@ The reference retries from "the last good in-memory state", which its
 functional step never touches. The port's step updates parameters and
 moments in place (`optim/adamw.apply_updates`): a failure before the
 update leaves the state whole, so it is retried in memory; a failure
-during it raises `adamw.TornUpdate`, which is never retried in memory but
-goes straight to ``restore_fn``, since a retry would build on a half
-updated state.
+during it, or during the ZeRO-1 parameter gather after it (on a data or
+a model axis), raises `adamw.TornUpdate`, which is never retried in
+memory but goes straight to ``restore_fn``, since a retry would build on
+a half updated state.
 """
 from __future__ import annotations
 

@@ -1,19 +1,34 @@
 """The train step (the JAX package's `train/train_step.py`): loss,
 gradients by autograd, optional microbatch accumulation in f32, the
-cosine schedule and an in-place AdamW update — on one device, or
-data-parallel over a mesh's data axis with ZeRO-1.
+cosine schedule and an in-place AdamW update — on one device,
+data-parallel over a mesh's data axes with ZeRO-1, or tensor- and
+expert-parallel over its model axis as well.
 
 State is ``{"params": tree, "opt": {"m", "v", "step"}}`` (`init_state`),
 the reference's tree. Under ``plan.mesh`` (SPMD, one rank a device) every
-rank holds the whole parameters and its batch rows (`data.pipeline`'s
-``mesh=``); the step runs `loss_and_grads` on those rows, SUM all-reduces
-the gradients over the data group and divides them by its size (the
-mean), clips by the global norm of the reduced gradients, and updates
-only this rank's ZeRO-1 slice of each moment (`zero1_shards`, from
-`models.sharding.zero1_spec`) and the matching parameter slice; the
-parameter slices are then all-gathered, so every rank ends the step with
-the same parameters. A model axis above 1 in training is slice E6b and
-raises.
+rank holds its batch rows (`data.pipeline`'s ``mesh=``), and:
+
+- with a model axis of 1, the whole parameters: the step runs
+  `loss_and_grads` on its rows, SUM all-reduces the gradients over the
+  data group and divides them by its size (the mean), clips by the global
+  norm of the reduced gradients, and updates only this rank's ZeRO-1
+  slice of each moment (`zero1_shards`, from `models.sharding.zero1_spec`)
+  and the matching parameter slice; the parameter slices are then
+  all-gathered over the data group, so every rank ends the step with the
+  same parameters;
+- with a model axis above 1, the rank's blocks of the parameters under
+  `sharding.param_pspecs` (`sharding.shard_params`, `init_params(mesh=)`;
+  ``cfg.fsdp``'s data blocks too) and of the moments under `zero1_spec`
+  on top of them: `loss_and_grads` runs under ``mesh_context(...,
+  blocks=True)`` and seeds each rank's backward with 1/m of the loss
+  (`models.sharding`'s gradient convention). Each leaf's gradient is then
+  SUMmed over the mesh axes its spec replicates it on (`grad_sums`): the
+  leaves replicated everywhere in one collective over the whole mesh,
+  the blocks over the data group, ``fsdp``'s data blocks (SUMmed over
+  data by their gather's backward) over what is left; every one divided
+  by the data size. The norm counts each block once (`norm_axes`), and
+  the ZeRO-1 slices are cut from the local blocks and gathered back over
+  the data axes only.
 
 `build_serve_step` is the reference's serving step under a mesh (slice
 E6a): prefill or decode on the rank's blocks of the parameters and the
@@ -22,6 +37,7 @@ the data axes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional
@@ -30,10 +46,10 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import (all_gather_rows, dp_group, dp_rank,
-                                     dp_size, mesh_sizes)
+from repro_torch.launch.mesh import (all_gather_rows, axes_group, dp_group,
+                                     dp_size, mesh_sizes, model_size)
 from repro_torch.models import sharding as SH
-from repro_torch.models.api import lm_loss
+from repro_torch.models.api import lm_loss, param_shapes
 from repro_torch.optim import adamw, schedules
 
 
@@ -49,46 +65,133 @@ class TrainPlan:
     dp_axes: tuple = ("data",)
 
 
-def state_specs(plan: TrainPlan, params) -> dict:
+def state_specs(plan: TrainPlan, params=None) -> dict:
     """Specs for ``{params, opt{m, v, step}}``: `sharding.param_pspecs`
-    of the parameters, `sharding.zero1_spec` of each moment."""
+    of the parameters, `sharding.zero1_spec` of each moment. ``params``:
+    the whole parameters or their shapes (default: ``cfg``'s)."""
+    if params is None:
+        params = param_shapes(plan.cfg)
     pspecs = SH.param_pspecs(plan.cfg, params, plan.mesh, plan.dp_axes)
     mspecs = adamw.unflatten(params, [
-        SH.zero1_spec(s, tuple(p.shape), plan.mesh, plan.dp_axes)
+        SH.zero1_spec(s, tuple(SH._shape(p)), plan.mesh, plan.dp_axes)
         for s, p in zip(adamw.leaves(pspecs), adamw.leaves(params))])
     return {"params": pspecs, "opt": {"m": mspecs, "v": mspecs, "step": ()}}
 
 
-def _check_plan(plan: TrainPlan) -> None:
-    if plan.mesh is not None and mesh_sizes(plan.mesh).get("model", 1) > 1:
-        raise NotImplementedError(
-            "a model axis above 1: tensor and expert parallelism in the "
-            "train step is slice E6b (serving under a model axis is "
-            "build_serve_step)")
+def state_shapes(cfg: ModelConfig) -> dict:
+    """The whole train state's shapes: `init_state`'s tree."""
+    shapes = param_shapes(cfg)
+    return {"params": shapes, "opt": {"m": shapes, "v": shapes, "step": ()}}
+
+
+def state_spec_fn(cfg: ModelConfig, dp_axes=("data",)):
+    """``spec_fn(state, mesh)`` for `train.elastic.remesh_state`: a train
+    state's `state_specs` on ``mesh`` (from ``cfg``'s shapes)."""
+    return lambda state, mesh: state_specs(
+        TrainPlan(cfg=cfg, mesh=mesh, dp_axes=tuple(dp_axes)))
+
+
+def model_parallel(plan: TrainPlan) -> bool:
+    """Whether ``plan`` trains under a model axis above 1: each rank then
+    holds its blocks of the parameters and moments."""
+    return plan.mesh is not None and model_size(plan.mesh) > 1
+
+
+def _names(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _zero1_layout(plan: TrainPlan, params) -> list:
+    """Per leaf: ``((dim, start, length), axes)`` of this rank's ZeRO-1
+    slice of its local parameter and the mesh axes it is split over, or
+    ``(None, ())``."""
+    flat = adamw.leaves(params)
+    if plan.mesh is None:
+        return [(None, ())] * len(flat)
+    specs = state_specs(plan)
+    blocks = model_parallel(plan)
+    sizes, coords = mesh_sizes(plan.mesh), SH.mesh_coords(plan.mesh)
+    dp = set(plan.dp_axes)
+    out = []
+    for p, ps, ms in zip(flat, adamw.leaves(specs["params"]),
+                         adamw.leaves(specs["opt"]["m"])):
+        hit = None
+        for dim, (pe, me) in enumerate(zip(ps, ms)):
+            # the data axes that cut the moment further than the local
+            # parameter (whole, or its blocks); under a model axis one of
+            # a single rank cuts nothing
+            held = _names(pe) if blocks else ()
+            names = tuple(a for a in _names(me) if a in dp and a not in held
+                          and (sizes[a] > 1 or not blocks))
+            if names:
+                hit = dim, names
+                break
+        if hit is None:
+            out.append((None, ()))
+            continue
+        dim, names = hit
+        parts, idx = 1, 0
+        for a in names:
+            parts, idx = parts * sizes[a], idx * sizes[a] + coords[a]
+        length = p.shape[dim] // parts
+        out.append(((dim, idx * length, length), names))
+    return out
 
 
 def zero1_shards(plan: TrainPlan, params) -> list:
-    """Per leaf of ``params`` (`adamw.leaves` order): ``(dim, start,
-    length)`` of this rank's ZeRO-1 moment slice — the dim `zero1_spec`
-    puts the data axes on, split in the data group's rank order — or None
-    where the moment stays whole (no mesh, or no dim divides)."""
-    flat = adamw.leaves(params)
-    if plan.mesh is None:
-        return [None] * len(flat)
-    _check_plan(plan)
-    dp = tuple(plan.dp_axes)
-    n, r = dp_size(plan.mesh, dp), dp_rank(plan.mesh, dp)
-    out = []
-    for p, spec in zip(flat, adamw.leaves(
-            state_specs(plan, params)["opt"]["m"])):
-        dims = [i for i, ax in enumerate(spec) if ax is not None and set(
-            ax if isinstance(ax, tuple) else (ax,)) & set(dp)]
-        if not dims:
-            out.append(None)
-            continue
-        length = p.shape[dims[0]] // n
-        out.append((dims[0], r * length, length))
-    return out
+    """Per leaf of ``params`` (`adamw.leaves` order; this rank's blocks
+    under a model axis): ``(dim, start, length)`` of this rank's ZeRO-1
+    moment slice of it — the dim `zero1_spec` puts data axes on that the
+    local parameter does not already split, cut in row-major order over
+    them (the data group's rank order) — or None where the moment stays
+    whole (no mesh, or no dim divides)."""
+    return [s for s, _ in _zero1_layout(plan, params)]
+
+
+def grad_sums(cfg: ModelConfig, mesh, dp_axes, params=None) -> list:
+    """Per leaf (`adamw.leaves` order) of ``params`` (whole, or their
+    shapes; default ``cfg``'s): the mesh axes above one rank that its spec
+    (`param_pspecs`) does not split it on, in the mesh's order — the axes
+    its gradient is SUMmed over (`models.sharding`'s gradient
+    convention)."""
+    sizes = mesh_sizes(mesh)
+    params = param_shapes(cfg) if params is None else params
+    return [tuple(a for a in sizes if sizes[a] > 1 and a not in set(
+        n for e in spec for n in _names(e)))
+        for spec in adamw.leaves(SH.param_pspecs(cfg, params, mesh,
+                                                 dp_axes))]
+
+
+def norm_axes(cfg: ModelConfig, mesh, dp_axes, params=None) -> list:
+    """Per leaf: the mesh axes above one rank that its spec splits it on,
+    whose ranks' squared norms `adamw.global_norm` SUMs (each block
+    counted once)."""
+    sizes = mesh_sizes(mesh)
+    return [tuple(a for a in sizes if sizes[a] > 1 and a not in s)
+            for s in grad_sums(cfg, mesh, dp_axes, params)]
+
+
+def reduce_grads(flat: list, sums: list, n: int) -> list:
+    """``flat`` (gradients in `adamw.leaves` order) SUMmed over each
+    leaf's axes ``sums`` (`grad_sums`) through the active layout's axes
+    (`sharding.Layout.axis`) and divided by ``n``, the data size: the
+    leaves summed over every axis in one packed collective, the others a
+    collective each."""
+    lay = SH.layout()
+    every = set(a for s in sums for a in s)
+    whole = [i for i, s in enumerate(sums) if s and set(s) == every]
+    if whole:
+        summed = lay.axis(tuple(every)).sum_all(*[flat[i] for i in whole])
+        for i, g in zip(whole, summed):
+            flat[i] = g
+    for i, s in enumerate(sums):
+        if s and set(s) != every:
+            flat[i] = lay.axis(s).sum(flat[i])
+    if n > 1:
+        flat = [g.div_(n) for g in flat]
+    return flat
 
 
 def init_state(params, opt: adamw.AdamWConfig = adamw.AdamWConfig(),
@@ -116,13 +219,24 @@ def loss_and_grads(params, cfg: ModelConfig, batch):
     """`lm_loss` of ``batch`` and its gradients, one for each leaf of
     ``params`` in `adamw.leaves` order (zeros for a leaf the loss does
     not use), in the leaves' dtypes. The leaves require grad only for the
-    duration of the call."""
+    duration of the call. Under a model axis of m (the active layout's)
+    the backward is seeded with 1/m of the loss, so each gradient is this
+    rank's share (`models.sharding`'s convention); the loss returned is
+    the whole. Under a mesh context the backward runs on the calling
+    thread: the layout is thread-local, and the recompute of remat'd
+    layers and loss chunks reads it, where autograd would run a CUDA
+    backward on its own device thread."""
     flat = adamw.leaves(params)
+    m = SH.model_axis().size
+    here = (torch.autograd.set_multithreading_enabled(False)
+            if SH.current() is not None else contextlib.nullcontext())
     for t in flat:
         t.requires_grad_(True)
     try:
         loss = lm_loss(params, cfg, batch)
-        grads = torch.autograd.grad(loss, flat, materialize_grads=True)
+        with here:
+            grads = torch.autograd.grad(loss if m == 1 else loss / m, flat,
+                                        materialize_grads=True)
     finally:
         for t in flat:
             t.requires_grad_(False)
@@ -137,21 +251,30 @@ def build_train_step(plan: TrainPlan):
     0's is 0 under warmup. With ``plan.microbatch`` the batch's rows are
     taken ``microbatch`` at a time, gradients summed in f32 and averaged.
     Attention runs through the chunked twin (`train_config`). A failure
-    before the update leaves ``state`` as it was; one during it raises
-    `adamw.TornUpdate`.
+    before the update leaves ``state`` as it was; one during the update
+    or the parameter gather raises `adamw.TornUpdate`.
 
-    Under ``plan.mesh`` the step is data-parallel with ZeRO-1 (module
-    docstring): ``batch`` holds this rank's rows, ``plan.microbatch``
-    counts rows of the global batch, and the loss metric is the mean of
-    the ranks' losses. The state must come from ``init_state(..., plan=
-    plan)``."""
+    Under ``plan.mesh`` the step is data-parallel with ZeRO-1, and under
+    a model axis above 1 tensor- and expert-parallel too (module
+    docstring): ``batch`` holds this rank's rows, ``params`` its blocks
+    under a model axis, ``plan.microbatch`` counts rows of the global
+    batch, and the loss metric is the mean of the data ranks' losses, the
+    same on every rank. The state must come from ``init_state(...,
+    plan=plan)``."""
     cfg = train_config(plan.cfg)
     mesh, dp = plan.mesh, tuple(plan.dp_axes)
+    if isinstance(mesh, dict):
+        raise ValueError(
+            f"a train step on {mesh} needs a DeviceMesh over a process "
+            f"group (launch.mesh.make_host_mesh); a plain mapping has no "
+            f"ranks to reduce over")
+    blocks = model_parallel(plan)
     group, n = None, 1
     if mesh is not None:
-        _check_plan(plan)
         group, n = dp_group(mesh, dp), dp_size(mesh, dp)
-    shards = []  # per leaf, computed at the first step
+    sums = grad_sums(cfg, mesh, dp) if blocks else None
+    held = norm_axes(cfg, mesh, dp) if blocks else None
+    shards, groups = [], []  # per leaf, computed at the first step
 
     def grads_of(params, batch):
         rows = next(iter(batch.values())).shape[0]
@@ -174,26 +297,36 @@ def build_train_step(plan: TrainPlan):
 
     def step(state, batch):
         params, opt = state["params"], state["opt"]
+        norms = None
         if mesh is None:
             loss, flat = grads_of(params, batch)
+        elif blocks:
+            with SH.mesh_context(mesh, dp):
+                loss, flat = grads_of(params, batch)
+                flat = reduce_grads(flat, sums, n)
+                lay = SH.layout()
+                norms = [lay.axis(a) if a else None for a in held]
+                loss = lay.data.sum(loss) / n
         else:
             with SH.mesh_context(mesh, dp, blocks=False):
                 loss, flat = grads_of(params, batch)
-            if not shards:
-                shards.extend(zero1_shards(plan, params))
             for g in flat:  # the mean of the ranks' gradients
                 dist.all_reduce(g, group=group)
                 g.div_(n)
             loss = loss.clone()
             dist.all_reduce(loss, group=group)
             loss = loss / n
+        if mesh is not None and not shards:
+            for shard, names in _zero1_layout(plan, params):
+                shards.append(shard)
+                groups.append(axes_group(mesh, names) if names else None)
         grads = adamw.unflatten(params, flat)
         lr_scale = schedules.cosine_with_warmup(
             opt["step"], warmup=plan.warmup, total=plan.total_steps)
         metrics = adamw.apply_updates(params, grads, opt, plan.opt, lr_scale,
-                                      shards=shards or None)
+                                      shards=shards or None, norm_axes=norms)
         if mesh is not None:
-            _gather_params(params, shards, group, n)
+            _gather_params(params, shards, groups)
         metrics["loss"] = loss
         return state, metrics
 
@@ -201,13 +334,14 @@ def build_train_step(plan: TrainPlan):
 
 
 @torch.no_grad()
-def _gather_params(params, shards, group, n) -> None:
+def _gather_params(params, shards, groups) -> None:
     """After a ZeRO-1 update every rank holds its slice of each sharded
-    parameter fresh: all-gather the slices back into every rank's whole
-    parameter, in the group's rank order. A failure here leaves the ranks'
-    parameters apart, so it raises `adamw.TornUpdate`."""
+    parameter (or block) fresh: all-gather the slices back into every
+    rank's whole parameter, over the leaf's data group (``groups``), in
+    its rank order. A failure here leaves the ranks' parameters apart, so
+    it raises `adamw.TornUpdate`."""
     try:
-        for p, s in zip(adamw.leaves(params), shards):
+        for p, s, group in zip(adamw.leaves(params), shards, groups):
             if s is None:
                 continue
             dim, start, length = s
@@ -215,7 +349,8 @@ def _gather_params(params, shards, group, n) -> None:
             if dim == 0:
                 all_gather_rows(p, local, group)
                 continue
-            parts = [torch.empty_like(local) for _ in range(n)]
+            parts = [torch.empty_like(local)
+                     for _ in range(dist.get_world_size(group))]
             dist.all_gather(parts, local, group=group)
             p.copy_(torch.cat(parts, dim=dim))
     except Exception as e:

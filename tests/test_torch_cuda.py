@@ -1441,3 +1441,71 @@ def threading_name():
     import threading
 
     return threading.current_thread().name
+
+
+# ------------------------------------------ training under the model axis
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,data,model", [
+    (a, d, m) for a in ("qwen2.5-3b", "h2o-danube-1.8b", "qwen3-moe-235b-a22b",
+                        "deepseek-v2-lite-16b", "mamba2-130m", "zamba2-7b",
+                        "whisper-small", "internvl2-26b")
+    for d, m in ((1, 4), (2, 2))])
+def test_cuda_per_rank_backward_assembles_to_the_one_device_gradient(
+        arch, data, model):
+    """Each smoke model in f32 on the card, `train_step.loss_and_grads` of
+    16 × 25 tokens on per-rank bodies (`local_ranks.run_ranks`), each
+    leaf SUMmed by `train_step.reduce_grads`: the gradients assembled from
+    the ranks' blocks equal the one-device gradients within max|Δ| ≤
+    1e-4·max|ref| + 1e-5. On the card autograd would run a backward on its
+    device thread; the ranks' backward passes (remat's recompute reading
+    the thread's layout, collectives waiting for the other ranks) run on
+    their own threads."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.local_ranks import run_ranks
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.api import get_api, param_shapes
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TS.train_config(dataclasses.replace(get_config(arch, smoke=True),
+                                              dtype="float32"))
+    params = get_api(cfg).init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    B, S = 16, 24
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
+                                     device="cuda")}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.randn(B, S, cfg.d_model, generator=gen,
+                                      device="cuda")
+    if cfg.n_patches:
+        batch["embeds"] = torch.randn(B, cfg.n_patches, cfg.d_model,
+                                      generator=gen, device="cuda")
+    _, want = TS.loss_and_grads(params, cfg, batch)
+    sizes = {"data": data, "model": model}
+    sums = TS.grad_sums(cfg, sizes, ("data",))
+
+    def body(r, model_ax, data_ax):
+        coords = {"data": data_ax.rank, "model": model_ax.rank}
+        per = B // data
+        rows = {k: v[data_ax.rank * per:(data_ax.rank + 1) * per]
+                for k, v in batch.items()}
+        blocks = SH.shard_params(cfg, params, sizes, ("data",), coords)
+        with SH.rank_context(sizes, ("data",), model_ax, data_ax):
+            _, grads = TS.loss_and_grads(blocks, cfg, rows)
+            return coords, TS.reduce_grads(grads, sums, data)
+
+    ranks = run_ranks(body, model, data)
+    specs = adamw.leaves(SH.param_pspecs(cfg, param_shapes(cfg), sizes,
+                                         ("data",)))
+    for i, (w, spec) in enumerate(zip(want, specs)):
+        whole = torch.empty_like(w)
+        for coords, grads in ranks:
+            whole[SH.local_block(tuple(w.shape), spec, sizes, coords)] = \
+                grads[i]
+        bound = 1e-4 * w.abs().max().item() + 1e-5
+        assert (whole - w).abs().max().item() <= bound, i

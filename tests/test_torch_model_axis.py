@@ -253,10 +253,14 @@ def test_a_cuda_tensor_on_a_gloo_group_raises(tmp_path):
 
 
 def test_training_under_a_model_axis_still_raises():
-    plan = TS.TrainPlan(cfg=get_config("qwen2.5-3b", smoke=True),
-                        mesh={"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match="E6b"):
-        TS.build_train_step(plan)
+    """Training under a model axis runs on a `DeviceMesh` over a process
+    group (`tests/test_torch_train_sharded.py`); on a plain mapping, which
+    has no ranks to reduce the gradients over, the step refuses."""
+    for mesh in ({"data": 1, "model": 2}, {"data": 2, "model": 1}):
+        plan = TS.TrainPlan(cfg=get_config("qwen2.5-3b", smoke=True),
+                            mesh=mesh)
+        with pytest.raises(ValueError, match="needs a DeviceMesh"):
+            TS.build_train_step(plan)
 
 
 # --------------------------------------------------- blocks drawn by rank

@@ -569,10 +569,9 @@ def test_train_driver_needs_the_card_or_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         port_train.main(["--smoke", "--steps", "1", "--ckpt-dir",
                          str(tmp_path)])
-    # data parallelism needs a world of its size; training under a model
-    # axis is E6b
+    # data and model parallelism need a world of their product
     for flag, why in (("--data-parallel", "world of 2"),
-                      ("--model-parallel", "E6b")):
+                      ("--model-parallel", "world of 2")):
         with pytest.raises(ValueError, match=why):
             port_train.main(["--smoke", "--device", "cpu", flag, "2",
                              "--ckpt-dir", str(tmp_path)])

@@ -517,3 +517,207 @@ def isolation_serve(rank, world):
     assert bool(torch.isfinite(lg.float()).all())
     return sorted(m for m in sys.modules if m.split(".")[0] in
                   ("jax", "jaxlib", "repro", "ml_dtypes"))
+
+
+# ------------------------------------------- training under a model axis
+# A training case: {"arch", "shape" (mesh sizes), "names" (mesh axes),
+# "B" (global rows), "S" (tokens a row), "steps", "vocab", "fsdp",
+# "save" (a directory: the state after the steps is saved there, then one
+# step more is taken), "restore" (a directory: the state is restored from
+# it instead of drawn, and one step taken at index "steps")}.
+
+
+def train_config(case):
+    """The case's smoke config in f32, attending through the chunked
+    twin (the training path), with its vocab and ``fsdp``."""
+    import dataclasses
+
+    cfg = serve_config(dict(case, dtype="float32"))
+    return dataclasses.replace(cfg, attn_impl="xla_chunked")
+
+
+def train_batch(cfg, case, step, mesh=None, dp_axes=("data",)):
+    """Step ``step``'s batch of the case (`data.pipeline.make_batch`: the
+    reference's numbers), this rank's rows under ``mesh``."""
+    from repro_torch.data.pipeline import TokenStream, make_batch
+
+    stream = TokenStream(cfg.vocab, case["B"], case["S"], seed=0)
+    return make_batch(cfg, stream, step, device=CPU, mesh=mesh,
+                      dp_axes=dp_axes)
+
+
+def _metrics(m):
+    return {k: float(v) for k, v in m.items()}
+
+
+def train_single(cfg, params, case, start=0, steps=None):
+    """The port's one-device steps from ``params`` (whole): each step's
+    metrics and the parameters after them (f32 numpy, `adamw.leaves`
+    order)."""
+    from repro_torch.train import train_step as TS
+
+    plan = TS.TrainPlan(cfg=cfg, warmup=1, total_steps=10)
+    state = TS.init_state(params, plan.opt)
+    step = TS.build_train_step(plan)
+    out = []
+    for s in range(start, start + (steps or case["steps"])):
+        state, m = step(state, train_batch(cfg, case, s))
+        out.append(_metrics(m))
+    return {"metrics": out, "params": _leaves_np(state["params"]),
+            "state": state}
+
+
+def _mesh_of(case):
+    from repro_torch.launch.mesh import make_mesh
+
+    names = tuple(case.get("names", ("data", "model")))
+    return make_mesh(tuple(case["shape"]), names), tuple(
+        a for a in names if a != "model")
+
+
+def train_world(rank, world, cases, trees):
+    """Each case through `build_train_step` on its mesh (the world's
+    first ranks): the rank's blocks of the case's tree
+    (`params_from_arrays(mesh=)`) or of a restored checkpoint
+    (``restore``: one step, at the saved step), its rows of each batch;
+    ``steps`` AdamW steps with clipping. Returns per case each step's
+    metrics, the parameters gathered whole (f32 numpy, `adamw.leaves`
+    order), the local shapes of the parameters and moments and the
+    ZeRO-1 slices. With ``save`` the state is saved after the steps (and
+    returned whole) and one step more taken; with ``remesh`` (a model
+    axis) the state saved by an earlier case of the same spawn is moved
+    onto a mesh of that model axis by `elastic.remesh_state`, and its
+    blocks compared with the restored ones."""
+    from repro_torch.interop import params_from_arrays
+    from repro_torch.launch.mesh import dp_rank
+    from repro_torch.models import sharding as SH
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train import elastic as EL
+    from repro_torch.train import train_step as TS
+
+    out, kept = [], {}
+    for case, tree in zip(cases, trees):
+        cfg = train_config(case)
+        mesh, dp = _mesh_of(case)
+        plan = TS.TrainPlan(cfg=cfg, warmup=1, total_steps=10, mesh=mesh,
+                            dp_axes=dp)
+        specs = TS.state_specs(plan)
+        if case.get("resilient"):
+            out.append(_resilient(case, cfg, mesh, dp, plan, specs, TS.
+                                  init_state(params_from_arrays(
+                                      cfg, tree, CPU, mesh=mesh, dp_axes=dp),
+                                      plan.opt, plan)))
+            continue
+        if case.get("restore"):
+            state, start = _restored(case["restore"], cfg, mesh, plan, specs)
+            n = 1
+        else:
+            state = TS.init_state(params_from_arrays(
+                cfg, tree, CPU, mesh=mesh, dp_axes=dp), plan.opt, plan)
+            start, n = 0, case["steps"]
+        step = TS.build_train_step(plan)
+        res = {"metrics": [], "dp_rank": dp_rank(mesh, dp),
+               "coords": SH.mesh_coords(mesh),
+               "local": [tuple(t.shape) for t in leaves(state["params"])],
+               "moments": [tuple(t.shape) for t in leaves(state["opt"]["m"])],
+               "shards": TS.zero1_shards(plan, state["params"])}
+        if case.get("remesh"):
+            placed, mcfg, mdp = kept[case["restore"]]
+            new = EL.make_mesh_for(range(world), case["remesh"])
+            moved = EL.local(EL.remesh_state(placed, new,
+                                             TS.state_spec_fn(mcfg, mdp)))
+            res["remeshed_equal"] = len(leaves(moved)) == len(leaves(
+                state)) and all(torch.equal(a, b) for a, b in zip(
+                    leaves(moved), leaves(state)))
+        for s in range(start, start + n):
+            state, m = step(state, train_batch(cfg, case, s, mesh, dp))
+            res["metrics"].append(_metrics(m))
+        if case.get("save"):
+            CKPT.save(state, start + n, case["save"], mesh=mesh, specs=specs)
+            whole = SH.gather_blocks(state, specs, mesh)
+            res["saved"] = {"params": _leaves_np(whole["params"]),
+                            "m": _leaves_np(whole["opt"]["m"]),
+                            "v": _leaves_np(whole["opt"]["v"])}
+            kept[case["save"]] = (_copy(EL.placed(
+                state, specs, mesh, TS.state_shapes(cfg))), cfg, dp)
+            state, m = step(state, train_batch(cfg, case, start + n, mesh,
+                                               dp))
+            res["next"] = _metrics(m)
+        res["params"] = _leaves_np(SH.gather_blocks(state["params"],
+                                                    specs["params"], mesh))
+        out.append(res)
+    return out
+
+
+def _copy(tree):
+    """A tree of `Placed` leaves with their blocks copied (the step
+    updates the state in place)."""
+    if isinstance(tree, dict):
+        return {k: _copy(v) for k, v in tree.items()}
+    return tree._replace(local=tree.local.clone())
+
+
+def _restored(ckpt_dir, cfg, mesh, plan, specs):
+    """(state, step): the latest checkpoint under ``ckpt_dir`` cut to
+    this rank's blocks on ``mesh``."""
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.api import param_shapes
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train import train_step as TS
+
+    zeros = SH._map_with_path(lambda _, s: torch.zeros(s), param_shapes(cfg))
+    like = TS.init_state(SH.shard_params(cfg, zeros, mesh, plan.dp_axes),
+                         plan.opt, plan)
+    return CKPT.restore(like, ckpt_dir, mesh=mesh, specs=specs)
+
+
+def _resilient(case, cfg, mesh, dp, plan, specs, state):
+    """``steps`` steps through `ResilientLoop` with a checkpoint after
+    every step, the ZeRO-1 parameter gather of step ``fail_at`` failing
+    once on every rank (a torn update): the loop's failures, each step's
+    metrics as the loop reported them, and the parameters gathered whole
+    at the end."""
+    from repro_torch.models import sharding as SH
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.fault_tolerance import (FaultToleranceConfig,
+                                                   ResilientLoop)
+
+    ckpt = CKPT.AsyncCheckpointer(case["resilient"], mesh=mesh, specs=specs)
+    step_fn = TS.build_train_step(plan)
+    # the first dim-0 slice gather of step ``fail_at``
+    per_step = sum(s is not None and s[0] == 0 for s in TS.zero1_shards(
+        plan, state["params"]))
+    fail_call = case["fail_at"] * per_step + 1
+    calls, orig = [0], TS.all_gather_rows
+
+    def failing(*a, **k):
+        calls[0] += 1
+        if calls[0] == fail_call:
+            raise RuntimeError("the gather fails once")
+        return orig(*a, **k)
+
+    def restore():
+        ckpt.wait()
+        return CKPT.restore(loop.state, case["resilient"], mesh=mesh,
+                            specs=specs)
+
+    metrics = {}
+    loop = ResilientLoop(
+        step_fn, state, lambda s: train_batch(cfg, case, s, mesh, dp),
+        checkpointer=ckpt, ft=FaultToleranceConfig(ckpt_every=1),
+        restore_fn=restore)
+    TS.all_gather_rows = failing
+    try:
+        state, end = loop.run(0, case["steps"], lambda s, m: metrics.
+                              __setitem__(s, _metrics(m)))
+    finally:
+        TS.all_gather_rows = orig
+        ckpt.close()
+    return {"failures": [(f["step"], f["action"]) for f in loop.failures],
+            "torn": [f["error"] for f in loop.failures], "end": end,
+            "per_step": per_step,
+            "metrics": [metrics[s] for s in sorted(metrics)],
+            "params": _leaves_np(SH.gather_blocks(state["params"],
+                                                  specs["params"], mesh))}
