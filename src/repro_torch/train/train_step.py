@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -194,10 +195,30 @@ def reduce_grads(flat: list, sums: list, n: int) -> list:
     return flat
 
 
+def _check_blocks(plan: TrainPlan, params) -> None:
+    """Under a model axis: raise unless every leaf of ``params`` has the
+    shape of a rank's block under `state_specs`."""
+    sizes = mesh_sizes(plan.mesh)
+    shapes = adamw.leaves(param_shapes(plan.cfg))
+    for p, shape, spec in zip(adamw.leaves(params), shapes, adamw.leaves(
+            state_specs(plan)["params"])):
+        spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+        want = tuple(n // math.prod(sizes[a] for a in _names(e))
+                     for n, e in zip(shape, spec))
+        if tuple(p.shape) != want:
+            raise ValueError(
+                f"a leaf of shape {tuple(p.shape)} where the rank's block "
+                f"is {want}: under a model axis the parameters are the "
+                f"rank's blocks (sharding.shard_params, init_params(mesh=))")
+
+
 def init_state(params, opt: adamw.AdamWConfig = adamw.AdamWConfig(),
                plan: TrainPlan = None) -> dict:
     """A train state around ``params`` (kept, not copied) with zero
-    moments — this rank's ZeRO-1 slices of them under ``plan.mesh``."""
+    moments — this rank's ZeRO-1 slices of them under ``plan.mesh``.
+    Under a model axis ``params`` must be the rank's blocks."""
+    if plan is not None and model_parallel(plan):
+        _check_blocks(plan, params)
     shards = zero1_shards(plan, params) if plan is not None else None
     return {"params": params, "opt": adamw.init_state(params,
                                                       opt.moment_dtype,

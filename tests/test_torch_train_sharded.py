@@ -33,6 +33,10 @@ re-meshing of blocks (`train/elastic.py`) and the driver's
   --data-parallel 2`` trains on 4 ranks and resumes on 2; a ZeRO-1
   parameter gather that fails at (2, 2) tears the update, and
   `ResilientLoop` restores and replays to the uninterrupted run's end.
+- **Refusals and the backward's thread.** The production meshes need
+  exactly their world; a state under a model axis needs the rank's
+  blocks; under a mesh context the backward runs on the calling thread,
+  which holds the layout that remat's recompute reads.
 """
 import dataclasses
 import json
@@ -300,6 +304,21 @@ def test_production_meshes_need_exactly_their_world(tmp_path):
         assert M.dp_size(mesh) == 1 and M.dp_rank(mesh) == 0
     finally:
         dist.destroy_process_group()
+
+
+def test_a_model_axis_state_needs_the_rank_blocks():
+    """`init_state` under a model axis takes the rank's blocks: whole
+    parameters raise, the blocks of any rank pass the check."""
+    cfg = train_config(dict(BASE, arch="qwen2.5-3b"))
+    whole = get_api(cfg).init_params(cfg, torch.Generator().manual_seed(0),
+                                     device="cpu")
+    sizes = {"data": 1, "model": 2}
+    plan = TS.TrainPlan(cfg=cfg, mesh=sizes)
+    with pytest.raises(ValueError, match="the rank's blocks"):
+        TS.init_state(whole, plan.opt, plan)
+    blocks = SH.shard_params(cfg, whole, sizes, ("data",),
+                             {"data": 0, "model": 1})
+    TS._check_blocks(plan, blocks)
 
 
 def test_backward_under_a_mesh_runs_on_the_calling_thread(monkeypatch):
