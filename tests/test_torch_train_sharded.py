@@ -505,8 +505,6 @@ def trained(tmp_path_factory):
                 by_case[_sid(c)] = [r[i] for r in ranks[world]]
         single = {}
         for c in WORLD2 + WORLD4 + [SAVE, RESILIENT]:
-            if _sid(c) in single:
-                continue
             cfg = train_config(c)
             params = params_from_arrays(cfg, trees[c["arch"]], "cpu")
             single[_sid(c)] = train_single(

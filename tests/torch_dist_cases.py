@@ -524,7 +524,10 @@ def isolation_serve(rank, world):
 # "B" (global rows), "S" (tokens a row), "steps", "vocab", "fsdp",
 # "save" (a directory: the state after the steps is saved there, then one
 # step more is taken), "restore" (a directory: the state is restored from
-# it instead of drawn, and one step taken at index "steps")}.
+# it instead of drawn, and one step taken at the saved step), "remesh"
+# (with "restore": the model axis the saved state is moved to),
+# "resilient" (a checkpoint directory: the steps run through
+# `ResilientLoop`, the parameter gather of step "fail_at" failing once)}.
 
 
 def train_config(case):
@@ -550,7 +553,7 @@ def _metrics(m):
     return {k: float(v) for k, v in m.items()}
 
 
-def train_single(cfg, params, case, start=0, steps=None):
+def train_single(cfg, params, case, steps):
     """The port's one-device steps from ``params`` (whole): each step's
     metrics and the parameters after them (f32 numpy, `adamw.leaves`
     order)."""
@@ -560,11 +563,10 @@ def train_single(cfg, params, case, start=0, steps=None):
     state = TS.init_state(params, plan.opt)
     step = TS.build_train_step(plan)
     out = []
-    for s in range(start, start + (steps or case["steps"])):
+    for s in range(steps):
         state, m = step(state, train_batch(cfg, case, s))
         out.append(_metrics(m))
-    return {"metrics": out, "params": _leaves_np(state["params"]),
-            "state": state}
+    return {"metrics": out, "params": _leaves_np(state["params"])}
 
 
 def _mesh_of(case):
