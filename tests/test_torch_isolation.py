@@ -161,6 +161,18 @@ def test_model_axis_serving_runs_without_jax_or_reference_loaded(tmp_path):
         assert loaded == []
 
 
+def test_model_axis_training_runs_without_jax_or_reference_loaded(tmp_path):
+    """Two gloo ranks train the MoE smoke model tensor- and
+    expert-parallel through `build_train_step`, each drawing its own
+    blocks, and save and restore a whole-array checkpoint, with neither
+    jax nor the JAX package in either process."""
+    from torch_dist import spawn
+
+    for loaded in spawn(2, "isolation_train", tmp_path,
+                        str(tmp_path / "ckpt")):
+        assert loaded == []
+
+
 def test_default_device_is_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g = PG.caveman(4, 4, 0.0, seed=0)

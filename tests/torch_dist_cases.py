@@ -723,3 +723,36 @@ def _resilient(case, cfg, mesh, dp, plan, specs, state):
             "metrics": [metrics[s] for s in sorted(metrics)],
             "params": _leaves_np(SH.gather_blocks(state["params"],
                                                   specs["params"], mesh))}
+
+
+def isolation_train(rank, world, ckpt_dir):
+    """A train step under a model axis of ``world`` (each rank drawing its
+    blocks), a whole-array checkpoint saved and restored; then the jax,
+    JAX package and ml_dtypes modules loaded in this process."""
+    import sys
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenStream, make_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train import train_step as TS
+
+    cfg = get_config("qwen3-moe-235b-a22b", smoke=True)
+    mesh = make_host_mesh(1, world)
+    plan = TS.TrainPlan(cfg=cfg, mesh=mesh)
+    state = TS.init_state(T.init_params(
+        cfg, torch.Generator().manual_seed(0), device=CPU, mesh=mesh),
+        plan.opt, plan)
+    batch = make_batch(cfg, TokenStream(cfg.vocab, 2, 24), 0, device=CPU,
+                       mesh=mesh)
+    state, m = TS.build_train_step(plan)(state, batch)
+    assert bool(torch.isfinite(m["loss"]))
+    specs = TS.state_specs(plan)
+    CKPT.save(state, 1, ckpt_dir, mesh=mesh, specs=specs)
+    back, at = CKPT.restore(state, ckpt_dir, mesh=mesh, specs=specs)
+    assert at == 1 and all(torch.equal(a, b) for a, b in zip(
+        leaves(back), leaves(state)))
+    return sorted(m for m in sys.modules if m.split(".")[0] in
+                  ("jax", "jaxlib", "repro", "ml_dtypes"))
