@@ -4569,14 +4569,14 @@ def ma_flash_ms(rec):
     return out
 
 
-def ma_layer(cfg, shapes, seed, device="cuda"):
-    """f32 weights of ``shapes`` on ``device`` from ``torch.Generator``."""
+def ma_layer(cfg, shapes, seed):
+    """f32 weights of ``shapes`` on the card from ``torch.Generator``."""
     import torch
 
     from repro_torch.models import transformer as T
 
     return T.build_params(shapes, cfg, torch.Generator(
-        device=device).manual_seed(seed), device=device)
+        device="cuda").manual_seed(seed), device="cuda")
 
 
 def ma_cache(cfg, c, slots):
@@ -4862,22 +4862,19 @@ def phase_model_axis():
 
 
 # ------------------------------------------------------ model-axis training
-MT_DEVICE = "cuda"    # the card (a CPU rehearsal sets "cpu")
-MT_SMOKE = False      # full width (a CPU rehearsal sets the smoke configs)
-MT_BATCH, MT_SEQ = 4, 1024   # tokens of each backward: 4 × 1,024
 MT_STEP_LAYERS, MT_STEPS = 2, 2  # the AdamW check: qwen2.5-3b cut, steps
 
 
 def mt_config(arch, **cut):
     """``arch`` in f32 through the chunked twin (the training path), cut
-    to ``cut`` (layers), at full width (or its smoke model)."""
+    to ``cut`` (layers), at full width."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
     from repro_torch.train import train_step as TS
 
     return TS.train_config(dataclasses.replace(
-        get_config(arch, smoke=MT_SMOKE), dtype="float32", **cut))
+        get_config(arch), dtype="float32", **cut))
 
 
 def mt_backward(cfg, tree, loss_fn, inputs, m, routes=None):
@@ -4993,19 +4990,19 @@ def phase_model_axis_train():
     t_all = time.perf_counter()
     failed = []
     launches = KF.LAUNCHES
-    gen = torch.Generator(device=MT_DEVICE).manual_seed(11)
+    gen = torch.Generator(device="cuda").manual_seed(11)
 
     def rand(*shape):
-        return torch.randn(shape, generator=gen, device=MT_DEVICE)
+        return torch.randn(shape, generator=gen, device="cuda")
 
     def batch_of(cfg):
-        stream = TokenStream(cfg.vocab, MT_BATCH, MT_SEQ, seed=0)
-        return make_batch(cfg, stream, 0, device=MT_DEVICE)
+        stream = TokenStream(cfg.vocab, 4, 1024, seed=0)
+        return make_batch(cfg, stream, 0, device="cuda")
 
     def whole_model(part, arch, m, seed, **cut):
         t0 = time.perf_counter()
         cfg = mt_config(arch, **cut)
-        tree = ma_layer(cfg, param_shapes(cfg), seed, MT_DEVICE)
+        tree = ma_layer(cfg, param_shapes(cfg), seed)
         batch = batch_of(cfg)
         want, ranks, sizes = mt_backward(
             cfg, tree, lambda p: lm_loss(p, cfg, batch), (), m)
@@ -5023,11 +5020,11 @@ def phase_model_axis_train():
     t0 = time.perf_counter()
     cfg = mt_config(MLA_MOE_ARCH)
     shapes = T.attn_block_shapes(cfg, (1,))
-    x = rand(MT_BATCH, MT_SEQ, cfg.d_model)
-    dy = rand(MT_BATCH, MT_SEQ, cfg.d_model)
-    pos = torch.arange(MT_SEQ, device=MT_DEVICE).expand(MT_BATCH, -1)
+    x = rand(4, 1024, cfg.d_model)
+    dy = rand(4, 1024, cfg.d_model)
+    pos = torch.arange(1024, device="cuda").expand(4, -1)
     tree = ma_layer(cfg, {"layers": {"ln1": shapes["ln1"],
-                                     "attn": shapes["attn"]}}, 2, MT_DEVICE)
+                                     "attn": shapes["attn"]}}, 2)
 
     def mla_loss(p, xx):
         lp = T.layer(p["layers"], 0)
@@ -5039,7 +5036,7 @@ def phase_model_axis_train():
     fields = {}
     mt_compare("mla_block", cfg, tree, want, ranks, sizes, fields, failed)
     del tree, want, ranks
-    tree = ma_layer(cfg, {"layers": {"moe": shapes["moe"]}}, 3, MT_DEVICE)
+    tree = ma_layer(cfg, {"layers": {"moe": shapes["moe"]}}, 3)
     routes = {}
     orig = MOE.route
 
@@ -5107,13 +5104,13 @@ def mt_steps(failed):
     from repro_torch.train import train_step as TS
 
     cfg = mt_config(LM_ARCH, n_layers=MT_STEP_LAYERS)
-    tree = ma_layer(cfg, param_shapes(cfg), 6, MT_DEVICE)
+    tree = ma_layer(cfg, param_shapes(cfg), 6)
     plan = TS.TrainPlan(cfg=cfg, warmup=1, total_steps=10)
     sizes = {"data": 1, "model": 2}
     blocks = [SH.shard_params(cfg, tree, sizes, ("data",),
                               {"data": 0, "model": r}) for r in range(2)]
-    stream = TokenStream(cfg.vocab, MT_BATCH, MT_SEQ, seed=0)
-    batches = [make_batch(cfg, stream, s, device=MT_DEVICE)
+    stream = TokenStream(cfg.vocab, 4, 1024, seed=0)
+    batches = [make_batch(cfg, stream, s, device="cuda")
                for s in range(MT_STEPS)]
     state = TS.init_state(tree, plan.opt)
     step = TS.build_train_step(plan)

@@ -20,8 +20,9 @@ Every rank, in order:
           4 steps of 4 × 1,024 tokens (× 64 with --cpu), the rank's rows;
           losses, seconds a step, peak memory and the moment bytes a rank
   ckpt    mamba2-130m whole after one such step: the parameters equal on
-          every rank, `checkpoint.save(mesh=)` (rank 0 writes under
-          `build/multi_rank_ckpt/`) and `restore(mesh=)` equal to the state
+          every rank, `checkpoint.save(mesh=, specs=)` (rank 0 writes
+          under `build/multi_rank_ckpt/`) and `restore(mesh=, specs=)`
+          equal to the state
   psum    `compressed_psum` of 2^22 values: the same mean on every rank,
           and its largest gap to the exact mean
   model   serving under a model axis through `build_serve_step` (world 4):
@@ -231,8 +232,9 @@ def ckpt_part(rank, dev, cpu, tmesh):
         shutil.rmtree(d, ignore_errors=True)
     dist.barrier()
     t0 = time.perf_counter()
-    CKPT.save(state, 1, str(d), mesh=tmesh)
-    back, at = CKPT.restore(fresh(1), str(d), mesh=tmesh)
+    specs = TS.state_specs(plan)
+    CKPT.save(state, 1, str(d), mesh=tmesh, specs=specs)
+    back, at = CKPT.restore(fresh(1), str(d), mesh=tmesh, specs=specs)
     restored = at == 1 and all(torch.equal(a, b)
                                for a, b in zip(leaves(back), leaves(state)))
     emit(rank, "ckpt", same_params_on_every_rank=same_params,

@@ -81,9 +81,8 @@ def main(argv=None):
     params = get_api(cfg).init_params(
         cfg, torch.Generator(device=device).manual_seed(args.seed),
         device=device)
-    specs = None
+    specs = state_specs(plan) if mesh is not None else None
     if model_parallel(plan):
-        specs = state_specs(plan)
         params = shard_params(cfg, params, mesh, plan.dp_axes)
     state = init_state(params, plan.opt, plan)
     start_step = 0

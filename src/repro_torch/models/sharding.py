@@ -237,29 +237,6 @@ class _Unbound(Axis):
         self._raise()
 
 
-class _Chain(Axis):
-    """The product of two axes with no group over both (a per-rank body's
-    model and data axes): a SUM over one, then over the other. Only SUMs
-    chain."""
-
-    identity = False
-
-    def __init__(self, *axes):
-        self.axes = axes
-        self.size = math.prod(a.size for a in axes)
-
-    def _sum(self, x):
-        for a in self.axes:
-            x = a._sum(x)
-        return x
-
-    def _max(self, x):
-        raise NotImplementedError("only a SUM runs over a chain of axes")
-
-    def _gather(self, x, dim):
-        self._max(x)
-
-
 # --------------------------------------------------------------------------
 # The layout context
 # --------------------------------------------------------------------------
@@ -294,10 +271,8 @@ class Layout:
         if math.prod(self.sizes[a] for a in names) == 1:
             return SOLO
         if isinstance(self.mesh, dict):
-            if names != {"model", *self.dp}:
-                raise RuntimeError(f"an axis over {sorted(names)} needs a "
-                                   f"DeviceMesh")
-            return _Chain(self.model, self.data)
+            raise RuntimeError(f"an axis over {sorted(names)} needs a "
+                               f"DeviceMesh")
         if names not in self.axes:
             self.axes[names] = GroupAxis(axes_group(self.mesh, names))
         return self.axes[names]

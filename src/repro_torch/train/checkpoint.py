@@ -11,18 +11,14 @@ bfloat16 leaf, which ``.npy`` cannot hold, is stored as its raw bytes
 bfloat16, so neither package needs the other's dtype library. A
 checkpoint written by either package restores in the other.
 
-Under a data mesh (ZeRO-1, `train/train_step.py`) a state's moments are
-this rank's slices: `save` all-gathers them along the dim where a
-moment's shape differs from its parameter's and rank 0 of the data group
-writes the whole state, in the same format; ``restore(..., mesh=)`` reads
-whole leaves and gives each rank its slice of those its state holds
-sliced. Under a model axis the state is the rank's blocks, so the caller
-names them: with ``specs`` (`train_step.state_specs`) `save` gathers every
-leaf whole over the axes its spec names (`sharding.gather_blocks`: the
-model blocks, ``fsdp``'s data blocks and the ZeRO-1 slices) and rank 0 of
-the mesh writes, and `restore` cuts each whole leaf to the rank's block
-(`sharding.local_block`). So a state saved on one mesh restores on any
-other shape, or on none.
+Under a mesh (`train/train_step.py`) a state is this rank's part of it:
+the ZeRO-1 slices of its moments, and under a model axis its blocks of
+the parameters too. The caller names that layout by ``specs``
+(`train_step.state_specs`): `save` gathers every leaf whole over the axes
+its spec names (`sharding.gather_blocks`) and rank 0 of the mesh writes,
+in the same format; ``restore(..., mesh=, specs=)`` cuts each whole leaf
+to the rank's block (`sharding.local_block`). So a state saved on one
+mesh restores on any other shape, or on none.
 """
 from __future__ import annotations
 
@@ -36,9 +32,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.mesh import axes_group, dp_group, model_size
+from repro_torch.launch.mesh import axes_group
 from repro_torch.models import sharding as SH
-from repro_torch.optim.adamw import leaves, tree_map, unflatten
+from repro_torch.optim.adamw import tree_map
 
 
 def _paths_of(tree, prefix=""):
@@ -62,63 +58,27 @@ def _to_numpy(leaf):
     return arr, str(arr.dtype), list(arr.shape), False
 
 
-def _sliced_dim(part: tuple, whole: tuple):
-    """The one dim along which a slice of shape ``part`` was cut from
-    ``whole``, or None when the shapes are equal."""
-    dims = [i for i, (a, b) in enumerate(zip(part, whole)) if a != b]
-    if len(part) != len(whole) or len(dims) > 1:
-        raise ValueError(f"a slice of shape {part} cannot come from {whole}")
-    return dims[0] if dims else None
-
-
-def gather_zero1(state, group):
-    """``state`` with every ZeRO-1 moment slice all-gathered over
-    ``group`` into the whole moment (in rank order, along the dim where
-    its shape differs from its parameter's); other leaves as they are.
-    Every rank of ``group`` must call it."""
-    if "opt" not in state or "params" not in state:
-        return state
-    n = dist.get_world_size(group)
-    whole = [tuple(p.shape) for p in leaves(state["params"])]
-
-    def gathered(tree):
-        out = []
-        for t, shape in zip(leaves(tree), whole):
-            dim = _sliced_dim(tuple(t.shape), shape)
-            if dim is None:
-                out.append(t)
-                continue
-            parts = [torch.empty_like(t) for _ in range(n)]
-            dist.all_gather(parts, t.contiguous(), group=group)
-            out.append(torch.cat(parts, dim=dim))
-        return unflatten(tree, out)
-
-    opt = dict(state["opt"])
-    opt["m"], opt["v"] = gathered(opt["m"]), gathered(opt["v"])
-    return {**state, "opt": opt}
+def _need_specs(specs):
+    if specs is None:
+        raise ValueError("under a mesh a state is the rank's part of it: "
+                         "pass specs= (train_step.state_specs)")
 
 
 def _gathered(state, mesh, specs):
-    """(the whole state, the group whose rank 0 writes it) under ``mesh``:
-    every leaf gathered by its spec (to the host), or the ZeRO-1 slices
-    over the data group where no ``specs`` are given (a model axis of 1
-    only)."""
-    if specs is not None:
-        return (SH.gather_blocks(state, specs, mesh, "cpu"),
-                axes_group(mesh, mesh.mesh_dim_names))
-    if model_size(mesh) > 1:
-        raise ValueError("a state under a model axis holds the rank's "
-                         "blocks: pass specs= (train_step.state_specs)")
-    group = dp_group(mesh)
-    return gather_zero1(state, group), group
+    """(the whole state on the host, the group whose rank 0 writes it):
+    every leaf of the rank's ``state`` gathered over ``mesh`` by its spec
+    in ``specs``."""
+    _need_specs(specs)
+    return (SH.gather_blocks(state, specs, mesh, "cpu"),
+            axes_group(mesh, mesh.mesh_dim_names))
 
 
 def save(state, step: int, ckpt_dir: str, mesh=None, specs=None) -> str:
     """Write ``state`` (a nested dict of tensors or arrays) as checkpoint
     ``step`` under ``ckpt_dir``; returns its directory. Under ``mesh``
-    every rank of it calls it: the state is gathered whole (by ``specs``,
-    or its ZeRO-1 slices over the data group), rank 0 of the group
-    writes, and all return once it has."""
+    every rank of it calls it with the state's ``specs``: the state is
+    gathered whole, rank 0 of the mesh writes, and all return once it
+    has."""
     if mesh is not None:
         state, group = _gathered(state, mesh, specs)
         try:
@@ -175,17 +135,12 @@ def restore(state_like, ckpt_dir: str, step: int = None, mesh=None,
     """Checkpoint ``step`` (default: the latest) read into the tree of
     ``state_like``, each leaf on the device of ``state_like``'s. Returns
     ``(state, step)``, or ``(None, None)`` when there is none. Under
-    ``mesh`` with ``specs`` each leaf is cut to this rank's block under
-    its spec; with no ``specs`` a leaf that ``state_like`` holds as a
-    ZeRO-1 slice (one dim 1/n of the checkpoint's, n the data group's
-    size) gets this rank's slice. Raises when a leaf is missing or its
-    shape or dtype is not ``state_like``'s."""
-    rank = n = None
-    if mesh is not None and specs is not None:
+    ``mesh`` each leaf is cut to this rank's block under its spec in
+    ``specs``. Raises when a leaf is missing or its shape or dtype is not
+    ``state_like``'s."""
+    if mesh is not None:
+        _need_specs(specs)
         sizes, coords = SH.mesh_sizes(mesh), SH.mesh_coords(mesh)
-    elif mesh is not None:
-        group = dp_group(mesh)
-        rank, n = dist.get_rank(group), dist.get_world_size(group)
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         return None, None
@@ -200,14 +155,9 @@ def restore(state_like, ckpt_dir: str, step: int = None, mesh=None,
         if key not in by_key:
             raise KeyError(f"checkpoint {d} has no leaf {key!r}")
         t = _load(d, by_key[key])
-        if specs is not None and mesh is not None:
+        if mesh is not None:
             t = t[SH.local_block(tuple(t.shape), SH.at(specs, key.split(
                 "/")), sizes, coords)].clone()
-        elif n is not None and tuple(t.shape) != tuple(node.shape):
-            dim = _sliced_dim(tuple(node.shape), tuple(t.shape))
-            if node.shape[dim] * n == t.shape[dim]:
-                t = t.narrow(dim, rank * node.shape[dim],
-                             node.shape[dim]).clone()
         if tuple(t.shape) != tuple(node.shape) or t.dtype != node.dtype:
             raise ValueError(f"{key}: checkpoint holds {t.dtype} "
                              f"{tuple(t.shape)}, the state {node.dtype} "
@@ -220,11 +170,11 @@ def restore(state_like, ckpt_dir: str, step: int = None, mesh=None,
 class AsyncCheckpointer:
     """Background-thread saver with a queue of one: `submit` blocks while
     a save is still in flight (backpressure instead of memory growth), and
-    never drops one. Under ``mesh`` every rank of it calls `submit`,
-    `wait` and `close` at the same points: `submit` gathers the state
-    whole (by ``specs`` under a model axis, else its ZeRO-1 slices over
-    the data group) and only rank 0 of that group writes; `wait` and
-    `close` return on every rank once rank 0's saves are on disk."""
+    never drops one. Under ``mesh`` (with the state's ``specs``) every
+    rank of it calls `submit`, `wait` and `close` at the same points:
+    `submit` gathers the state whole and only rank 0 of the mesh writes;
+    `wait` and `close` return on every rank once rank 0's saves are on
+    disk."""
 
     def __init__(self, ckpt_dir: str, keep: int = 3, mesh=None, specs=None):
         self.ckpt_dir = ckpt_dir
@@ -232,8 +182,8 @@ class AsyncCheckpointer:
         self.mesh, self.specs = mesh, specs
         self.group = None
         if mesh is not None:
-            self.group = (axes_group(mesh, mesh.mesh_dim_names)
-                          if specs is not None else dp_group(mesh))
+            _need_specs(specs)
+            self.group = axes_group(mesh, mesh.mesh_dim_names)
         self.writer = self.group is None or dist.get_rank(self.group) == 0
         self.q: "queue.Queue" = queue.Queue(maxsize=1)
         self.errors: list = []

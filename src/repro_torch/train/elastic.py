@@ -7,9 +7,9 @@ against it — the divisibility guards adapt: a dim that split 4 ways may
 replicate on 3 — and `remesh_state` moves every leaf onto its new spec
 with its values unchanged. Data-pipeline determinism makes the transition
 exact: ``batch(step)`` is pure in (seed, step) whatever the mesh. A train
-state under a model axis moves the same way — its parameters' model
-blocks and its moments' ZeRO-1 slices are blocks under their specs
-(`placed`, `train.train_step.state_spec_fn`, `local`) — between meshes
+state under a model axis moves the same way, as `Placed` leaves under
+`train.train_step.state_specs` — its parameters' model blocks and its
+moments' ZeRO-1 slices are blocks under their specs — between meshes
 with different model axes.
 
 A leaf placed on a mesh is a `Placed`: this rank's block of the global
@@ -102,23 +102,6 @@ def gather_full(leaf: Placed, device) -> torch.Tensor:
         dist.broadcast(buf, src=r)
         full[blk] = buf
     return full
-
-
-def placed(tree, specs, mesh, shapes) -> dict:
-    """A tree of this rank's blocks (a train step's state under a model
-    axis, say) as `Placed` leaves on ``mesh`` under ``specs``, with the
-    global ``shapes`` (a tree of the same keys)."""
-    if isinstance(tree, dict):
-        return {k: placed(tree[k], specs[k], mesh, shapes[k]) for k in tree}
-    return Placed(tree, tuple(specs), mesh, tuple(shapes), tree.dtype)
-
-
-def local(tree) -> dict:
-    """The tensors of a tree of `Placed` leaves: this rank's blocks, the
-    state a step on their mesh runs on."""
-    if isinstance(tree, dict):
-        return {k: local(v) for k, v in tree.items()}
-    return tree.local
 
 
 def remesh_state(state, new_mesh, spec_fn, device="cpu"):

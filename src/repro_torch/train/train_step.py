@@ -67,29 +67,21 @@ class TrainPlan:
 
 
 def state_specs(plan: TrainPlan, params=None) -> dict:
-    """Specs for ``{params, opt{m, v, step}}``: `sharding.param_pspecs`
-    of the parameters, `sharding.zero1_spec` of each moment. ``params``:
-    the whole parameters or their shapes (default: ``cfg``'s)."""
+    """Specs for ``{params, opt{m, v, step}}`` as the step holds them on
+    ``plan.mesh``: `sharding.param_pspecs` of the parameters under a model
+    axis (``()``, whole, under a model axis of 1, where the data-parallel
+    step keeps them whole), `sharding.zero1_spec` of each moment on top of
+    its `param_pspecs`. ``params``: the whole parameters or their shapes
+    (default: ``cfg``'s)."""
     if params is None:
         params = param_shapes(plan.cfg)
     pspecs = SH.param_pspecs(plan.cfg, params, plan.mesh, plan.dp_axes)
     mspecs = adamw.unflatten(params, [
         SH.zero1_spec(s, tuple(SH._shape(p)), plan.mesh, plan.dp_axes)
         for s, p in zip(adamw.leaves(pspecs), adamw.leaves(params))])
+    if not model_parallel(plan):
+        pspecs = adamw.unflatten(params, [()] * len(adamw.leaves(params)))
     return {"params": pspecs, "opt": {"m": mspecs, "v": mspecs, "step": ()}}
-
-
-def state_shapes(cfg: ModelConfig) -> dict:
-    """The whole train state's shapes: `init_state`'s tree."""
-    shapes = param_shapes(cfg)
-    return {"params": shapes, "opt": {"m": shapes, "v": shapes, "step": ()}}
-
-
-def state_spec_fn(cfg: ModelConfig, dp_axes=("data",)):
-    """``spec_fn(state, mesh)`` for `train.elastic.remesh_state`: a train
-    state's `state_specs` on ``mesh`` (from ``cfg``'s shapes)."""
-    return lambda state, mesh: state_specs(
-        TrainPlan(cfg=cfg, mesh=mesh, dp_axes=tuple(dp_axes)))
 
 
 def model_parallel(plan: TrainPlan) -> bool:
@@ -119,11 +111,11 @@ def _zero1_layout(plan: TrainPlan, params) -> list:
     for p, ps, ms in zip(flat, adamw.leaves(specs["params"]),
                          adamw.leaves(specs["opt"]["m"])):
         hit = None
-        for dim, (pe, me) in enumerate(zip(ps, ms)):
+        for dim, me in enumerate(ms):
             # the data axes that cut the moment further than the local
             # parameter (whole, or its blocks); under a model axis one of
             # a single rank cuts nothing
-            held = _names(pe) if blocks else ()
+            held = _names(ps[dim]) if dim < len(ps) else ()
             names = tuple(a for a in _names(me) if a in dp and a not in held
                           and (sizes[a] > 1 or not blocks))
             if names:
@@ -178,13 +170,19 @@ def reduce_grads(flat: list, sums: list, n: int) -> list:
     """``flat`` (gradients in `adamw.leaves` order) SUMmed over each
     leaf's axes ``sums`` (`grad_sums`) through the active layout's axes
     (`sharding.Layout.axis`) and divided by ``n``, the data size: the
-    leaves summed over every axis in one packed collective, the others a
-    collective each."""
+    leaves summed over every axis in one packed collective (two under
+    per-rank bodies, which have no group over the model and data axes
+    together: the model's, then the data's), the others a collective
+    each."""
     lay = SH.layout()
     every = set(a for s in sums for a in s)
     whole = [i for i, s in enumerate(sums) if s and set(s) == every]
     if whole:
-        summed = lay.axis(tuple(every)).sum_all(*[flat[i] for i in whole])
+        summed = [flat[i] for i in whole]
+        for names in (({"model"} & every, every - {"model"})
+                      if isinstance(lay.mesh, dict) else (every,)):
+            if names:
+                summed = lay.axis(tuple(names)).sum_all(*summed)
         for i, g in zip(whole, summed):
             flat[i] = g
     for i, s in enumerate(sums):

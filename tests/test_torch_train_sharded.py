@@ -18,17 +18,19 @@ re-meshing of blocks (`train/elastic.py`) and the driver's
   integers equal the one-device run's.
 - **Train steps.** In gloo process groups (`torch_dist.spawn`) at (1, 2),
   (1, 4) and (2, 2), and over the data axes ``("pod", "data")`` at (2, 1,
-  2) and (2, 2, 1): two AdamW steps with clipping equal the port's
+  2) and (2, 2, 1): three AdamW steps with clipping equal the port's
   one-device steps at atol 2e-4 / rtol 1e-3 (loss, grad norm, every
   parameter), and the reference's `build_train_step` on
   ``make_host_mesh(d, m)`` over 8 host devices (one subprocess) at the
   tolerance of `tests/test_torch_train.py::test_train_step_matches_jax`:
-  loss and grad norm at atol 2e-4 / rtol 1e-3, each parameter within
-  3·Σ lr. The reference covers every family at (2, 2), ``fsdp`` at (2,
+  loss and grad norm at atol 2e-4 / rtol 1e-3 (those of step 2 after
+  the sharded update of step 1), each parameter within 3·Σ lr. The reference covers every family at (2, 2), ``fsdp`` at (2,
   2), and qwen2.5-3b at (1, 2) and (1, 4).
 - **Checkpoints and re-meshing.** A state saved at (2, 2) holds whole
   arrays in the reference's format and restores at (1, 1) and (1, 4) to
-  an equal next step; `elastic.remesh_state` moves it from model axis 2
+  an equal next step, as does the data-parallel step's with ``fsdp``
+  (its parameters whole) saved at (2, 1) on one device;
+  `elastic.remesh_state` moves the first from model axis 2
   to 4 with the values unchanged; ``launch.train --model-parallel 2
   --data-parallel 2`` trains on 4 ranks and resumes on 2; a ZeRO-1
   parameter gather that fails at (2, 2) tears the update, and
@@ -72,7 +74,9 @@ ATOL, RTOL = 2e-4, 1e-3            # train steps (the LM parity tolerance)
 FAMILIES = ["qwen2.5-3b", "h2o-danube-1.8b", "qwen3-moe-235b-a22b",
             "deepseek-v2-lite-16b", "mamba2-130m", "zamba2-7b",
             "whisper-small", "internvl2-26b"]
-BASE = {"B": 4, "S": 24, "steps": 2}
+# three steps: warmup 1 gives step 0 a learning rate of 0, so the loss and
+# grad norm of step 2 are the first to see a sharded update twice over
+BASE = {"B": 4, "S": 24, "steps": 3}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -376,7 +380,9 @@ def _sid(c):
 
 
 POD = ("pod", "data", "model")
-WORLD2 = [_case("qwen2.5-3b", (1, 2))]
+# the data-parallel step holds fsdp's parameters whole: saved by its specs
+DP_FSDP = _case("internvl2-26b", (2, 1), fsdp=True, save=True)
+WORLD2 = [_case("qwen2.5-3b", (1, 2)), DP_FSDP]
 FSDP = [_case("internvl2-26b", (2, 2), fsdp=True),
         _case("qwen3-moe-235b-a22b", (2, 2), fsdp=True)]
 PODS = [_case("qwen2.5-3b", (2, 1, 2), POD),
@@ -385,7 +391,7 @@ WORLD4 = ([_case(a, (2, 2)) for a in FAMILIES]
           + [_case("qwen2.5-3b", (1, 4))] + FSDP + PODS)
 # the reference's cases, each compiled once in one subprocess: every family
 # at (2, 2), qwen2.5-3b at (1, 2) and (1, 4), and fsdp
-REFERENCE = WORLD2 + WORLD4[:len(FAMILIES) + 1] + FSDP[:1]
+REFERENCE = WORLD2[:1] + WORLD4[:len(FAMILIES) + 1] + FSDP[:1]
 RESILIENT = _case("qwen2.5-3b", (2, 2), resilient=True, fail_at=1, steps=3)
 SAVE = _case("qwen2.5-3b", (2, 2), save=True)
 RESTORE = _case("qwen2.5-3b", (1, 4), restore=True, remesh=4)
@@ -495,12 +501,15 @@ def trained(tmp_path_factory):
         resilient = dict(RESILIENT, resilient=str(tmp_path_factory.mktemp(
             "resilient")))
         world4 = WORLD4 + [save, restore, resilient]
+        dp_ckpt = str(tmp_path_factory.mktemp("dp_fsdp_ckpt"))
+        world2 = [dict(c, save=dp_ckpt) if c.get("save") else c
+                  for c in WORLD2]
         ranks = {2: spawn(2, "train_world", tmp_path_factory.mktemp("tw2"),
-                          WORLD2, [trees[c["arch"]] for c in WORLD2]),
+                          world2, [trees[c["arch"]] for c in WORLD2]),
                  4: spawn(4, "train_world", tmp_path_factory.mktemp("tw4"),
                           world4, [trees[c["arch"]] for c in world4])}
         by_case = {}
-        for world, cs in ((2, WORLD2), (4, world4)):
+        for world, cs in ((2, world2), (4, world4)):
             for i, c in enumerate(cs):
                 by_case[_sid(c)] = [r[i] for r in ranks[world]]
         single = {}
@@ -527,7 +536,7 @@ def trained(tmp_path_factory):
         if proc.poll() is None:
             proc.kill()
     return {"ranks": by_case, "single": single, "ref": ref, "cli": cli,
-            "restored": restored, "ckpt": ckpt}
+            "restored": restored, "ckpt": ckpt, "dp_ckpt": dp_ckpt}
 
 
 def _cli_runs(tmp_path_factory):
@@ -554,8 +563,9 @@ def test_sharded_steps_equal_the_one_device_steps(trained, case):
     want = trained["single"][_sid(case)]
     cfg = train_config(case)
     sizes = dict(zip(case["names"], case["shape"]))
-    specs = adamw.leaves(SH.param_pspecs(cfg, param_shapes(cfg), sizes, tuple(
-        a for a in case["names"] if a != "model")))
+    specs = adamw.leaves(TS.state_specs(TS.TrainPlan(
+        cfg=cfg, mesh=sizes, dp_axes=tuple(
+            a for a in case["names"] if a != "model")))["params"])
     for rank, res in enumerate(trained["ranks"][_sid(case)]):
         assert len(res["metrics"]) == case["steps"]
         for got, w in zip(res["metrics"], want["metrics"]):
@@ -639,6 +649,27 @@ def test_a_checkpoint_holds_whole_arrays_and_restores_on_other_meshes(
         _close(trained["restored"]["metrics"][k], want[k], what=k)
     _close(want["loss"], trained["single"][_sid(SAVE)]["metrics"][step][
         "loss"])
+
+
+def test_a_data_parallel_fsdp_checkpoint_holds_whole_arrays(trained):
+    """At a model axis of 1 the step holds fsdp's parameters whole and its
+    moments as ZeRO-1 slices: saved at (2, 1) by `state_specs`, the files
+    hold the whole state, and the next step equals one device's."""
+    saved = trained["ranks"][_sid(DP_FSDP)]
+    step = DP_FSDP["steps"]
+    cfg = train_config(DP_FSDP)
+    state_like = TS.init_state(get_api(cfg).init_params(
+        cfg, torch.Generator().manual_seed(1), device="cpu"))
+    whole, at = CKPT.restore(state_like, trained["dp_ckpt"])
+    assert at == step
+    for name, tree in (("params", whole["params"]),
+                       ("m", whole["opt"]["m"]), ("v", whole["opt"]["v"])):
+        for got, want in zip(adamw.leaves(tree), saved[0]["saved"][name]):
+            np.testing.assert_array_equal(got.numpy(), want)
+    one = trained["single"][_sid(DP_FSDP)]["metrics"][step]
+    for res in saved:
+        for k in ("loss", "grad_norm", "lr"):
+            _close(res["next"][k], one[k], what=k)
 
 
 def test_driver_trains_under_a_model_axis_and_resumes_on_two_ranks(trained):

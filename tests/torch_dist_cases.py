@@ -142,6 +142,7 @@ def dp_train(rank, world, archs, steps, batch, seq, ckpt_dir, ckpt_arch):
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import TokenStream, make_batch
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import sharding as SH
     from repro_torch.models.api import get_api
     from repro_torch.train import checkpoint as CKPT
     from repro_torch.train import train_step as TS
@@ -176,12 +177,13 @@ def dp_train(rank, world, archs, steps, batch, seq, ckpt_dir, ckpt_arch):
         res["shards"] = TS.zero1_shards(plan, sd["params"])
         res["specs"] = TS.state_specs(plan, sd["params"])["opt"]["m"]
         res["m_local"] = [t.shape for t in _leaves_np(sd["opt"]["m"])]
-        whole = CKPT.gather_zero1(sd, mesh.get_group("data"))
+        specs = TS.state_specs(plan)
+        whole = SH.gather_blocks(sd, specs, mesh)
         res["mom1"] = _leaves_np(s1["opt"]["m"]) + _leaves_np(s1["opt"]["v"])
         res["momd"] = (_leaves_np(whole["opt"]["m"])
                        + _leaves_np(whole["opt"]["v"]))
         if arch == ckpt_arch:
-            CKPT.save(sd, steps, ckpt_dir, mesh=mesh)
+            CKPT.save(sd, steps, ckpt_dir, mesh=mesh, specs=specs)
             res["saved"] = {"p": _leaves_np(whole["params"]),
                             "m": _leaves_np(whole["opt"]["m"]),
                             "v": _leaves_np(whole["opt"]["v"]),
@@ -197,6 +199,7 @@ def dp_restore(rank, world, arch, ckpt_dir):
 
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import sharding as SH
     from repro_torch.models.api import get_api
     from repro_torch.train import checkpoint as CKPT
     from repro_torch.train import train_step as TS
@@ -208,8 +211,9 @@ def dp_restore(rank, world, arch, ckpt_dir):
     params = get_api(cfg).init_params(cfg, torch.Generator().manual_seed(1),
                                       device=CPU)
     like = TS.init_state(params, plan.opt, plan)
-    state, step = CKPT.restore(like, ckpt_dir, mesh=mesh)
-    whole = CKPT.gather_zero1(state, mesh.get_group("data"))
+    specs = TS.state_specs(plan)
+    state, step = CKPT.restore(like, ckpt_dir, mesh=mesh, specs=specs)
+    whole = SH.gather_blocks(state, specs, mesh)
     return {"p": _leaves_np(whole["params"]), "m": _leaves_np(whole["opt"]["m"]),
             "v": _leaves_np(whole["opt"]["v"]),
             "step": int(whole["opt"]["step"]), "at": step,
@@ -580,7 +584,8 @@ def _mesh_of(case):
 def train_world(rank, world, cases, trees):
     """Each case through `build_train_step` on its mesh (the world's
     first ranks): the rank's blocks of the case's tree
-    (`params_from_arrays(mesh=)`) or of a restored checkpoint
+    (`params_from_arrays(mesh=)`; whole at a model axis of 1, as the
+    data-parallel step holds them) or of a restored checkpoint
     (``restore``: one step, at the saved step), its rows of each batch;
     ``steps`` AdamW steps with clipping. Returns per case each step's
     metrics, the parameters gathered whole (f32 numpy, `adamw.leaves`
@@ -593,6 +598,7 @@ def train_world(rank, world, cases, trees):
     from repro_torch.interop import params_from_arrays
     from repro_torch.launch.mesh import dp_rank
     from repro_torch.models import sharding as SH
+    from repro_torch.models.api import param_shapes
     from repro_torch.optim.adamw import leaves
     from repro_torch.train import checkpoint as CKPT
     from repro_torch.train import elastic as EL
@@ -605,18 +611,20 @@ def train_world(rank, world, cases, trees):
         plan = TS.TrainPlan(cfg=cfg, warmup=1, total_steps=10, mesh=mesh,
                             dp_axes=dp)
         specs = TS.state_specs(plan)
+        cut = (dict(mesh=mesh, dp_axes=dp) if TS.model_parallel(plan)
+               else {})
         if case.get("resilient"):
             out.append(_resilient(case, cfg, mesh, dp, plan, specs, TS.
                                   init_state(params_from_arrays(
-                                      cfg, tree, CPU, mesh=mesh, dp_axes=dp),
-                                      plan.opt, plan)))
+                                      cfg, tree, CPU, **cut), plan.opt,
+                                      plan)))
             continue
         if case.get("restore"):
             state, start = _restored(case["restore"], cfg, mesh, plan, specs)
             n = 1
         else:
             state = TS.init_state(params_from_arrays(
-                cfg, tree, CPU, mesh=mesh, dp_axes=dp), plan.opt, plan)
+                cfg, tree, CPU, **cut), plan.opt, plan)
             start, n = 0, case["steps"]
         step = TS.build_train_step(plan)
         res = {"metrics": [], "dp_rank": dp_rank(mesh, dp),
@@ -627,8 +635,9 @@ def train_world(rank, world, cases, trees):
         if case.get("remesh"):
             placed, mcfg, mdp = kept[case["restore"]]
             new = EL.make_mesh_for(range(world), case["remesh"])
-            moved = EL.local(EL.remesh_state(placed, new,
-                                             TS.state_spec_fn(mcfg, mdp)))
+            moved = _local(EL.remesh_state(placed, new, lambda st, mesh: (
+                TS.state_specs(TS.TrainPlan(cfg=mcfg, mesh=mesh,
+                                            dp_axes=mdp)))))
             res["remeshed_equal"] = len(leaves(moved)) == len(leaves(
                 state)) and all(torch.equal(a, b) for a, b in zip(
                     leaves(moved), leaves(state)))
@@ -641,8 +650,10 @@ def train_world(rank, world, cases, trees):
             res["saved"] = {"params": _leaves_np(whole["params"]),
                             "m": _leaves_np(whole["opt"]["m"]),
                             "v": _leaves_np(whole["opt"]["v"])}
-            kept[case["save"]] = (_copy(EL.placed(
-                state, specs, mesh, TS.state_shapes(cfg))), cfg, dp)
+            shapes = param_shapes(cfg)
+            kept[case["save"]] = (_copy(_placed(state, specs, mesh, {
+                "params": shapes, "opt": {"m": shapes, "v": shapes,
+                                          "step": ()}})), cfg, dp)
             state, m = step(state, train_batch(cfg, case, start + n, mesh,
                                                dp))
             res["next"] = _metrics(m)
@@ -650,6 +661,24 @@ def train_world(rank, world, cases, trees):
                                                     specs["params"], mesh))
         out.append(res)
     return out
+
+
+def _placed(tree, specs, mesh, shapes) -> dict:
+    """A tree of this rank's blocks as `elastic.Placed` leaves on ``mesh``
+    under ``specs``, with the global ``shapes`` (a tree of the same
+    keys)."""
+    from repro_torch.train.elastic import Placed
+
+    if isinstance(tree, dict):
+        return {k: _placed(tree[k], specs[k], mesh, shapes[k]) for k in tree}
+    return Placed(tree, tuple(specs), mesh, tuple(shapes), tree.dtype)
+
+
+def _local(tree) -> dict:
+    """The blocks of a tree of `elastic.Placed` leaves."""
+    if isinstance(tree, dict):
+        return {k: _local(v) for k, v in tree.items()}
+    return tree.local
 
 
 def _copy(tree):
