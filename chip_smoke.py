@@ -88,6 +88,21 @@ Phases, each printing one JSON line with its seconds:
            to the host `node_shingles_u32`; `group_jaccard` (pairwise
            kernel) on rmat's 512 highest-degree neighbor sets equal to its
            plain version and to the host sets' Jaccard on sampled pairs
+  tooling  slice G, in three parts: (a) after `shingles`, SLUGGER through
+           `summarize(T=20, backend="resident")` on caveman(2000, 11, 0.03)
+           (109,997 edges; top-J and fold launched, counts from 0) beside
+           the flat baselines on the host (`core.baselines`: SWEG at T=20,
+           RANDOMIZED, SAGS-like, seed 0; in a worker process while the LM
+           phases run, gathered after (b)): every summary lossless,
+           relative sizes and seconds; (b) after `lm_serve`, on its weights: one
+           prefill of 8 × 1,024 through the dry run's step on a one-rank
+           world, counted by `launch.step_analysis` on the card, equal in
+           FLOPs, bytes and flash work and launches to the dry run of the
+           same step on meta, then timed beside its roofline terms (H100
+           data-sheet bounds); (c) inside `lm_train`, on its live state:
+           `analytic_hbm`'s params and opt_moments equal to the state's
+           tensors' bytes, its gradients and total, and the dry run's
+           traced peak, printed beside `max_memory_allocated`
   lm_serve qwen2.5-3b at full width and all 36 layers in bf16, random
            weights from `torch.Generator(seed=0)`: 16 prompts of 1,024
            tokens through `BatchServer(batch_slots=8)`, 32 greedy tokens
@@ -99,9 +114,9 @@ Phases, each printing one JSON line with its seconds:
            (the reference's tolerance), (c) decode steps vs a
            teacher-forced forward
   trace    the batched and the resident paths, the kernel-backend serve
-           drains, the shingle calls and the LM drain once more each under
-           `torch.profiler`: device busy time by kernel, copy and torch op
-           against each run's wall time
+           drains, the shingle calls and the LM drain (8 generated tokens a
+           prompt) once more each under `torch.profiler`: device busy time
+           by kernel, copy and torch op against each run's wall time
   lm_mla_moe  slices F2 + F3, after the traces, qwen2.5-3b's weights gone
            from the card: deepseek-v2-lite-16b (MLA + 64 routed and 2
            shared experts, top-6) at full width and all 27 layers in bf16,
@@ -249,7 +264,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
 # Results per SM per clock on compute capability 9.0 (CUDA C++ Programming
 # Guide, arithmetic instruction throughput): 32-bit integer add, compare
 # and bitwise AND issue on 64 lanes, 32-bit population count on 16. The
@@ -290,13 +304,13 @@ SERVE_QUERIES = 16384
 SERVE_SLOTS = 256
 SHINGLE_SEEDS = (0, 1, 2)
 JACCARD_ROWS = 512
-# Dense peaks of the H100 SXM (NVIDIA's data sheet): bf16 on the tensor
-# cores, f32 on the CUDA cores; int8 on the tensor cores. The data sheet
-# gives no binary (b1) rate: on the card the b1 MMA m16n8k256 issues at the
-# int8 MMA m16n8k32's rate (`popc_bench.py --probe`: both ≈ 0.6 a clock an
-# SM) with 8 times the element pairs, so it is taken as 8 times the int8
-# peak (2 operations a bit pair, as int8 counts 2 an element pair).
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# The HBM rate and the bf16 and f32 dense peaks are the port's roofline's
+# (`src/repro_torch/launch/roofline.py`, `roofline()`). The int8 dense peak
+# on the tensor cores is the H100 SXM data sheet's. The data sheet gives no
+# binary (b1) rate: on the card the b1 MMA m16n8k256 issues at the int8 MMA
+# m16n8k32's rate (`popc_bench.py --probe`: both ≈ 0.6 a clock an SM) with
+# 8 times the element pairs, so it is taken as 8 times the int8 peak (2
+# operations a bit pair, as int8 counts 2 an element pair).
 INT8_OPS_PER_S = 1.979e15
 B1_OPS_PER_S = 8 * INT8_OPS_PER_S
 # (B, H, Hkv, Sq, Sk, D, Dv, dtype, causal, window): the serving prefill's
@@ -324,6 +338,10 @@ LM_ARCH = "qwen2.5-3b"
 LM_PROMPTS, LM_PROMPT_LEN, LM_GEN, LM_SLOTS = 16, 1024, 32, 8
 LM_F32_ATOL, LM_F32_RTOL = 2e-4, 1e-3  # tests/test_flash_attn_kernel.py:68
 LM_DECODE_CHECK = 8   # decode steps held to the teacher-forced forward
+# decode steps the lm-serve trace records: its flash calls are all in the
+# prefills, and the profiler's own cost grows with decode's ≈ 3,200
+# launches a step (45 s for the whole drain of 32 tokens)
+LM_TRACE_GEN = 8
 MLA_MOE_ARCH = "deepseek-v2-lite-16b"
 MLA_MOE_F32_LAYERS = 4    # depth of the f32 checks (the f32 copy's cut)
 # prompts of check (c): at capacity factor n_experts every expert's buffer
@@ -370,6 +388,16 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 # --------------------------------------------------------------- inputs/bounds
+def roofline():
+    """The port's H100 roofline (`repro_torch.launch.roofline`): the
+    data-sheet rates (``HBM_BYTES_PER_S``, ``PEAK_FLOPS``), the flash
+    kernel's work and a step's model FLOPs. Imported when first used, once
+    `main` has put ``src/`` on the path."""
+    from repro_torch.launch import roofline as RL
+
+    return RL
+
+
 def inter_input(B, G, W, rng):
     import numpy as np
     import torch
@@ -393,7 +421,7 @@ def card_rates():
     return {"sms": sms, "sm_clock_max_mhz": mhz,
             "int32_ops_per_s": INT32_LANES_PER_SM * sms * mhz * 1e6,
             "popc_per_s": POPC_LANES_PER_SM * sms * mhz * 1e6,
-            "hbm_bytes_per_s": HBM_BYTES_PER_S}
+            "hbm_bytes_per_s": roofline().HBM_BYTES_PER_S}
 
 
 def gram_ops_bound_s(pairs, rates):
@@ -779,27 +807,15 @@ def new_kernel_rows(rng, rates):
 
 
 # ------------------------------------------------------------ flash attention
-def flash_pairs(Sq, Sk, causal, window):
-    """The (query, key) pairs the mask lets through, per (b, h)."""
-    import numpy as np
-
-    if not causal:
-        return Sq * Sk
-    q = np.arange(Sq, dtype=np.int64)
-    hi = np.minimum(q, Sk - 1)
-    lo = np.maximum(0, q - window + 1) if window else np.zeros_like(q)
-    return int(np.maximum(0, hi - lo + 1).sum())
-
-
 def flash_bound_s(B, H, Hkv, Sq, Sk, D, Dv, dtype, causal, window):
-    """Bytes: q, k (D wide), v and o (Dv wide) read or written once.
-    Operations: 2·(D + Dv) per visible (query, key) pair (q·k and p·v, a
-    multiply-add each), at the card's dense peak for the inputs' type."""
-    size = 2 if dtype == "bfloat16" else 4
-    by_bytes = (B * H * Sq * (D + Dv) + B * Hkv * Sk * (D + Dv)) * size \
-        / HBM_BYTES_PER_S
-    flops = 2 * (D + Dv) * flash_pairs(Sq, Sk, causal, window) * B * H
-    return by_bytes, flops / PEAK_FLOPS[dtype]
+    """`roofline.flash_work` of the call: its bytes (q, k, v and o read or
+    written once) over the HBM rate, its operations (2·(D + Dv) per visible
+    (query, key) pair) at the card's dense peak for the inputs' type."""
+    RL = roofline()
+    flops, nbytes = RL.flash_work(B, H, Hkv, Sq, Sk, D, Dv,
+                                  2 if dtype == "bfloat16" else 4, causal,
+                                  window)
+    return nbytes / RL.HBM_BYTES_PER_S, flops / RL.PEAK_FLOPS[dtype]
 
 
 def flash_input(B, H, Hkv, Sq, Sk, D, Dv, dtype, rng):
@@ -973,17 +989,23 @@ def phase_device():
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA card visible to torch")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
+    smi = card_line()
+    print(smi, flush=True)
     dev = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
            "count": torch.cuda.device_count()}
     rates = card_rates()
     emit("device", t0, **dev, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, rates=rates)
-    return dev, smi.splitlines()[0], rates
+    return dev, smi, rates
+
+
+def card_line() -> str:
+    """Card 0's name and power limit, as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
 
 
 def flash_ptxas(ptxas):
@@ -3556,13 +3578,15 @@ def train_whole():
     tokens, 6 steps of `ResilientLoop` without checkpoints, each step
     ending in a synchronize. Gates: every loss finite, no flash launch
     (training attends through the chunked twin). The model-FLOPs share is
-    6·N·tokens a step (N by `param_count`; the recompute of remat left
-    out) over the median step's seconds, against 989 TFLOP/s."""
+    `roofline.model_flops_for` (6·N·tokens a step, N by `param_count`; the
+    recompute of remat left out) over the median step's seconds, against
+    989 TFLOP/s."""
     import math
     import statistics
 
     import torch
 
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import TokenStream, make_batch
     from repro_torch.kernels.flash_attn import kernel as KF
@@ -3607,7 +3631,10 @@ def train_whole():
         raise AssertionError(
             f"{LM_ARCH} training: reached step {end}, failures "
             f"{loop.failures}, losses {losses}, {launches} flash launches")
+    tooling_memory(cfg, state)
     tokens = TRAIN_BATCH * TRAIN_SEQ
+    RL = roofline()
+    TRAIN_SHAPE = ShapeConfig("lm_train", TRAIN_SEQ, TRAIN_BATCH, "train")
     steady = statistics.median(times[1:])
     n = cfg.param_count()
     del loop, state, params
@@ -3618,10 +3645,11 @@ def train_whole():
             "state_bytes": state_bytes, "step_seconds": times,
             "steady_step_seconds": steady,
             "tokens_per_s": tokens / steady,
-            "model_flops_share": 6 * n * tokens / steady
-            / PEAK_FLOPS["bfloat16"],
-            "model_flops_note": "6·N·tokens, remat's recompute left out, "
-                                "against 989 TFLOP/s bf16",
+            "model_flops_share": RL.model_flops_for(cfg, TRAIN_SHAPE)
+            / steady / RL.PEAK_FLOPS["bfloat16"],
+            "model_flops_note": "roofline.model_flops_for: 6·N·tokens, "
+                                "remat's recompute left out, against 989 "
+                                "TFLOP/s bf16 (data sheet)",
             "max_memory_allocated": peak, "flash_launches": launches,
             "losses": losses,
             "grad_norms": [m["grad_norm"] for m in metrics],
@@ -4272,12 +4300,13 @@ def tensor_leaves(tree):
 
 
 def phase_trace_lm(lm):
-    """The whole drain once more under the profiler, after a warm-up run
-    of one prompt and 2 tokens: the device's busy share and its top ops
-    over prefill and decode."""
+    """The drain once more under the profiler — every prompt, its prefills
+    whole, ``LM_TRACE_GEN`` tokens each — after a warm-up run of one
+    prompt and 2 tokens: the device's busy share and its top ops over
+    prefill and decode."""
     t0 = time.perf_counter()
     wall, by_name = traced(lambda: lm["server"].run(lm["prompts"],
-                                                    gen_tokens=LM_GEN),
+                                                    gen_tokens=LM_TRACE_GEN),
                            warmup=lambda: lm["server"].run(
                                lm["prompts"][:1], gen_tokens=2))
     emit_trace(t0, "lm-serve", wall, by_name, top=12)
@@ -5169,6 +5198,209 @@ def mt_steps(failed):
     return fields
 
 
+# ------------------------------------------------------------------ tooling
+TOOLING_GRAPH = (2000, 11, 0.03)  # caveman(n_cliques, size, rewire), seed 0
+
+
+def tooling_baselines():
+    """The flat baselines of tooling (a) on the host (`core.baselines`:
+    SWEG at T=20, RANDOMIZED, SAGS-like; seed 0, the reference's
+    defaults) on `TOOLING_GRAPH`: each summary's losslessness, relative
+    size, cost and seconds. Runs in a worker process beside the card's
+    phases (`phase_tooling_compactness`)."""
+    from repro_torch.core import baselines as BL
+    from repro_torch.graphs import generators as GG
+
+    graph = GG.caveman(*TOOLING_GRAPH, seed=0)
+    out = {}
+    for name, fn in (("sweg", lambda: BL.sweg(graph, T=20, seed=0)),
+                     ("randomized", lambda: BL.randomized(graph, seed=0)),
+                     ("sags_like", lambda: BL.sags_like(graph, seed=0))):
+        tw = time.perf_counter()
+        summ = fn()
+        secs = time.perf_counter() - tw
+        out[name] = {"lossless": bool(summ.validate_lossless(graph)),
+                     "relative_size": summ.relative_size(graph),
+                     "cost": summ.cost(), "seconds": secs}
+    return out
+
+
+def phase_tooling_compactness():
+    """Tooling (a), the paper's compactness comparison on
+    ``caveman(2000, 11, 0.03, seed=0)`` (109,997 edges): the flat
+    baselines start on the host in a worker process (`tooling_baselines`,
+    ≈ 20 s of one core, off the card's path), SLUGGER runs through
+    `summarize(T=20, backend="resident")` on the card, launch counts from
+    0 (top-J and fold must launch). Returns what `finish_tooling_
+    compactness` gates and prints once the LM phases have run."""
+    import concurrent.futures
+    import multiprocessing
+
+    import torch
+
+    import repro_torch
+    from repro_torch.graphs import generators as GG
+
+    t0 = time.perf_counter()
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    future = pool.submit(tooling_baselines)
+    graph = GG.caveman(*TOOLING_GRAPH, seed=0)
+    reset_launches()
+    tw = time.perf_counter()
+    ours = repro_torch.summarize(graph, T=20, backend="resident",
+                                 device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - tw
+    launches = read_launches()
+    for name in ("jaccard_topj", "bitset_fold"):
+        if launches[name] <= 0:
+            raise AssertionError(f"tooling: the resident summary never "
+                                 f"launched {name}")
+    if not ours.validate_lossless(graph):
+        raise AssertionError("tooling: the resident summary does not "
+                             "decompress to the input graph")
+    return {"pool": pool, "future": future, "seconds": time.perf_counter()
+            - t0, "graph": {"n": graph.n, "m": graph.m},
+            "launches": launches,
+            "slugger_resident": {"lossless": True,
+                                 "relative_size": ours.relative_size(graph),
+                                 "cost": ours.cost(), "seconds": secs}}
+
+
+def finish_tooling_compactness(pending):
+    """Tooling (a)'s end: wait for the baselines' worker, stop it, gate
+    every summary lossless and print each method's relative size and
+    seconds (the baselines' on one host core beside the card's phases)."""
+    t0 = time.perf_counter()
+    try:
+        methods = {"slugger_resident": pending["slugger_resident"],
+                   **pending["future"].result(timeout=600)}
+    finally:
+        pending["pool"].shutdown(wait=True, cancel_futures=True)
+    for name, m in methods.items():
+        if not m["lossless"]:
+            raise AssertionError(f"tooling: the {name} summary does not "
+                                 f"decompress to the input graph")
+    emit("tooling", t0, part="a_compactness", card=card_line(),
+         slugger_phase_seconds=pending["seconds"], graph=pending["graph"],
+         launches=pending["launches"], methods=methods)
+
+
+def phase_tooling_counts(lm):
+    """Tooling (b): one bf16 prefill of qwen2.5-3b at full width, of a
+    batch as `lm_serve` shapes it (``LM_SLOTS`` prompts of
+    ``LM_PROMPT_LEN`` tokens, int32), on `lm_serve`'s weights, through the
+    dry run's step (`launch.dryrun.step_of` on a one-rank world) on the
+    card, counted by `launch.step_analysis.analyze_step`. Its FLOPs, bytes
+    and flash work must equal, exactly, the dry run of the same (cfg,
+    batch, length) on meta, and the count's flash launches the kernel's
+    own counter. The step is then timed without the counter (median of 3
+    after a warm-up), beside the roofline's terms of the count — bounds
+    from the H100 data sheet, not measurements."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attn import kernel as KF
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import dp_axes_of, make_host_mesh
+    from repro_torch.launch.step_analysis import analyze_step
+
+    t0 = time.perf_counter()
+    RL = roofline()
+    server = lm["server"]
+    cfg, params = server.cfg, server.params
+    shape = ShapeConfig("lm_serve_prefill", LM_PROMPT_LEN, LM_SLOTS,
+                        "prefill")
+    toks = torch.from_numpy(np.stack(lm["prompts"][:LM_SLOTS])).to(
+        device="cuda", dtype=torch.int32)
+    with dryrun.fake_world(1):
+        mesh = make_host_mesh(1, 1)
+        fn, args = dryrun.step_of(cfg, shape, mesh, dp_axes_of(mesh),
+                                  device="cuda", params=params,
+                                  inputs={"tokens": toks})
+        before = KF.LAUNCHES
+        with torch.no_grad():
+            card = analyze_step(fn, *args)
+        torch.cuda.synchronize()
+        launched = KF.LAUNCHES - before
+        times = []
+        with torch.no_grad():
+            for _ in range(4):
+                tw = time.perf_counter()
+                fn(*args)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - tw)
+    del card["out"]
+    meta = dryrun.count_one_rank(cfg, shape)
+    flash = card["kernels"].get("flash_attention", {})
+    for key in ("flops", "bytes", "kernels"):
+        if card[key] != meta[key]:
+            raise AssertionError(f"tooling: the card's prefill counts {key} "
+                                 f"{card[key]}, the dry run on meta "
+                                 f"{meta[key]}")
+    if flash.get("launches") != launched or launched != cfg.n_layers:
+        raise AssertionError(f"tooling: {launched} flash launches on the "
+                             f"card, the count says {flash}, the model has "
+                             f"{cfg.n_layers} layers")
+    rl = RL.from_counts(LM_ARCH, shape.name, "one_card", 1, card, cfg, shape,
+                        card["peak_bytes"])
+    measured = statistics.median(times[1:])
+    emit("tooling", t0, part="b_counts", card=card_line(), arch=LM_ARCH,
+         batch=LM_SLOTS, seq=LM_PROMPT_LEN, flops=card["flops"],
+         bytes=card["bytes"], flash=flash, equal_on_meta=True,
+         ops_counted=sum(card["ops"].values()),
+         measured_seconds=measured, measured_runs=times,
+         bound_note="t_* and roofline_fraction: H100 data-sheet bounds "
+                    "(roofline.py), not measurements",
+         t_compute=rl.t_compute, t_memory=rl.t_memory,
+         roofline_fraction=rl.roofline_fraction,
+         model_flops=rl.model_flops, bound_over_measured=max(
+             rl.t_compute, rl.t_memory) / measured,
+         traced_peak_bytes=card["peak_bytes"],
+         meta_step_seconds=meta["step_s"])
+
+
+def tooling_memory(cfg, state):
+    """Tooling (c), inside `train_whole` while its state lives:
+    `memory_model.analytic_hbm` of qwen2.5-3b at `lm_train`'s shape on
+    one card, the whole batch one microbatch as the step runs it; its
+    ``params`` and ``opt_moments`` must equal the bytes of
+    the real state's tensors exactly. ``grads_f32``, the total and the dry
+    run's ``traced_peak_bytes`` (the same train step on meta on a one-rank
+    world) are printed beside `torch.cuda.max_memory_allocated()`: a
+    report, not a gate."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.memory_model import analytic_hbm
+
+    t0 = time.perf_counter()
+    shape = ShapeConfig("lm_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    hbm = analytic_hbm(cfg, shape, {"data": 1, "model": 1}, ("data",),
+                       microbatch=TRAIN_BATCH)
+    opt = state["opt"]
+    real = {"params": sum(t.numel() * t.element_size()
+                          for t in tensor_leaves(state["params"])),
+            "opt_moments": sum(t.numel() * t.element_size()
+                               for part in (opt["m"], opt["v"])
+                               for t in tensor_leaves(part))}
+    for key, got in real.items():
+        if hbm[key] != got:
+            raise AssertionError(f"tooling: analytic_hbm {key} {hbm[key]}, "
+                                 f"the state's tensors hold {got} bytes")
+    meta = dryrun.count_one_rank(cfg, shape)
+    emit("tooling", t0, part="c_memory", card=card_line(), arch=LM_ARCH,
+         analytic_hbm=hbm, state_bytes=real,
+         traced_peak_bytes=meta["peak_bytes"],
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         meta_step_seconds=meta["step_s"])
+
+
 def threading_name():
     import threading
 
@@ -5212,7 +5444,10 @@ def main() -> int:
     rmat_ps, rmat_queries, rmat_calls, rmat_launches = phase_serve(
         rmat, rmat_batched, "rmat_14_8")
     shingles = phase_shingles(graph, rmat)
+    compactness = phase_tooling_compactness()
     lm = phase_lm_serve()
+    phase_tooling_counts(lm)
+    finish_tooling_compactness(compactness)
     device_us = phase_trace(graph, "batched")
     device_us.update(phase_trace(graph, "resident", top=16))
     device_us.update(phase_trace_serving(

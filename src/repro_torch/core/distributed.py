@@ -255,7 +255,19 @@ def group_jaccard_scores(nbr_onehot: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # The candidate-generation step of the multi-pod dry-run
 # --------------------------------------------------------------------------
-def summarize_step_fn(n_nodes: int, hist: str = "sort"):
+def _min_scatter(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's block of the elementwise MIN of every rank's ``x`` over
+    ``group`` (a reduce-scatter along dim 0)."""
+    out = x.new_empty((x.shape[0] // dist.get_world_size(group),
+                       *x.shape[1:]))
+    scatter = (getattr(dist, "reduce_scatter_single", None)
+               or dist.reduce_scatter_tensor)
+    scatter(out, x.contiguous(), op=dist.ReduceOp.MIN, group=group)
+    return out
+
+
+def summarize_step_fn(n_nodes: int, hist: str = "sort", mesh=None,
+                      data_axes=None, sharded_out: bool = False):
     """One SLUGGER candidate-generation + scoring step over an edge list:
     shingles → candidate-group-size histogram.
 
@@ -268,24 +280,64 @@ def summarize_step_fn(n_nodes: int, hist: str = "sort"):
         random split the paper applies anyway.
 
     ``step(src, dst, root_of, seed) -> (root_sh, counts)``, both ``(n,)``
-    int64 (``root_sh`` holding u32 values)."""
+    int64 (``root_sh`` holding u32 values). Under ``mesh`` each rank passes
+    its block of the edges (`shingles_sharded`: a MIN all-reduce over the
+    data axes), ``root_of`` whole. With ``sharded_out`` (under a mesh; the
+    reference's output shardings over the data axes) the node and root
+    shingle tables stay sharded — each a MIN reduce-scatter in place of an
+    all-reduce, each rank the segment-min of its block of nodes — and the
+    step returns the rank's block of both outputs (``n`` divisible by the
+    data size): the histogram then reads the global counts (a SUM
+    all-reduce of the buckets, or an all-gather of the root shingles for
+    the exact sort). On ``meta`` (the dry run, where no value exists) the
+    unique's outputs are bounded at ``n``, as the reference's ``size = n``,
+    and its work is the sort it performs."""
     if hist not in ("sort", "scatter"):
         raise ValueError(f"unknown hist {hist!r}; use 'sort' or 'scatter'")
+    if sharded_out and mesh is None:
+        raise ValueError("sharded_out needs a mesh to shard over")
+    group = dp_group(mesh, _data_axes_of(mesh, data_axes)) if sharded_out \
+        else None
+    shingles = (shingles_local if mesh is None
+                else shingles_sharded(mesh, _data_axes_of(mesh, data_axes)))
+
+    def unique_counts(root_sh):
+        if root_sh.device.type == "meta":
+            _, inv = torch.sort(root_sh)
+            return torch.empty_like(inv)[inv]
+        _, inv, counts = torch.unique(root_sh, return_inverse=True,
+                                      return_counts=True)
+        return counts[inv]
 
     def step(src, dst, root_of, seed):
         s = int(seed) & M32
         a = (2654435761 * (s | 1)) & M32
         b = (s * 0x9E3779B9) & M32
-        node_sh = shingles_local(src, dst, n_nodes, a, b)
-        root_sh = root_shingles(node_sh, root_of, n_nodes)
+        if sharded_out:
+            node_sh = _min_scatter(shingles_local(src, dst, n_nodes, a, b),
+                                   group)
+            per = node_sh.shape[0]
+            lo = dist.get_rank(group) * per
+            root_sh = _min_scatter(root_shingles(
+                node_sh, root_of[lo:lo + per], n_nodes), group)
+        else:
+            node_sh = shingles(src, dst, n_nodes, a, b)
+            root_sh = root_shingles(node_sh, root_of, n_nodes)
         if hist == "scatter":
             n_buckets = max(n_nodes // 500, 1)
             bucket = _hash_u32(root_sh, a ^ 0xA5A5A5A5, b) % n_buckets
-            counts = torch.bincount(bucket, minlength=n_buckets)
+            counts = torch.zeros(n_buckets, dtype=torch.int64,
+                                 device=bucket.device).scatter_add_(
+                0, bucket, torch.ones_like(bucket))
+            if sharded_out:
+                dist.all_reduce(counts, group=group)
             return root_sh, counts[bucket]
-        _, inv, counts = torch.unique(root_sh, return_inverse=True,
-                                      return_counts=True)
-        return root_sh, counts[inv]
+        if not sharded_out:
+            return root_sh, unique_counts(root_sh)
+        whole = root_sh.new_empty((n_nodes,))
+        all_gather_rows(whole, root_sh, group)
+        lo = dist.get_rank(group) * root_sh.shape[0]
+        return root_sh, unique_counts(whole)[lo:lo + root_sh.shape[0]]
 
     return step
 

@@ -287,3 +287,20 @@ def encode_self(tv: TreeView, pu: np.ndarray, pv: np.ndarray):
         return total, edges
 
     return enc_self(0, 0, np.asarray(pu, dtype=np.int64), np.asarray(pv, dtype=np.int64))
+
+
+def flat_pair_cost(cnt: int, sa: int, sb: int) -> int:
+    """Flat (previous-model) cost of a root pair: either leaf corrections only
+    (cnt) or one p-edge plus negative corrections (poss − cnt + 1)."""
+    if cnt == 0:
+        return 0
+    poss = sa * sb
+    return min(cnt, poss - cnt + 1)
+
+
+def flat_self_cost(cnt: int, s: int) -> int:
+    """`flat_pair_cost` of a root with itself: its s·(s − 1)/2 leaf pairs."""
+    if cnt == 0:
+        return 0
+    poss = s * (s - 1) // 2
+    return min(cnt, poss - cnt + 1)

@@ -100,9 +100,10 @@ STAGE_ORDER = ("shingle", "group", "pack", "merge_round", "exchange")
 
 def resolve_device(device=None) -> torch.device:
     """``None`` → the CUDA card, which must exist; otherwise the named
-    ``cuda`` or ``cpu`` device. Never falls back from the card to the CPU."""
+    ``cuda`` or ``cpu`` device, or ``meta`` (shapes with no data: the dry
+    run, `launch/dryrun.py`). Never falls back from the card to the CPU."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

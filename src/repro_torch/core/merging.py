@@ -443,6 +443,31 @@ def _sweep_sequential(ws: GroupWorkspace, theta: float,
     return merges
 
 
+def process_group(
+    state,
+    group,
+    theta: float,
+    rng: np.random.Generator,
+    top_j: int = 16,
+    height_bound=None,
+    plan: MergePlan | None = None,
+) -> int:
+    """Algorithm 2 over one candidate set. Returns the number of merges.
+
+    With ``plan`` given the sweep records its decisions there (each as its
+    own single-pair round) and leaves ``state`` alone; without one they are
+    recorded into a fresh plan and applied to ``state`` at once
+    (`apply_plans`), merge by merge in the sweep's order — the state the
+    JAX package's live sweep leaves, parent ids included."""
+    record = plan if plan is not None else MergePlan(group)
+    ws = GroupWorkspace(state, group, plan=record)
+    merges = _sweep_sequential(ws, theta, rng, top_j=top_j,
+                               height_bound=height_bound)
+    if plan is None:
+        apply_plans(state, [record])
+    return merges
+
+
 # ---------------------------------------------------------------------------
 # Batched group-merge engine
 # ---------------------------------------------------------------------------
@@ -988,3 +1013,33 @@ def build_merge_work(
                 group_seeds=group_seeds[idxs], shell=shell_workspaces):
             thunks.append(_batch_thunk(ws))
     return plans, thunks
+
+
+def process_groups(
+    state,
+    groups: list,
+    theta: float,
+    rng: np.random.Generator,
+    top_j: int = 16,
+    height_bound=None,
+    backend: str = "numpy",
+    device=None,
+) -> int:
+    """Batched engine: all groups of one iteration, bucketed by size
+    (`build_merge_work`), every workspace against the state before any of
+    this iteration's merges, then the recorded plans replayed in canonical
+    order (`apply_plans`). Groups up to ``_BATCH_MAX_GROUP`` members sweep
+    in (B, G, ·) batches, larger ones (and every group under ``backend=
+    "loop"``) sequentially, drawing their queue orders from ``rng``.
+    ``device``: where ``backend="batched"`` ranks (the intersection
+    kernel on the card, its plain version on the CPU). Returns the number
+    of merges."""
+    group_seeds = rng.integers(0, np.iinfo(np.int64).max,
+                               size=max(len(groups), 1)).astype(np.uint64)
+    plans, thunks = build_merge_work(
+        state, groups, theta, group_seeds=group_seeds,
+        rng_of=lambda i: rng, top_j=top_j, height_bound=height_bound,
+        backend=backend, device=device)
+    for thunk in thunks:
+        thunk()
+    return apply_plans(state, plans)

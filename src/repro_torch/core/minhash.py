@@ -7,8 +7,10 @@ increase cost, Lemma 1). Oversized groups are re-shingled with fresh seeds up
 to ``max_rehash`` times (paper: 10) and finally split randomly to ≤
 ``max_group`` (paper: 500).
 
-Only the unified u32 shingle family lives here: the engine shingles every
-backend with it, so numpy and batched runs group identically. Everything is
+The engine shingles every backend with the unified u32 family, so numpy
+and batched runs group identically. The Mersenne-prime family (`_hash`,
+`node_level_min`, `root_shingles`) is `candidate_groups`' shingle for direct
+callers, such as the flat baselines (`core/baselines.py`). Everything is
 O(|E|) segment array work on the host (argsort/reduceat).
 """
 from __future__ import annotations
@@ -16,6 +18,25 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.graphs.csr import Graph
+
+_P = (1 << 61) - 1  # Mersenne prime for universal hashing
+
+
+def _hash(x: np.ndarray, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    a = int(rng.integers(1, _P))
+    b = int(rng.integers(0, _P))
+    return (a * x.astype(np.int64) + b) % _P
+
+
+def node_level_min(g: Graph, seed: int) -> np.ndarray:
+    """min(h(u), min_{w ∈ N(u)} h(w)) per subnode — one O(|E|) pass."""
+    h = _hash(np.arange(g.n), seed)
+    nm = h.copy()
+    if g.indices.size:
+        src = np.repeat(np.arange(g.n), np.diff(g.indptr))
+        np.minimum.at(nm, src, h[g.indices])
+    return nm
 
 
 def rootwise_min(values: np.ndarray, root_of: np.ndarray, n_ids: int,
@@ -33,6 +54,16 @@ def rootwise_min(values: np.ndarray, root_of: np.ndarray, n_ids: int,
     missing = np.flatnonzero(out < 0)
     out[missing] = sentinel_base + missing
     return out
+
+
+def root_shingles(g: Graph, root_of: np.ndarray, seed: int, n_ids=None) -> np.ndarray:
+    """shingle(A) = min over leaves u ∈ A of node_level_min(u), indexed by
+    root id (size ``n_ids``); ids owning no leaves get ``_P + id``, outside
+    the hash range [0, _P)."""
+    if n_ids is None:
+        n_ids = int(root_of.max()) + 1 if root_of.size else 0
+    nm = node_level_min(g, seed)
+    return rootwise_min(nm, root_of, n_ids, _P)
 
 
 def u32_seed_consts(sub_seed: int):

@@ -3,7 +3,8 @@ sliding-window or full attention with GQA and an online softmax, v
 narrower than q and k where MLA needs it.
 
 Dispatch is by the tensor's device, then by its type. A CPU tensor takes
-the plain version in `ref.py`. A CUDA tensor launches a kernel (a failed
+the plain version in `ref.py`; a ``meta`` tensor (the dry run,
+`launch/dryrun.py`) gets its output's shape. A CUDA tensor launches a kernel (a failed
 launch raises; nothing gives way to another kernel or to the plain
 version): bfloat16 the tensor-core kernel (``"tc_bf16"``), float32 the
 CUDA-core kernel (``"cuda_core_f32"``, whose f32 arithmetic meets the
@@ -28,6 +29,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attn import ref
+from repro_torch.launch import step_analysis
+from repro_torch.launch.roofline import flash_work
 
 LAUNCHES = 0
 LAUNCHES_BY = {"tc_bf16": 0, "cuda_core_f32": 0}
@@ -81,8 +84,10 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scaled by ``1/sqrt(D)``. Returns (B, H, Sq, Dv) in q's dtype, laid
     out as q is when q is dense. ``window`` (> 0) limits each query to its
     last ``window`` keys when ``causal``. Raises `RuntimeError` when grad
-    is enabled and q, k or v requires grad: there is no backward."""
-    global LAUNCHES
+    is enabled and q, k or v requires grad: there is no backward. On
+    ``meta`` (the dry run) returns the output's shape and runs nothing.
+    Under a step counter (`launch.step_analysis`) the call counts as one
+    op of `roofline.flash_work`'s FLOPs and bytes."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise RuntimeError(
@@ -110,15 +115,34 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k and v must be on one device")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
-    if q.device.type == "cpu":
-        return ref.attention_ref(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
-    if D % 8 or not 8 <= D <= 256:
-        raise ValueError(f"head dim {D} is not a multiple of 8 in [8, 256]")
-    if Dv % 8 or not 8 <= Dv <= D:
-        raise ValueError(f"v head dim {Dv} is not a multiple of 8 in "
-                         f"[8, {D}]")
+    if q.device.type != "cpu":
+        if D % 8 or not 8 <= D <= 256:
+            raise ValueError(f"head dim {D} is not a multiple of 8 in "
+                             f"[8, 256]")
+        if Dv % 8 or not 8 <= Dv <= D:
+            raise ValueError(f"v head dim {Dv} is not a multiple of 8 in "
+                             f"[8, {D}]")
+    return step_analysis.hand_kernel(
+        "flash_attention",
+        lambda: flash_work(B, H, Hkv, Sq, Sk, D, Dv, q.element_size(),
+                           causal, window),
+        lambda: _run(q, k, v, causal, window))
+
+
+def _run(q, k, v, causal, window):
+    """The plain version on the CPU, the output's shape on meta (the dry
+    run), the kernel on the card; the output laid out as q is on every
+    device (`_out_like`), so the ops around the call are the same."""
+    global LAUNCHES
+    B, H, Sq, D = q.shape
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if q.device.type == "cpu":
+        return _out_like(q, Dv).copy_(ref.attention_ref(
+            q, k, v, causal=causal, window=window))
+    if q.device.type == "meta":
+        return _out_like(q, Dv)
     strides = (*_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"))
     out = _out_like(q, Dv)
     if out.numel() == 0:

@@ -1,6 +1,9 @@
-"""Uniform model API: family dispatch and the training loss (the JAX
-package's `models/api.py`, without the abstract specs that wait for
-tooling, slice G). Decoder-only configs (dense, MoE, SSM, hybrid, VLM) go
+"""Uniform model API: family dispatch, abstract parameters and step
+inputs, and the training loss (the JAX package's `models/api.py`).
+`abstract_params` and `input_specs` are the counterparts of the
+reference's ``ShapeDtypeStruct`` trees: tensors on ``meta`` (shape and
+dtype, no data), which the dry run (`launch/dryrun.py`) runs the port's
+step on. Decoder-only configs (dense, MoE, SSM, hybrid, VLM) go
 to `models/transformer.py`, whose VLM batches carry ``"embeds"`` (the
 patch prefix) beside ``"tokens"``; encoder-decoder configs go to
 `models/encdec.py`, whose batches carry ``"frames"``. `lm_loss` is the
@@ -17,8 +20,9 @@ from typing import Callable
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec, transformer
+from repro_torch.models import sharding as SH
 from repro_torch.models.sharding import constrain
 
 
@@ -66,6 +70,47 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
         decode_step=transformer.decode_step,
         init_cache=transformer.init_cache,
     )
+
+
+def abstract_params(cfg: ModelConfig, device="meta") -> dict:
+    """The parameter tree of ``cfg`` as empty tensors on ``device``: the
+    shapes of `param_shapes`, the dtypes `init_params` gives
+    (`transformer.param_dtype`). Nothing is drawn."""
+    return SH._map_with_path(lambda path, shape: torch.empty(
+        shape, dtype=transformer.param_dtype(cfg, path[-1]), device=device),
+        param_shapes(cfg))
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, device="meta") -> dict:
+    """The inputs of one (arch × shape) cell's step as empty tensors on
+    ``device`` (the reference's ``input_specs``):
+
+    train:   tokens (B, S+1) — the model reads [:, :-1], labels [:, 1:]
+    prefill: tokens (B, S)
+    decode:  token (B, 1), the cache of S slots (`init_cache`, zeroed),
+             and pos, a 0-d int32 (serving passes a host int)
+    A VLM's patch embeddings (B, n_patches, d) are part of S; an
+    encoder-decoder's frames (B, S, d) feed the encoder."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = transformer.DTYPES[cfg.dtype]
+
+    def ids(*s):
+        return torch.empty(s, dtype=torch.int32, device=device)
+
+    def emb(*s):
+        return torch.empty(s, dtype=dt, device=device)
+
+    if shape.kind in ("train", "prefill"):
+        extra = 1 if shape.kind == "train" else 0
+        if cfg.encoder_layers:
+            return {"frames": emb(B, S, cfg.d_model),
+                    "tokens": ids(B, S + extra)}
+        if cfg.n_patches:
+            return {"embeds": emb(B, cfg.n_patches, cfg.d_model),
+                    "tokens": ids(B, S - cfg.n_patches + extra)}
+        return {"tokens": ids(B, S + extra)}
+    cache = get_api(cfg).init_cache(cfg, B, S, device=device)
+    return {"cache": cache, "token": ids(B, 1), "pos": ids()}
 
 
 def lm_loss(params, cfg: ModelConfig, batch, aux_weight: float = 0.01,

@@ -190,6 +190,9 @@ def _load_balance_loss(probs, top_e, n_experts):
     replicated over the model axis, so every rank of it has the same."""
     axis = SH.data_axis()
     me = _global_mean(probs.mean(0), axis)
-    ce = _global_mean(F.one_hot(top_e[:, 0], n_experts).float().mean(0),
-                      axis)
+    # one-hot by comparison, not `F.one_hot`, whose CPU kernel alone first
+    # reads the ids' range: the same ops on every device, so the step
+    # counts alike on the card, the CPU and meta (`launch/step_analysis`)
+    hot = top_e[:, :1] == torch.arange(n_experts, device=top_e.device)
+    ce = _global_mean(hot.float().mean(0), axis)
     return n_experts * torch.sum(me * ce)

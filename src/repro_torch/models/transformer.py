@@ -112,6 +112,14 @@ ONES = ("ln", "ln1", "ln2", "lnx", "final_norm", "enc_norm", "kv_norm",
 ZEROS = ("bq", "bk", "bv", "conv_b", "A_log", "dt_bias")
 
 
+def param_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
+    """The dtype of the leaf ``name``: float32 for the MoE router and the
+    Mamba2 ``A_log``, ``D`` and ``dt_bias``, else ``cfg.dtype``."""
+    if name == "router" or name in SSM.F32_PARAMS:
+        return torch.float32
+    return DTYPES[cfg.dtype]
+
+
 def build_params(spec: dict, cfg: ModelConfig, generator=None, device=None,
                  mesh=None, dp_axes=("data",), coords=None):
     """Random weights on ``device`` (``None``: the CUDA card, which must
@@ -140,8 +148,7 @@ def build_params(spec: dict, cfg: ModelConfig, generator=None, device=None,
     dtype = DTYPES[cfg.dtype]
 
     def draw(name, shape, gen, full):
-        dt = (torch.float32 if name == "router" or name in SSM.F32_PARAMS
-              else dtype)
+        dt = param_dtype(cfg, name)
         if name in ONES:
             return torch.ones(shape, dtype=dt, device=dev)
         if name in ZEROS:

@@ -277,7 +277,8 @@ def build_train_step(plan: TrainPlan):
     a model axis above 1 tensor- and expert-parallel too (module
     docstring): ``batch`` holds this rank's rows, ``params`` its blocks
     under a model axis, ``plan.microbatch`` counts rows of the global
-    batch, and the loss metric is the mean of the data ranks' losses, the
+    batch (one narrower than the data axis runs a row a rank at a time),
+    and the loss metric is the mean of the data ranks' losses, the
     same on every rank. The state must come from ``init_state(...,
     plan=plan)``."""
     cfg = train_config(plan.cfg)
@@ -298,10 +299,12 @@ def build_train_step(plan: TrainPlan):
     def grads_of(params, batch):
         rows = next(iter(batch.values())).shape[0]
         mb = plan.microbatch or rows * n
-        if mb % n or rows % (mb // n):
+        # a microbatch narrower than the data axis: one row a rank at a time
+        local = max(1, mb // n)
+        if (mb > n and mb % n) or rows % local:
             raise ValueError(f"batch of {rows} rows on each of {n} ranks "
                              f"does not split into microbatches of {mb}")
-        mb //= n
+        mb = local
         nmicro = rows // mb
         if nmicro == 1:
             return loss_and_grads(params, cfg, batch)

@@ -271,17 +271,18 @@ def test_flash_bound_takes_the_v_width():
     167.8 MB over 3.35 TB/s (50.1 µs) against 43.0 GFLOP over 989
     TFLOP/s (43.5 µs); with Dv = D the bound is the one-width formula's."""
     CS = _chip_smoke()
+    RL = CS.roofline()  # the rates and the pair count live in the roofline
     by_bytes, by_ops = CS.flash_bound_s(*CS.MLA_SHAPE)
     assert CS.MLA_SHAPE[:7] == (8, 16, 16, 1024, 1024, 192, 128)
-    assert by_bytes * CS.HBM_BYTES_PER_S == 2 * 8 * 16 * 1024 * (2 * 192
+    assert by_bytes * RL.HBM_BYTES_PER_S == 2 * 8 * 16 * 1024 * (2 * 192
                                                                 + 2 * 128)
     assert round(by_bytes * 1e6, 1) == 50.1
     assert round(by_ops * 1e6, 1) == 43.5
     B, H, Hkv, S, D = 8, 16, 2, 1024, 128
     bb, bo = CS.flash_bound_s(B, H, Hkv, S, S, D, D, "bfloat16", True, 0)
-    assert bb * CS.HBM_BYTES_PER_S == (2 * B * H * S * D
+    assert bb * RL.HBM_BYTES_PER_S == (2 * B * H * S * D
                                        + 2 * B * Hkv * S * D) * 2
-    assert bo * CS.PEAK_FLOPS["bfloat16"] == 4 * D * CS.flash_pairs(
+    assert bo * RL.PEAK_FLOPS["bfloat16"] == 4 * D * RL.flash_pairs(
         S, S, True, 0) * B * H
 
 

@@ -785,3 +785,64 @@ def isolation_train(rank, world, ckpt_dir):
         leaves(back), leaves(state)))
     return sorted(m for m in sys.modules if m.split(".")[0] in
                   ("jax", "jaxlib", "repro", "ml_dtypes"))
+
+
+# ------------------------------------------------------------ dry run
+def _fill(tree, gen):
+    """Give ``tree``'s tensors values a step can run on: integers 0 (ids
+    in range), floats N(0, 0.02²)."""
+    from torch.utils._pytree import tree_flatten
+
+    for t in tree_flatten(tree)[0]:
+        if isinstance(t, torch.Tensor):
+            if t.is_floating_point():
+                t.copy_(torch.randn(t.shape, generator=gen) * 0.02)
+            else:
+                t.zero_()
+
+
+def dryrun_counts(rank, world, mesh_shape, cases):
+    """`launch.dryrun.step_of` of each ``(arch, ShapeConfig)`` of
+    ``cases`` on a ``mesh_shape`` host mesh, on the CPU's tensors (filled
+    by `_fill`), counted by `step_analysis.analyze_step`: rank 0's counts
+    (FLOPs, bytes, collective bytes and counts by category, hand kernels),
+    for the dry run on meta to equal."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import dp_axes_of, make_host_mesh
+    from repro_torch.launch.step_analysis import analyze_step
+
+    mesh = make_host_mesh(*mesh_shape)
+    out = []
+    for arch, shape in cases:
+        cfg = get_config(arch, smoke=True)
+        fn, args = dryrun.step_of(cfg, shape, mesh, dp_axes_of(mesh),
+                                  device=CPU)
+        _fill(args, torch.Generator().manual_seed(rank))
+        res = analyze_step(fn, *args)
+        out.append({k: res[k] for k in ("flops", "bytes", "coll_bytes",
+                                        "coll", "coll_count", "kernels")})
+    return out
+
+
+def summarize_step_world(rank, world, src, dst, root_of, n, seed):
+    """`core.distributed.summarize_step_fn` under `make_data_mesh()` on
+    this rank's block of the edges (padded with ``src == n``), both
+    histograms, replicated and with ``sharded_out``: each output as this
+    rank holds it."""
+    from repro_torch.core.distributed import summarize_step_fn
+    from repro_torch.launch.mesh import block, make_data_mesh
+
+    mesh = make_data_mesh()
+    E = -(-len(src) // world) * world
+    pad = np.full(E - len(src), n, dtype=np.int64)
+    s = torch.from_numpy(np.concatenate([src, pad])[block(E, rank, world)])
+    d = torch.from_numpy(np.concatenate([dst, np.zeros_like(pad)])[
+        block(E, rank, world)])
+    r = torch.from_numpy(root_of)
+    out = {}
+    for hist in ("sort", "scatter"):
+        for sharded in (False, True):
+            step = summarize_step_fn(n, hist, mesh=mesh, sharded_out=sharded)
+            out[hist, sharded] = [t.numpy() for t in step(s, d, r, seed)]
+    return out
