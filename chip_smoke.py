@@ -219,6 +219,18 @@ Phases, each printing one JSON line with its seconds:
            qwen2.5-3b cut to 2 layers at m 2 (the clipping norm across
            the ranks) against one device's `build_train_step`; no flash
            launch (training attends through the chunked twin)
+  examples slice H (`phase_examples`), last: the five user scripts
+           `examples/torch_*.py` run in this process on the card at their
+           default arguments, one line a script with its seconds, the
+           last lines it printed and its launches of each hand-written
+           kernel, every count from 0 — each graph script's summary
+           and printed results equal to its run with `--device cpu` (the
+           MoE script's summary to the CPU's summary of the card's
+           graph), the quickstart's and the query script's through the
+           batched summarizer's intersection and histogram kernels,
+           `torch_serve_lm` through flash, held to the plain version at
+           every call shape its wrapper received, `torch_train_lm` with
+           no flash launch and a falling loss
 
 The kernels phase also holds the flash-attention kernel to its plain
 version (f32, TF32 off) within the reference's tolerances at ten fixed
@@ -363,6 +375,9 @@ VLM_PREFIX_ROWS = 2       # rows of the prefix-identity check
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6  # qwen2.5-3b trained whole
 TRAIN_PARITY_LAYERS, TRAIN_PARITY_SEQ = 2, 128    # card == CPU, f32
 RESUME_STEPS, RESUME_CKPT_EVERY, RESUME_FAIL_AT = 8, 4, 6  # mamba2-130m
+# the user scripts of `examples/`, in the reference's order
+EXAMPLE_SCRIPTS = ("quickstart", "summarize_and_query", "moe_routing_graph",
+                   "serve_lm", "train_lm")
 
 
 def emit(phase: str, t0: float, **fields):
@@ -1390,23 +1405,39 @@ class CallRecorder:
                 acc[k] += v
 
 
-def reset_launches():
-    from repro_torch.kernels.bitset_fold import kernel as K3
-    from repro_torch.kernels.bitset_jaccard import kernel as K1
-    from repro_torch.kernels.seghist import kernel as K2
+# each hand-written kernel's launch counter: (`repro_torch.kernels.<name>.kernel`,
+# attribute)
+LAUNCH_COUNTERS = {
+    "bitset_intersections": ("bitset_jaccard", "LAUNCHES"),
+    "segment_histogram": ("seghist", "LAUNCHES"),
+    "jaccard_topj": ("bitset_fold", "TOPJ_LAUNCHES"),
+    "bitset_fold": ("bitset_fold", "FOLD_LAUNCHES"),
+    "pairwise_intersections": ("bitset_jaccard", "PAIRWISE_LAUNCHES"),
+    "interval_count": ("interval_expand", "LAUNCHES"),
+    "rowmin_hash": ("minhash", "LAUNCHES"),
+    "flash_attention": ("flash_attn", "LAUNCHES"),
+}
+# the summarizer's kernels, which the graph phases count
+SUMMARY_KERNELS = ("bitset_intersections", "segment_histogram",
+                   "jaccard_topj", "bitset_fold")
 
-    K1.LAUNCHES = K2.LAUNCHES = K3.TOPJ_LAUNCHES = K3.FOLD_LAUNCHES = 0
+
+def launch_counter(name: str):
+    """(kernel module, attribute) of ``name``'s launch counter."""
+    import importlib
+
+    package, attr = LAUNCH_COUNTERS[name]
+    return (importlib.import_module(f"repro_torch.kernels.{package}.kernel"),
+            attr)
 
 
-def read_launches():
-    from repro_torch.kernels.bitset_fold import kernel as K3
-    from repro_torch.kernels.bitset_jaccard import kernel as K1
-    from repro_torch.kernels.seghist import kernel as K2
+def reset_launches(kernels=SUMMARY_KERNELS):
+    for name in kernels:
+        setattr(*launch_counter(name), 0)
 
-    return {"bitset_intersections": K1.LAUNCHES,
-            "segment_histogram": K2.LAUNCHES,
-            "jaccard_topj": K3.TOPJ_LAUNCHES,
-            "bitset_fold": K3.FOLD_LAUNCHES}
+
+def read_launches(kernels=SUMMARY_KERNELS):
+    return {name: getattr(*launch_counter(name)) for name in kernels}
 
 
 def phase_main(graph):
@@ -5401,6 +5432,131 @@ def tooling_memory(cfg, state):
          meta_step_seconds=meta["step_s"])
 
 
+# ------------------------------------------------------------------ examples
+def load_example(name: str):
+    """``examples/torch_<name>.py`` as a module, its ``main`` not run."""
+    import importlib.util
+
+    path = ROOT / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(mod, argv):
+    """``mod.main(argv)`` with its standard output captured: (what it
+    returned, what it printed)."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = mod.main(argv)
+    return result, out.getvalue()
+
+
+def printed_lines(text: str) -> list:
+    """An example's printed results: the engine's log lines dropped, the
+    seconds masked."""
+    import re
+
+    return [re.sub(r"\d+\.\d+s\b", "<s>", ln) for ln in text.splitlines()
+            if not ln.startswith("[repro")]
+
+
+def graph_example_matches_cpu(name, mod, result, text):
+    """Raises unless the graph script ``name``'s card run (``result``, and
+    ``text``, what it printed) equals its run with ``--device cpu``: the
+    same summary bit for bit, the same BFS order and PageRank, the same
+    printed results. The MoE script's graph comes from its router on
+    weights the card's generator drew (the CPU's draws others), so the
+    card's summary of that graph is held to the CPU's summary of it, and
+    to the graph itself. Returns the CPU's seconds."""
+    import numpy as np
+
+    from repro_torch.core import summarize
+
+    t0 = time.perf_counter()
+    if name == "moe_routing_graph":
+        _, graph, card = result
+        cpu = summarize(graph, T=10, seed=0, device="cpu")
+        same = same_summary(card, cpu) and card.validate_lossless(graph)
+    else:
+        cpu, cpu_text = run_example(mod, ["--device", "cpu"])
+        same = printed_lines(text) == printed_lines(cpu_text)
+        if name == "quickstart":
+            same = same and same_summary(result, cpu)
+        else:
+            (card, order, pr), (cpu, cpu_order, cpu_pr) = result, cpu
+            same = (same and same_summary(card, cpu) and order == cpu_order
+                    and np.array_equal(pr, cpu_pr))
+    if not same:
+        raise AssertionError(f"examples: torch_{name} on the card is not "
+                             f"its run on the CPU")
+    return time.perf_counter() - t0
+
+
+def phase_examples():
+    """Slice H: each of `EXAMPLE_SCRIPTS` through its ``main([])`` — the
+    user's command line, on the card — with every kernel's count set to 0
+    just before it and read just after; its output is captured and its
+    last lines printed on the script's own line. Gates: each graph script
+    equal to its CPU run (`graph_example_matches_cpu`), the quickstart
+    and the query script through the intersection and histogram kernels;
+    the serving script through flash, each call shape flash received
+    held to the plain version on its recorded inputs (`flash_error`); the
+    training script with no flash launch (it raises itself unless its
+    loss fell)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    for name in EXAMPLE_SCRIPTS:
+        mod = load_example(name)
+        recorder = FlashRecorder() if name == "serve_lm" else None
+        reset_launches(LAUNCH_COUNTERS)
+        t0 = time.perf_counter()
+        try:
+            result, text = run_example(mod, [])
+            torch.cuda.synchronize()
+        finally:
+            if recorder is not None:
+                recorder.close()
+        seconds = time.perf_counter() - t0
+        launches = read_launches(LAUNCH_COUNTERS)
+        checks = {}
+        if name in ("quickstart", "summarize_and_query", "moe_routing_graph"):
+            checks["cpu_seconds"] = graph_example_matches_cpu(
+                name, mod, result, text)
+            checks["equal_to_cpu"] = True
+        if name in ("quickstart", "summarize_and_query"):
+            for kernel in ("bitset_intersections", "segment_histogram"):
+                if launches[kernel] <= 0:
+                    raise AssertionError(f"examples: torch_{name} never "
+                                         f"launched {kernel}")
+        if name == "serve_lm":
+            checks["requests"] = len(result)
+            flash = launches["flash_attention"]
+            if flash <= 0 or flash != sum(recorder.calls.values()):
+                raise AssertionError(
+                    f"examples: torch_serve_lm launched flash {flash} "
+                    f"times, its wrapper saw {dict(recorder.calls)}")
+            checks["flash_calls"] = [[*k, c]
+                                     for k, c in recorder.calls.items()]
+            checks["flash_max_abs_err"] = max(
+                flash_error(*recorder.inputs[key], *key[-2:])
+                for key in recorder.calls)
+        if name == "train_lm":
+            checks["loss_first_last"] = [result[0], result[-1]]
+            if launches["flash_attention"]:
+                raise AssertionError("examples: torch_train_lm launched "
+                                     "flash attention in training")
+        emit("examples", t0, script=f"examples/torch_{name}.py",
+             run_seconds=seconds, launches=launches, checks=checks,
+             printed=text.splitlines()[-3:])
+    emit("examples", t_phase, part="total", card=card_line(),
+         scripts=len(EXAMPLE_SCRIPTS))
+
+
 def threading_name():
     import threading
 
@@ -5463,6 +5619,7 @@ def main() -> int:
                        res_launches, train)
     phase_model_axis()
     phase_model_axis_train()
+    phase_examples()
     t0 = time.perf_counter()
     record = kernel_record(recorder, launches, res_recorder, res_launches,
                            rng, device_us, rates)

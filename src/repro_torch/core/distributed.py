@@ -410,10 +410,7 @@ def summarize_jax(
                     break
                 if not (ws.alive[r] and ws.alive[c]):
                     continue
-                numer, denom, valid = ws.saving_terms(int(r),
-                                                      np.array([int(c)]))
-                sav = np.where(valid, 1.0 - numer / np.maximum(denom, 1),
-                               -np.inf)
+                sav = ws.savings(int(r), np.array([int(c)]))
                 if sav[0] >= theta:
                     ws.merge(int(r), int(c))
             apply_plans(state, [plan])

@@ -348,6 +348,14 @@ class GroupWorkspace:
             valid &= new_h <= height_bound
         return numer.astype(np.int64), denom.astype(np.int64), valid
 
+    def savings(self, a: int, cand: np.ndarray, height_bound=None) -> np.ndarray:
+        """Float VIEW of `saving_terms` (diagnostics and the approximate
+        `distributed.summarize_jax` engine); no exact decision reads it."""
+        numer, denom, valid = self.saving_terms(a, cand, height_bound)
+        sav = np.where(  # lint: disable=INT-RANK-ONLY -- float view of the integer terms; exact sweeps compare saving_terms rationals instead
+            valid, 1.0 - numer / np.maximum(denom, 1), -np.inf)
+        return sav
+
     # -- merge ---------------------------------------------------------------
     def merge(self, a: int, z: int):
         """Record the merge of member z into member a and fold the local
@@ -773,6 +781,15 @@ class BatchedGroupWorkspace:
             denom_o[s0:s0 + chunk] = denom
             valid_o[s0:s0 + chunk] = valid
         return numer_o, denom_o, valid_o
+
+    def savings_rows(self, rb: np.ndarray, rr: np.ndarray, cands: np.ndarray,
+                     height_bound=None) -> np.ndarray:
+        """Float view of `saving_terms_rows` (benchmark/diagnostic use; the
+        sweep itself compares the integer terms exactly)."""
+        numer, denom, valid = self.saving_terms_rows(
+            rb, rr, cands, height_bound=height_bound)
+        return np.where(  # lint: disable=INT-RANK-ONLY -- float view of the integer terms; the sweep compares saving_terms_rows rationals instead
+            valid, 1.0 - numer / np.maximum(denom, 1), -np.inf)
 
     # -- batched merge application -----------------------------------------
     def apply_merges(self, b: np.ndarray, a: np.ndarray, z: np.ndarray):

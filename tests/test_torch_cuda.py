@@ -1509,3 +1509,28 @@ def test_cuda_per_rank_backward_assembles_to_the_one_device_gradient(
                 grads[i]
         bound = 1e-4 * w.abs().max().item() + 1e-5
         assert (whole - w).abs().max().item() <= bound, i
+
+
+@pytest.mark.cuda
+def test_cuda_quickstart_example(capsys):
+    """`examples/torch_quickstart.py` at its defaults runs on the card,
+    through the batched summarizer's intersection and histogram kernels,
+    and prints what its CPU run prints."""
+    from test_torch_examples import _printed, load_example
+
+    _need_card()
+    mod = load_example("quickstart")
+
+    def printed():
+        return _printed(capsys.readouterr().out)
+
+    capsys.readouterr()
+    before = (inter_kernel.LAUNCHES, hist_kernel.LAUNCHES)
+    card = mod.main([])
+    on_card = printed()
+    assert inter_kernel.LAUNCHES > before[0]
+    assert hist_kernel.LAUNCHES > before[1]
+    cpu = mod.main(["--device", "cpu"])
+    assert on_card == printed()
+    assert np.array_equal(card.parent, cpu.parent)
+    assert np.array_equal(card.edges, cpu.edges)

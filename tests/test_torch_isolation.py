@@ -1,6 +1,7 @@
 """The port stands alone: `src/repro_torch`, `chip_smoke.py`,
 `flash_bench.py`, `popc_bench.py`, `rank_count_bench.py`,
-`serve_bench.py` and `multi_rank_smoke.py` import neither jax nor the JAX package (nor
+`serve_bench.py`, `multi_rank_smoke.py` and `examples/torch_*.py` import
+neither jax nor the JAX package (nor
 ``ml_dtypes``, which the card's machine does
 not have), entry points default to the CUDA card and refuse to fall back
 to the CPU, and the unported paths say so."""
@@ -18,10 +19,13 @@ import repro_torch
 from repro_torch.graphs import generators as PG
 
 ROOT = Path(__file__).resolve().parents[1]
+EXAMPLES = ("quickstart", "summarize_and_query", "moe_routing_graph",
+            "serve_lm", "train_lm")
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "flash_bench.py", ROOT / "popc_bench.py",
     ROOT / "rank_count_bench.py", ROOT / "multi_rank_smoke.py",
-    ROOT / "serve_bench.py"]
+    ROOT / "serve_bench.py"] + [
+    ROOT / "examples" / f"torch_{name}.py" for name in EXAMPLES]
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
@@ -87,8 +91,13 @@ def test_port_files_exist():
                  "src/repro_torch/train/elastic.py",
                  "chip_smoke.py", "flash_bench.py", "popc_bench.py",
                  "rank_count_bench.py", "multi_rank_smoke.py",
-                 "serve_bench.py"):
+                 "serve_bench.py", "src/repro_torch/analysis/core.py",
+                 "src/repro_torch/analysis/rules.py",
+                 "src/repro_torch/analysis/baseline.py",
+                 "src/repro_torch/analysis/lint.py",
+                 *(f"examples/torch_{name}.py" for name in EXAMPLES)):
         assert want in names
+        assert (ROOT / want).is_file()
     csrc = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")}
     assert {"interval_count.cu", "rowmin_hash.cu",
             "pairwise_intersections.cu", "flash_attention.cu"} <= csrc
@@ -187,6 +196,21 @@ def test_default_device_is_the_card(monkeypatch):
     from repro_torch.core.distributed import summarize_jax
     with pytest.raises(RuntimeError, match="CUDA"):
         summarize_jax(g, T=1)
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_need_the_card_unless_told_cpu(name, monkeypatch):
+    """Each example defaults to the CUDA card and, without one, fails
+    before it computes anything; ``--device cpu`` is the only way onto
+    the CPU (`tests/test_torch_examples.py` runs them so)."""
+    from test_torch_examples import load_example
+
+    mod = load_example(name)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(["--device", "cuda"])
 
 
 def test_default_backend_is_batched():

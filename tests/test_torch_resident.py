@@ -126,6 +126,33 @@ def test_bank_extraction_equals_upload_and_reference(name):
                                           np.asarray(ref._dirty))
 
 
+@pytest.mark.parametrize("height_bound", [None, 1])
+@pytest.mark.parametrize("name", list(EXTRACT_CASES))
+def test_float_saving_views_equal_the_reference(name, height_bound):
+    """`GroupWorkspace.savings` and `BatchedGroupWorkspace.savings_rows`,
+    the float views of the integer Saving terms, equal the reference's
+    bit for bit (−inf where a term is undefined) on the same state."""
+    _, st, rst, _, groups, G = _extract_setup(name)
+    for grp in groups:
+        ws = PM.GroupWorkspace(st, grp, PM.MergePlan(grp))
+        ws_r = RM.GroupWorkspace(rst, grp)
+        cand = np.arange(len(grp), dtype=np.int64)
+        for a in range(len(grp)):
+            got = ws.savings(a, cand, height_bound)
+            want = ws_r.savings(a, cand, height_bound)
+            assert got.dtype == want.dtype == np.float64
+            np.testing.assert_array_equal(got, want)
+    for ws, ws_r in zip(_buckets(st, groups, G, False, PM),
+                        _buckets(rst, groups, G, False, RM)):
+        rb, rr = np.nonzero(ws.alive)
+        cands = np.tile(np.arange(ws.G, dtype=np.int64), (rb.size, 1))
+        got = ws.savings_rows(rb, rr, cands, height_bound=height_bound)
+        want = ws_r.savings_rows(rb, rr, cands, height_bound=height_bound)
+        assert got.shape == want.shape == (rb.size, ws.G)
+        np.testing.assert_array_equal(got, want)
+        assert np.isfinite(got).any()
+
+
 @pytest.mark.parametrize("use_kernel", [False, True],
                          ids=["jnp_twin", "pallas_interpret"])
 @pytest.mark.parametrize("name", ["caveman", "ba"])

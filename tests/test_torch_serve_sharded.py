@@ -244,6 +244,16 @@ def _route_log():
     return _LOG[0]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _restore_route():
+    """Unwrap `moe.route` when the module is done: a wrapper left with an
+    open log would log (and copy to the host) every later test's routing
+    in this process, meta tensors included."""
+    yield
+    while _LOG:
+        _LOG.pop().close()
+
+
 def _rows(res):
     a, b = res["rows"]
     return slice(a, b)
