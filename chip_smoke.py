@@ -171,9 +171,17 @@ Phases, each printing one JSON line with its seconds:
            step with ZeRO-1, 4 steps of 4 × 1,024: the losses equal bit
            for bit `lm_train`'s plain step's first 4 (same seed, batch and
            schedule; both rerun under deterministic algorithms if not);
-           seconds a step and peak memory beside `lm_train`'s; (d)
-           `compressed_psum` on 2^24 values equal to quantize → dequantize
-           of g + err, and its time
+           seconds a step and peak memory beside `lm_train`'s; (e) that
+           state (f32 moments) moved by `elastic.remesh_state` with no
+           device named onto `make_mesh_for([0], 1)` under
+           `state_specs`: every leaf gathered whole bit-equal to the state
+           before the move (one leaf at a time, against checksums of its
+           bit patterns), every block on `cuda:0`, one more step through
+           `build_train_step` on the new mesh with a finite loss, and the
+           state after it moved back onto (c)'s mesh the same way and
+           checked the same way; seconds, bytes moved and peak memory a
+           move; (d) `compressed_psum` on 2^24 values equal to quantize →
+           dequantize of g + err, and its time
   lm_train slice F7: (a) qwen2.5-3b at full width and all 36 layers
            trained 6 steps (bf16 parameters, f32 AdamW moments, remat
            full, 4 × 1,024 tokens a step) through `ResilientLoop`: every
@@ -3766,7 +3774,8 @@ def phase_multi_device(graph, batched, main_wall, launches, res_stages,
     """Slice E5 on the card, inside a one-rank NCCL process group started
     from a `FileStore` under `build/` and destroyed at the end, so later
     phases run as before: (a) `md_engines`, (b) `md_shards`, (c)
-    `md_train`, (d) `md_psum`, each on its own line."""
+    `md_train`, (e) `md_remesh` of (c)'s state, (d) `md_psum`, each on
+    its own line."""
     import torch
     import torch.distributed as dist
 
@@ -3781,10 +3790,12 @@ def phase_multi_device(graph, batched, main_wall, launches, res_stages,
         fields, captured = md_engines(graph, batched, main_wall, launches,
                                       res_stages, res_launches)
         emit("multi_device", t0, part="a_engine_mesh", **fields)
+        kept = []  # (c)'s state and mesh, which (e) takes over
         for name, fn in (("b_shards_in_turn", lambda: md_shards(graph,
                                                                 captured)),
                          ("c_qwen2.5-3b_data_parallel",
-                          lambda: md_train(train)),
+                          lambda: md_train(train, kept)),
+                         ("e_remesh", lambda: md_remesh(kept)),
                          ("d_compressed_psum", md_psum)):
             t0 = time.perf_counter()
             fields = fn()
@@ -3955,14 +3966,15 @@ def md_shards(graph, captured):
     return out
 
 
-def md_train(train):
+def md_train(train, kept):
     """(c) qwen2.5-3b at full width and depth through the data-parallel
     step with ZeRO-1 on the one-rank group (`make_host_mesh(1, 1)`), 4
     steps of 4 × 1,024 from `lm_train`'s seed, batches and schedule. Gate:
     the losses equal `lm_train`'s plain step's first 4 bit for bit. If
     they do not, both runs are taken again here under
     `torch.use_deterministic_algorithms` (the backward's atomics may
-    reorder sums) and held to each other."""
+    reorder sums) and held to each other. The last data-parallel run's
+    state and mesh are appended to ``kept`` for `md_remesh`."""
     import os
 
     import torch
@@ -3971,15 +3983,17 @@ def md_train(train):
 
     plain = train["losses"][:MD_STEPS]
     mesh = make_host_mesh(1, 1)
-    got, times, peak = md_qwen_steps(mesh)
+    got, times, peak = md_qwen_steps(mesh, kept)
     mode = "default"
     if got != plain:
         mode = "deterministic"
+        kept.clear()
+        free_card()
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
             plain = md_qwen_steps(None)[0]
-            got, times, peak = md_qwen_steps(mesh)
+            got, times, peak = md_qwen_steps(mesh, kept)
         finally:
             torch.use_deterministic_algorithms(False)
     if got != plain:
@@ -3996,11 +4010,12 @@ def md_train(train):
             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "zero1": True}
 
 
-def md_qwen_steps(mesh):
+def md_qwen_steps(mesh, kept=None):
     """``MD_STEPS`` steps of qwen2.5-3b as `train_whole` takes them (seed
     0, `TokenStream` batches, schedule over ``TRAIN_STEPS``), through the
     data-parallel step under ``mesh`` (the plain step for None): losses,
-    seconds a step, peak memory."""
+    seconds a step, peak memory. With ``kept`` (a list) the state and
+    ``mesh`` are appended to it instead of dropped."""
     import torch
 
     from repro_torch.configs.registry import get_config
@@ -4025,9 +4040,137 @@ def md_qwen_steps(mesh):
         times.append(time.perf_counter() - ts)
         losses.append(float(m["loss"]))
     peak = torch.cuda.max_memory_allocated()
+    if kept is not None:
+        kept.append((state, mesh))
     del state, params
     free_card()
     return losses, times, peak
+
+
+DIGEST_CHUNK = 1 << 26  # int16 words a pass of `bit_digest`
+
+
+def bit_digest(t) -> tuple:
+    """(dtype, shape, two sums) of ``t``'s bit patterns read as int16
+    words, the second weighted by position (mod 65,521, plus 1), summed
+    in int64 on ``t``'s device: no sum can overflow (|word · weight| <
+    2^31, fewer than 2^32 words). Bit-equal tensors give equal digests; a
+    changed, moved or lost word changes them."""
+    import torch
+
+    words = t.detach().contiguous().reshape(-1).view(torch.int16)
+    s0 = torch.zeros((), dtype=torch.int64, device=t.device)
+    s1 = torch.zeros_like(s0)
+    for i in range(0, words.numel(), DIGEST_CHUNK):
+        x = words[i:i + DIGEST_CHUNK].to(torch.int64)
+        pos = (torch.arange(i, i + x.numel(), device=t.device) % 65521) + 1
+        s0 += x.sum()
+        s1 += (x * pos).sum()
+    return str(t.dtype), tuple(t.shape), int(s0), int(s1)
+
+
+def sorted_leaves(tree) -> list:
+    """The leaves of a nested dict in sorted-key order (`remesh_state`'s
+    and the checkpoints' order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in sorted_leaves(tree[k])]
+    return [tree]
+
+
+def local_tree(tree):
+    """A tree of `elastic.Placed` leaves as the tree of this rank's
+    blocks."""
+    if isinstance(tree, dict):
+        return {k: local_tree(v) for k, v in tree.items()}
+    return tree.local
+
+
+def md_remesh(kept):
+    """(e) (c)'s qwen2.5-3b state (bf16 parameters, f32 moments) moved by
+    `elastic.remesh_state`, no device named, onto `make_mesh_for([0], 1)`
+    under `train_step.state_specs`; one step through `build_train_step`
+    on that mesh; the state after it moved back onto (c)'s mesh. Gates,
+    at each move: every leaf gathered whole (one at a time) has the
+    `bit_digest` its whole tensor had before the move — two copies of
+    the state never sit beside a third — every block is on ``cuda:0``;
+    the step's loss is finite. Seconds, bytes and peak memory a move."""
+    import math
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenStream, make_batch
+    from repro_torch.train import elastic as EL
+    from repro_torch.train import train_step as TS
+
+    t_part = time.perf_counter()
+    state, home = kept.pop()
+    cfg = get_config(LM_ARCH)
+    card = torch.device("cuda", 0) if MD_DEVICE == "cuda" else torch.device(
+        MD_DEVICE)
+
+    def specs_on(st, mesh):
+        return TS.state_specs(TS.TrainPlan(cfg=cfg, mesh=mesh))
+
+    def whole(leaf):  # one rank: a block is the whole tensor
+        return leaf.local if isinstance(leaf, EL.Placed) else leaf
+
+    def timed_move(st, mesh):
+        want = [bit_digest(whole(t)) for t in sorted_leaves(st)]
+        nbytes = sum(whole(t).numel() * whole(t).element_size()
+                     for t in sorted_leaves(st))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = EL.remesh_state(st, mesh, specs_on)
+        torch.cuda.synchronize()
+        line = {"seconds": time.perf_counter() - t0, "bytes_moved": nbytes,
+                "leaves": len(want),
+                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        return out, want, line
+
+    def check(moved, want, line):
+        t0 = time.perf_counter()
+        leaves = sorted_leaves(moved)
+        off_card = sum(p.local.device != card for p in leaves)
+        differ = len(leaves) != len(want)
+        for p, w in zip(leaves, want):
+            differ += bit_digest(EL.gather_full(p)) != w
+        line.update(check_seconds=time.perf_counter() - t0,
+                    leaves_differing=int(differ), blocks_off_card=off_card)
+        if differ or off_card:
+            raise AssertionError(f"e_remesh: {line}")
+
+    new = EL.make_mesh_for([0], 1)
+    moved, want, there = timed_move(state, new)
+    del state
+    free_card()
+    check(moved, want, there)
+
+    # the step updates the blocks in place: ``moved`` then holds its state
+    plan = TS.TrainPlan(cfg=cfg, total_steps=TRAIN_STEPS, mesh=new)
+    batch = make_batch(cfg, TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ),
+                       MD_STEPS, device=MD_DEVICE, mesh=new)
+    t0 = time.perf_counter()
+    loss = float(TS.build_train_step(plan)(local_tree(moved), batch)[1][
+        "loss"])
+    step_s = time.perf_counter() - t0
+    del batch
+    free_card()
+    if not math.isfinite(loss):
+        raise AssertionError(f"e_remesh: the step after the move gave loss "
+                             f"{loss}")
+
+    back, want, back_line = timed_move(moved, home)
+    del moved
+    free_card()
+    check(back, want, back_line)
+    del back
+    return {"arch": LM_ARCH, "moment_dtype": plan.opt.moment_dtype,
+            "to": list(new.mesh.shape), "there": there,
+            "step_loss": loss, "step_seconds": step_s, "back": back_line,
+            "bit_equal": True, "blocks_on": str(card),
+            "part_seconds": time.perf_counter() - t_part}
 
 
 def md_psum():

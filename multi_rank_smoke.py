@@ -6,7 +6,7 @@ E6b) across ranks: one process a card (NCCL), or CPU processes (gloo,
     python3 -m torch.distributed.run --nproc-per-node 4 multi_rank_smoke.py [--cpu] [--parts model]
 
 ``--parts`` (comma-separated: engine, train, ckpt, psum, model,
-train_model) runs those parts only; all by default.
+train_model, elastic, pod_data) runs those parts only; all by default.
 
 Every rank, in order:
 
@@ -63,6 +63,24 @@ Every rank, in order:
           blocks (`init_params(mesh=)`), 4 steps with f32 moments: finite
           losses, the state's bytes a rank, seconds a step, peak memory
 
+  elastic  elastic re-meshing of a live train state (world 4):
+          qwen2.5-3b whole (the smoke model with --cpu), bf16, f32
+          moments, 2 steps of 4 × 1,024 tokens (× 64 with --cpu) on
+          `make_host_mesh(1, 4)`, then `elastic.remesh_state` (no device
+          named: the rank's card under NCCL) onto `make_mesh_for(range(4),
+          2)` = (2, 2), back to (1, 4), and down to `make_mesh_for([0, 1],
+          2)` = (1, 2), ranks 2 and 3 holding no block. At each move the
+          state is first saved by `checkpoint.save(mesh=, specs=)` (under
+          `build/multi_rank_elastic/`); the moved blocks must equal bit
+          for bit `checkpoint.restore(mesh=, specs=)` of it on the target
+          mesh, sit on the rank's device, and one step from each must
+          give the same loss. Seconds a move, bytes, peak memory a card
+  pod_data  two data-parallel qwen2.5-3b steps (the smoke model with
+          --cpu) of one 1,024-token row a rank (64 with --cpu) on
+          `make_mesh((2, 2, 1), ("pod", "data", "model"))` with
+          `dp_axes=("pod", "data")`, from the same weights and batches as
+          on the flat `make_host_mesh(4, 1)`: the losses within 1.4e-5
+
 Rank 0 prints a JSON line a part (each rank its own `rank_*` lines); the
 script exits 0 only if every check held on every rank.
 """
@@ -72,6 +90,8 @@ import shutil
 import sys
 import time
 from pathlib import Path
+
+from chip_smoke import bit_digest, local_tree, sorted_leaves
 
 ROOT = Path(__file__).resolve().parent
 
@@ -89,7 +109,8 @@ def main() -> int:
     cpu = "--cpu" in sys.argv
     parts = (sys.argv[sys.argv.index("--parts") + 1].split(",")
              if "--parts" in sys.argv else
-             ["engine", "train", "ckpt", "psum", "model", "train_model"])
+             ["engine", "train", "ckpt", "psum", "model", "train_model",
+              "elastic", "pod_data"])
     rank = int(os.environ["RANK"])
     world = int(os.environ["WORLD_SIZE"])
     if cpu:
@@ -121,6 +142,12 @@ def main() -> int:
         ok &= model_part(rank, world, dev, cpu, sync)
     if "train_model" in parts:
         ok &= train_model_part(rank, world, dev, cpu, sync)
+    if "elastic" in parts:
+        moves = elastic_part(rank, dev, cpu, sync,
+                             ROOT / "build" / "multi_rank_elastic")
+        ok &= all(m["ok"] for m in moves)
+    if "pod_data" in parts:
+        ok &= pod_data_part(rank, world, dev, cpu, sync)
 
     flag = torch.tensor([int(ok)], device=dev)
     dist.all_reduce(flag, dist.ReduceOp.MIN)
@@ -430,7 +457,7 @@ def model_part(rank, world, dev, cpu, sync):
                             device=dev, mesh=mesh)
     sync()
     init_s = time.perf_counter() - t0
-    local = sum(t.numel() for t in _leaves(blocks))
+    local = sum(t.numel() for t in sorted_leaves(blocks))
     if not cpu:
         torch.cuda.reset_peak_memory_stats()
     with RouteStats(cfg.moe.n_experts) as stats:
@@ -736,8 +763,8 @@ def train_model_part(rank, world, dev, cpu, sync):
     sync()
     init_s = time.perf_counter() - t0
     state_bytes = sum(t.numel() * t.element_size()
-                      for t in _leaves(state))
-    params_a_rank = sum(t.numel() for t in _leaves(state["params"]))
+                      for t in sorted_leaves(state))
+    params_a_rank = sum(t.numel() for t in sorted_leaves(state["params"]))
     _reset_peak(cpu)
     state, losses, norms, times = _train(
         state, TS.build_train_step(plan), cfg, mesh, TM_MLA_STEPS, dev, sync,
@@ -755,12 +782,194 @@ def train_model_part(rank, world, dev, cpu, sync):
     return ok
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
+# ------------------------------------------------------ elastic meshes
+# (ranks, model_parallel) of each `make_mesh_for` after the start on (1, 4)
+EL_MOVES = ((range(4), 2), (range(4), 4), ((0, 1), 2))
+
+
+def _el_plan(cfg, mesh):
+    from repro_torch.train import train_step as TS
+
+    return TS.TrainPlan(cfg=cfg, total_steps=TM_STEPS, mesh=mesh)
+
+
+def elastic_specs(cfg):
+    """``spec_fn(state, mesh)`` for `remesh_state`: ``cfg``'s
+    `train_step.state_specs` on ``mesh``."""
+    from repro_torch.train import train_step as TS
+
+    return lambda _, mesh: TS.state_specs(_el_plan(cfg, mesh))
+
+
+def _el_loss(cfg, stream, dev, state, step, mesh, at):
+    from repro_torch.data.pipeline import make_batch
+
+    batch = make_batch(cfg, stream, at, device=dev, mesh=mesh)
+    return float(step(state, batch)[1]["loss"])
+
+
+def elastic_start(rank, dev, cpu):
+    """The elastic part's start: qwen2.5-3b (the smoke model with
+    ``cpu``), bf16 with f32 moments, two steps of 4 × 1,024 tokens (× 64
+    with ``cpu``) on `make_host_mesh(1, 4)`. Returns ``cfg``, the token
+    stream, and the train state as `elastic.Placed` leaves on that mesh
+    under `elastic_specs`."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import transformer as TR
+    from repro_torch.models.api import param_shapes
+    from repro_torch.train import elastic as EL
+    from repro_torch.train import train_step as TS
+
+    cfg = get_config("qwen2.5-3b", smoke=cpu)
+    stream = TokenStream(cfg.vocab, TM_BATCH, 64 if cpu else TM_SEQ, seed=0)
+    mesh = make_host_mesh(1, 4)
+    plan = _el_plan(cfg, mesh)
+    step = TS.build_train_step(plan)
+    state = TS.init_state(SH.shard_params(cfg, TR.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev), mesh,
+        ("data",)), plan.opt, plan)
+    losses = [_el_loss(cfg, stream, dev, state, step, mesh, s)
+              for s in range(2)]
+    emit(rank, "elastic_start", mesh=[1, 4], layers=cfg.n_layers,
+         losses=losses)
+
+    def placed(tree, specs, shape):
+        if isinstance(shape, dict):
+            return {k: placed(tree[k], specs[k], shape[k]) for k in shape}
+        return EL.Placed(tree, tuple(specs), mesh, tuple(shape), tree.dtype)
+
+    shapes = param_shapes(cfg)
+    return cfg, stream, placed(state, TS.state_specs(plan), {
+        "params": shapes, "opt": {"m": shapes, "v": shapes, "step": ()}})
+
+
+def elastic_part(rank, dev, cpu, sync, ckpt_root, moves=EL_MOVES):
+    """Elastic re-meshing (module docstring): `elastic_start`, then each
+    of ``moves`` gated against a checkpoint of the state before it.
+    Returns a record a move (``ok``: whether its gates held on this
+    rank); a member's record holds the `bit_digest` of each of its moved
+    blocks (``digests``, in sorted-key order)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import axes_group
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train import elastic as EL
+    from repro_torch.train import train_step as TS
+
+    def bits(t):
+        return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+    cfg, stream, cur = elastic_start(rank, dev, cpu)
+    specs_on = elastic_specs(cfg)
+    mesh = sorted_leaves(cur)[0].mesh
+    state = local_tree(cur)
+    at, records = 2, []
+    for k, (ranks, mp) in enumerate(moves):
+        d = Path(ckpt_root) / f"move_{k}"
+        if rank == 0:
+            shutil.rmtree(d, ignore_errors=True)
+        axes_group(mesh, mesh.mesh_dim_names)  # every rank, collectively
+        if state is not None:
+            CKPT.save(state, at, str(d), mesh=mesh, specs=specs_on(0, mesh))
+        dist.barrier()
+        mesh = EL.make_mesh_for(list(ranks), mp)
+        axes_group(mesh, mesh.mesh_dim_names)
+        state = None
+        sync()
+        _reset_peak(cpu)
+        t0 = time.perf_counter()
+        cur = EL.remesh_state(cur, mesh, specs_on)
+        sync()
+        rec = {"to": list(mesh.mesh.shape), "ranks": list(ranks),
+               "seconds": time.perf_counter() - t0,
+               "max_memory_allocated": _peak(cpu), "member": False}
+        blocks = [p.local for p in sorted_leaves(cur)]
+        rec["ok"] = all(b is None for b in blocks)
+        if blocks[0] is not None:
+            state = local_tree(cur)
+            step = TS.build_train_step(_el_plan(cfg, mesh))
+            back, saved_at = CKPT.restore(state, str(d), mesh=mesh,
+                                          specs=specs_on(0, mesh))
+            theirs = sorted_leaves(back)
+            equal = saved_at == at and len(blocks) == len(theirs) and all(
+                a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+                    bits(a), bits(b)) for a, b in zip(blocks, theirs))
+            devices = sorted({str(b.device) for b in blocks})
+            digests = [bit_digest(b) for b in blocks]
+            loss_restored = _el_loss(cfg, stream, dev, back, step, mesh, at)
+            del back, theirs
+            loss = _el_loss(cfg, stream, dev, state, step, mesh, at)
+            on_device = devices == [str(dev)]
+            rec.update(member=True, bit_equal=equal, devices=devices,
+                       on_rank_device=on_device, loss=loss,
+                       loss_restored=loss_restored, digests=digests,
+                       bytes_a_rank=sum(b.numel() * b.element_size()
+                                        for b in blocks),
+                       ok=equal and on_device and loss == loss_restored)
+        at += 1
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(d, ignore_errors=True)
+        emit(rank, "rank_elastic_move", move=k,
+             **{x: v for x, v in rec.items() if x != "digests"})
+        records.append(rec)
+    return records
+
+
+def pod_data_part(rank, world, dev, cpu, sync):
+    """Two data-parallel steps on the ``("pod", "data")`` mesh against the
+    flat data mesh (module docstring)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenStream, make_batch
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.models import transformer as TR
+    from repro_torch.train import train_step as TS
+
+    cfg = get_config("qwen2.5-3b", smoke=cpu)
+    seq = 64 if cpu else TM_SEQ
+    runs = {}
+    for name, mesh, dp in (
+            ("pod_data", make_mesh((2, 2, 1), ("pod", "data", "model")),
+             ("pod", "data")),
+            ("flat", make_host_mesh(world, 1), ("data",))):
+        plan = TS.TrainPlan(cfg=cfg, total_steps=TM_STEPS, mesh=mesh,
+                            dp_axes=dp)
+        state = TS.init_state(TR.init_params(cfg, torch.Generator(
+            device=dev).manual_seed(0), device=dev), plan.opt, plan)
+        step = TS.build_train_step(plan)
+        stream = TokenStream(cfg.vocab, world, seq, seed=0)
+        _reset_peak(cpu)
+        losses, times = [], []
+        for s in range(2):
+            batch = make_batch(cfg, stream, s, device=dev, mesh=mesh,
+                               dp_axes=dp)
+            sync()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            sync()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        runs[name] = {"mesh": list(mesh.mesh.shape), "dp_axes": list(dp),
+                      "losses": losses, "step_seconds": times,
+                      "rows_a_rank": int(batch["tokens"].shape[0]),
+                      "max_memory_allocated": _peak(cpu)}
+        del state
+    gap = max(abs(a - b) for a, b in zip(runs["pod_data"]["losses"],
+                                         runs["flat"]["losses"]))
+    ok = gap <= POD_DATA_TOL
+    emit(rank, "pod_data", **runs, max_loss_gap=gap, tol=POD_DATA_TOL, ok=ok)
+    return ok
+
+
+POD_DATA_TOL = 1.4e-5  # four data ranks against one in the data-axis slice
 
 
 if __name__ == "__main__":

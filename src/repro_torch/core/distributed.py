@@ -49,7 +49,7 @@ from repro_torch.graphs.csr import Graph
 from repro_torch.kernels._build import pow2
 from repro_torch.kernels.bitset_fold.carry import M32, hash_u32
 from repro_torch.launch.mesh import (all_gather_rows, block, dp_axes_of,
-                                     dp_group, dp_size)
+                                     dp_group, dp_size, rank_device)
 
 
 def _hash_u32(x: torch.Tensor, a, b) -> torch.Tensor:
@@ -103,16 +103,6 @@ def _data_axes_of(mesh, data_axes):
     return tuple(data_axes) if data_axes is not None else dp_axes_of(mesh)
 
 
-def _mesh_device(mesh, device):
-    """The rank's device: ``device`` if given, else the mesh's type (the
-    current card under NCCL)."""
-    if device is not None:
-        return torch.device(device)
-    if mesh.device_type == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
-
-
 def shingle_provider(g: Graph, mesh, data_axes=None, device=None):
     """Engine hook: mesh-sharded shingle computation.
 
@@ -126,7 +116,7 @@ def shingle_provider(g: Graph, mesh, data_axes=None, device=None):
     data_axes = _data_axes_of(mesh, data_axes)
     n_shards = dp_size(mesh, data_axes)
     rank = dist.get_rank(dp_group(mesh, data_axes))
-    dev = _mesh_device(mesh, device)
+    dev = rank_device(mesh, device)
     src = np.repeat(np.arange(g.n), np.diff(g.indptr)).astype(np.int64)
     dst = np.asarray(g.indices, dtype=np.int64)
     pad = (-src.size) % max(n_shards, 1)
@@ -187,7 +177,7 @@ def batched_intersections_mesh(mesh, data_axes=None, device=None):
     n_shards = dp_size(mesh, data_axes)
     group = dp_group(mesh, data_axes)
     rank = dist.get_rank(group)
-    dev = _mesh_device(mesh, device)
+    dev = rank_device(mesh, device)
 
     def fn(bits: np.ndarray) -> np.ndarray:
         faults.check("kernel.bitset_jaccard.intersections")

@@ -39,6 +39,17 @@ def mesh_device_type() -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
+def rank_device(mesh, device=None) -> torch.device:
+    """Where this rank's tensors of ``mesh`` live and travel: ``device``
+    if given, else the current card when the mesh's device type is
+    ``"cuda"`` (NCCL), the CPU under gloo."""
+    if device is not None:
+        return torch.device(device)
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
 def make_mesh(shape: tuple, names: tuple):
     """A mesh of ``shape`` with axes ``names`` over the first ``prod(
     shape)`` ranks of the world, laid out row-major (the last axis

@@ -18,7 +18,9 @@ shape beside it — what a jax array on a ``NamedSharding`` is to its
 devices. Every rank of the world runs `make_mesh_for` and `remesh_state`
 alike (SPMD), members of the meshes or not: building a mesh creates
 process groups, and the move broadcasts each block from the first rank
-that holds it.
+that holds it, on the rank's device (`launch.mesh.rank_device`: its card
+under NCCL, the CPU under gloo), as the reference's ``device_put`` leaves
+the blocks on the new mesh's devices.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.mesh import mesh_device_type, mesh_sizes
+from repro_torch.launch.mesh import mesh_device_type, mesh_sizes, rank_device
 
 
 class Placed(NamedTuple):
@@ -82,10 +84,12 @@ def place(full: torch.Tensor, spec: tuple, mesh) -> Placed:
     return Placed(local, tuple(spec), mesh, tuple(full.shape), full.dtype)
 
 
-def gather_full(leaf: Placed, device) -> torch.Tensor:
-    """The global tensor of ``leaf`` on every rank of the world: each
-    distinct block is broadcast from the first rank of the mesh holding
-    it."""
+def gather_full(leaf: Placed, device=None) -> torch.Tensor:
+    """The global tensor of ``leaf`` on every rank of the world, on
+    ``device`` (default: the rank's device on ``leaf.mesh``,
+    `rank_device`): each distinct block is broadcast from the first rank
+    of the mesh holding it."""
+    device = rank_device(leaf.mesh, device)
     full = torch.empty(leaf.shape, dtype=leaf.dtype, device=device)
     me = dist.get_rank()
     seen = set()
@@ -104,20 +108,22 @@ def gather_full(leaf: Placed, device) -> torch.Tensor:
     return full
 
 
-def remesh_state(state, new_mesh, spec_fn, device="cpu"):
+def remesh_state(state, new_mesh, spec_fn, device=None):
     """``spec_fn(state, mesh)`` gives a spec tree for ``new_mesh`` (it may
     read each leaf's ``.shape``); every leaf of ``state`` — a `Placed`, or
     a tensor every rank holds whole — comes back a `Placed` on
     ``new_mesh`` under its spec, values unchanged. Collective over the
-    world; ``device`` is where the blocks travel (the rank's card under
-    NCCL)."""
+    world. ``device`` is where the blocks travel and stay: by default the
+    rank's device on ``new_mesh`` (`rank_device`: the current card under
+    NCCL, the CPU under gloo). A device the group cannot carry raises."""
     specs = spec_fn(state, new_mesh)
+    device = rank_device(new_mesh, device)
 
     def move(leaf, spec):
         if isinstance(leaf, dict):
             return {k: move(leaf[k], spec[k]) for k in sorted(leaf)}
         full = (gather_full(leaf, device) if isinstance(leaf, Placed)
-                else leaf)
+                else leaf.to(device))
         return place(full, spec, new_mesh)
 
     return move(state, specs)

@@ -110,6 +110,69 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path} imports {sorted(bad)}"
 
 
+def _is_cpu(node, names: dict) -> bool:
+    """Whether the default ``node`` names the CPU: ``"cpu"``,
+    ``torch.device("cpu")`` or a module-level name bound to either."""
+    if isinstance(node, ast.Name) and node.id in names:
+        return _is_cpu(names[node.id], {})
+    if isinstance(node, ast.Constant):
+        return isinstance(node.value, str) and node.value.split(":")[0] == \
+            "cpu"
+    if isinstance(node, ast.Call) and node.args:
+        fn = node.func
+        name = fn.attr if isinstance(fn, ast.Attribute) else getattr(
+            fn, "id", "")
+        return name == "device" and _is_cpu(node.args[0], {})
+    return False
+
+
+def cpu_device_defaults(source: str) -> list:
+    """``name:line`` of each function of ``source`` with a parameter
+    ``device`` that defaults to the CPU (an argument passing the CPU is
+    not a default, and stays allowed)."""
+    tree = ast.parse(source)
+    names = {t.id: node.value for node in tree.body
+             if isinstance(node, ast.Assign) for t in node.targets
+             if isinstance(t, ast.Name)}
+    bad = []
+    for node in ast.walk(tree):
+        if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.Lambda)):
+            continue
+        a = node.args
+        pos = a.posonlyargs + a.args
+        pairs = list(zip(pos[len(pos) - len(a.defaults):], a.defaults)) + [
+            (k, d) for k, d in zip(a.kwonlyargs, a.kw_defaults)
+            if d is not None]
+        bad += [f"{getattr(node, 'name', 'lambda')}:{node.lineno}"
+                for arg, d in pairs
+                if arg.arg == "device" and _is_cpu(d, names)]
+    return bad
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_device_parameter_defaults_to_the_cpu(path):
+    """Entry points default to the card: no function of the port declares
+    ``device="cpu"`` (or ``torch.device("cpu")``) as its default."""
+    bad = cpu_device_defaults(path.read_text())
+    assert not bad, f"{path} defaults device to the CPU in {bad}"
+
+
+@pytest.mark.parametrize("source,flagged", [
+    ('def f(state, mesh, fn, device="cpu"): pass', True),
+    ('def f(x, *, device=torch.device("cpu")): pass', True),
+    ('CPU = "cpu"\ndef f(x, device=CPU): pass', True),
+    ('g = lambda x, device="cpu:0": x', True),
+    ('def f(x, device=None): pass', False),
+    ('def f(x, where="cpu"): pass', False),
+    ('def f(x): return g(x, device="cpu")', False),
+], ids=["positional", "kw-only-torch-device", "module-name", "lambda",
+        "none", "other-name", "argument"])
+def test_cpu_device_default_check_catches_each_form(source, flagged):
+    assert bool(cpu_device_defaults(source)) == flagged
+
+
 def test_summarize_runs_without_jax_or_reference_loaded():
     code = (
         "import sys\n"

@@ -123,6 +123,61 @@ def elastic_world(rank, world, subsets, mps):
     return out
 
 
+def _smoke():
+    """`multi_rank_smoke.py` from the repo root (it imports `chip_smoke.py`
+    beside it)."""
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import multi_rank_smoke
+
+    return multi_rank_smoke
+
+
+def _bytes(t):
+    """(dtype name, shape, bit patterns as uint8): numpy has no
+    bfloat16."""
+    return (str(t.dtype).split(".")[-1], tuple(t.shape),
+            t.detach().contiguous().reshape(-1).view(torch.uint8).numpy()
+            .copy())
+
+
+def elastic_train_world(rank, world, ckpt_dir, moves):
+    """`multi_rank_smoke.elastic_part` as its ``--cpu`` rehearsal runs it
+    (the smoke model on gloo): a train state under `state_specs` on
+    `make_host_mesh(1, 4)` moved by `remesh_state` through ``moves``,
+    each gated against a checkpoint saved before it and restored on the
+    target mesh; its records. Then the same start state
+    (`elastic_start`) moved through ``moves`` with no step between, for
+    the reference's ``remesh_state`` to move too: the start state whole
+    (rank 0), the specs on the start mesh and after each move, and this
+    rank's blocks after each move (None off the mesh), all in sorted-key
+    order."""
+    from repro_torch.train.elastic import (gather_full, make_mesh_for,
+                                           remesh_state)
+
+    smoke = _smoke()
+    dev = torch.device(CPU)
+    records = smoke.elastic_part(rank, dev, True, lambda: None, ckpt_dir,
+                                 moves)
+    cfg, _, state = smoke.elastic_start(rank, dev, True)
+    spec_fn = smoke.elastic_specs(cfg)
+    leaves = smoke.sorted_leaves(state)
+    start = [_bytes(gather_full(p)) for p in leaves]
+    specs, blocks = [[p.spec for p in leaves]], []
+    for ranks, mp in moves:
+        state = remesh_state(state, make_mesh_for(list(ranks), mp), spec_fn)
+        leaves = smoke.sorted_leaves(state)
+        specs.append([p.spec for p in leaves])
+        blocks.append(None if leaves[0].local is None else
+                      [_bytes(p.local) for p in leaves])
+    return {"records": records, "start": start if rank == 0 else None,
+            "specs": specs, "blocks": blocks}
+
+
 # ------------------------------------------------------ data-parallel train
 def _leaves_np(tree):
     from repro_torch.optim.adamw import leaves
