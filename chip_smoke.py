@@ -2564,34 +2564,22 @@ def check_answers(what, outs, gen, vocab):
                                  f"in [0, {vocab})")
 
 
-class DropRecorder:
-    """Keeps each MoE routing's dropped-pair count (a device tensor: no
-    sync while serving) for calls of more than one token a row (prefill),
-    by wrapping the name `moe.moe_ffn` calls."""
+def prefill_drops(server, prompts, n_layers):
+    """Each prefill's dropped (token, k) pairs summed over the layers: the
+    ``dropped_pairs`` of the `moe.route` spans under each `serve.prefill`
+    of one traced drain of ``prompts`` (one decode step too, whose routing
+    stays under `serve.decode`). Raises unless every prefill routed
+    ``n_layers`` times."""
+    from repro_torch import tracing
 
-    def __init__(self):
-        from repro_torch.models import moe as M
-
-        self.M = M
-        self.counts = []
-        self._orig = M.route
-
-        def rec(p, cfg, x, _f=self._orig):
-            r = _f(p, cfg, x)
-            if x.shape[1] > 1:
-                self.counts.append(r.dropped)
-            return r
-
-        M.route = rec
-
-    def per_prefill(self, n_layers):
-        """Dropped pairs summed over the layers of each prefill."""
-        counts = [int(c) for c in self.counts]
-        return [sum(counts[i:i + n_layers])
-                for i in range(0, len(counts), n_layers)]
-
-    def close(self):
-        self.M.route = self._orig
+    with tracing.recording() as rec:
+        server.run(prompts, gen_tokens=2)
+    routes = [sum(s.name == "moe.route" for s in g)
+              for g in tracing.within(rec.spans, "serve.prefill")]
+    if set(routes) != {n_layers}:
+        raise AssertionError(f"prefills routed {routes} times, expected "
+                             f"{n_layers} each")
+    return rec.sums_within("serve.prefill", "moe.route", "dropped_pairs")
 
 
 class RoutingPin:
@@ -2731,13 +2719,12 @@ def phase_lm_mla_moe():
     prompts = [rng.integers(0, cfg.vocab, size=LM_PROMPT_LEN)
                for _ in range(LM_PROMPTS)]
     server = BatchServer(cfg, params, batch_slots=LM_SLOTS, device="cuda")
-    recorder, drops = FlashRecorder(), DropRecorder()
+    recorder = FlashRecorder()
     reset_flash_launches()
     try:
         d = timed_drain(server, prompts, LM_GEN)
     finally:
         recorder.close()
-        drops.close()
     launches, launches_by = KF.LAUNCHES, dict(KF.LAUNCHES_BY)
     peak = torch.cuda.max_memory_allocated()
     m = cfg.mla
@@ -2751,6 +2738,7 @@ def phase_lm_mla_moe():
             f"at (D, Dv) {shapes}: expected {want_launches}, all tc_bf16, "
             f"all at ({qk}, {m.v_head_dim})")
     check_answers("lm_mla_moe", d["outs"], LM_GEN, cfg.vocab)
+    drops = prefill_drops(server, prompts, cfg.n_layers)
     batch = torch.from_numpy(np.stack(prompts[:LM_SLOTS])).cuda()
     gen = torch.from_numpy(np.stack(d["outs"][:LM_SLOTS])).cuda().long()
     checks = mla_moe_checks(cfg, params, batch, gen, server, prompts)
@@ -2773,7 +2761,7 @@ def phase_lm_mla_moe():
          decode_steps=len(d["decode_s"]),
          generated_tokens_per_s=LM_PROMPTS * LM_GEN / d["drain_s"],
          max_memory_allocated=peak,
-         dropped_pairs_per_prefill=drops.per_prefill(cfg.n_layers),
+         dropped_pairs_per_prefill=drops,
          routed_pairs_per_prefill=cfg.n_layers * LM_SLOTS * LM_PROMPT_LEN
          * cfg.moe.top_k,
          flash_launches=launches, flash_launches_by_variant=launches_by,
@@ -2909,13 +2897,12 @@ def gqa_moe_cut():
     prompts = [rng.integers(0, cfg.vocab, size=LM_PROMPT_LEN)
                for _ in range(LM_SLOTS)]
     server = BatchServer(cfg, params, batch_slots=LM_SLOTS, device="cuda")
-    recorder, drops = FlashRecorder(), DropRecorder()
+    recorder = FlashRecorder()
     reset_flash_launches()
     try:
         d = timed_drain(server, prompts, GQA_MOE_GEN)
     finally:
         recorder.close()
-        drops.close()
     launches, launches_by = KF.LAUNCHES, dict(KF.LAUNCHES_BY)
     if launches != cfg.n_layers or launches_by["tc_bf16"] != launches:
         raise AssertionError(f"qwen3-moe cut launched flash {launches} "
@@ -2923,6 +2910,7 @@ def gqa_moe_cut():
                              f"{cfg.n_layers} on tc_bf16")
     check_answers("qwen3-moe cut", d["outs"], GQA_MOE_GEN, cfg.vocab)
     peak = torch.cuda.max_memory_allocated()
+    drops = prefill_drops(server, prompts, cfg.n_layers)
     batch = torch.from_numpy(np.stack(prompts)).cuda()
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     del server
@@ -2946,7 +2934,7 @@ def gqa_moe_cut():
             "decode_ms_per_step": 1e3 * sum(d["decode_s"])
             / len(d["decode_s"]),
             "max_memory_allocated": peak,
-            "dropped_pairs_per_prefill": drops.per_prefill(cfg.n_layers),
+            "dropped_pairs_per_prefill": drops,
             "flash_launches": launches,
             "flash_calls": [[*k, c] for k, c in recorder.calls.items()],
             "a_f32": check}
@@ -2986,40 +2974,6 @@ def gate_close(what, got, want, atol, rtol, failed):
 
     if not torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol):
         failed.append(f"{what} beyond atol {atol}, rtol {rtol}")
-
-
-class ScanTimer:
-    """CUDA events around every `ssm.ssd_chunked` call (the SSD scan, by
-    wrapping the name `mamba2_full` calls): the device time from the
-    first kernel of a call to its last, summed. The scan's kernels are
-    the only work between its two events on the stream."""
-
-    def __init__(self):
-        import torch
-
-        from repro_torch.models import ssm as S
-
-        self.S, self._orig, self.events = S, S.ssd_chunked, []
-
-        def timed(*a, _f=self._orig, **k):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = _f(*a, **k)
-            end.record()
-            self.events.append((start, end))
-            return out
-
-        S.ssd_chunked = timed
-
-    def ms(self):
-        import torch
-
-        torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in self.events)
-
-    def close(self):
-        self.S.ssd_chunked = self._orig
 
 
 def phase_lm_ssm_encdec():
@@ -3190,10 +3144,11 @@ def ssm_checks(cfg, params, batch, gen, stepped):
 def hybrid_trace(cfg, params, server, prompts, batch):
     """One batch (prefill and 8 decode steps) under the profiler: the
     device's busy share and its top ops; the SSD scan's device span in
-    one prefill (CUDA events, `ScanTimer`) beside that prefill's wall;
+    one prefill (its `ssm.scan` spans, `tracing`) beside that prefill's wall;
     one decode step traced alone for its launches."""
     import torch
 
+    from repro_torch import tracing
     from repro_torch.models import transformer as T
 
     tw = time.perf_counter()
@@ -3202,16 +3157,14 @@ def hybrid_trace(cfg, params, server, prompts, batch):
                            warmup=lambda: server.run(prompts[:1],
                                                      gen_tokens=2))
     emit_trace(tw, "lm-hybrid", wall, by_name, top=16)
-    timer = ScanTimer()
-    try:
+    with tracing.recording() as rec:
         tw = time.perf_counter()
         _, cache = T.prefill(params, cfg, batch,
                              cache_len=batch.shape[1] + 1)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - tw
-        scan_ms = timer.ms()
-    finally:
-        timer.close()
+    scan_calls, _, scan_s, _ = rec.table()["ssm.scan"]
+    scan_ms = scan_s * 1e3
     tok = batch[:, -1:]
     step_wall, step_by = traced(lambda: T.decode_step(
         params, cfg, cache, tok, batch.shape[1]), warmup=True)
@@ -3220,7 +3173,7 @@ def hybrid_trace(cfg, params, server, prompts, batch):
     fields = {"wall_seconds": wall, "device_busy_share": busy_us * 1e-6
               / wall, "prefill_seconds": prefill_s, "ssd_scan_ms": scan_ms,
               "ssd_scan_share_of_prefill": scan_ms * 1e-3 / prefill_s,
-              "ssd_scan_calls": len(timer.events),
+              "ssd_scan_calls": scan_calls,
               "decode_step_seconds": step_wall,
               "decode_step_launches": sum(v["count"]
                                           for v in step_by.values()),

@@ -25,6 +25,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.registry import get_config
 from repro_torch.core.engine import resolve_device
 from repro_torch.models.api import get_api
@@ -103,21 +104,26 @@ class BatchServer:
         `RequestError`\\ s."""
         if not prompts:  # nothing queued: don't pad (chunk[-1] of []) or decode
             return []
+        with tracing.span("serve.run"):
+            return self._run(prompts, gen_tokens, timeout)
+
+    def _run(self, prompts, gen_tokens, timeout):
         cfg = self.cfg
         out: list = [None] * len(prompts)
         valid: list = []
         ref_len = None
-        for i, p in enumerate(prompts):
-            arr = np.asarray(p)
-            reason = self._invalid_reason(arr, ref_len)
-            if reason is not None:
-                out[i] = RequestError(p, reason)
-                continue
-            ref_len = arr.size
-            valid.append((i, arr))
+        with tracing.span("serve.validate"):
+            for i, p in enumerate(prompts):
+                arr = np.asarray(p)
+                reason = self._invalid_reason(arr, ref_len)
+                if reason is not None:
+                    out[i] = RequestError(p, reason)
+                    continue
+                ref_len = arr.size
+                valid.append((i, arr))
         deadline = (None if timeout is None
                     else time.perf_counter() + float(timeout))
-        started = False
+        started, slots = False, 0
         for c0 in range(0, len(valid), self.B):
             # the first batch always runs — a timeout bounds extra batches,
             # it never starves the queue of all progress
@@ -125,25 +131,35 @@ class BatchServer:
                     and time.perf_counter() >= deadline:
                 break
             chunk = valid[c0 : c0 + self.B]
-            toks = torch.from_numpy(np.stack(
-                [a for _, a in pad_to_slots(chunk, self.B)]).astype(
-                    np.int64)).to(self.device)
+            with tracing.span("serve.upload"):
+                toks = torch.from_numpy(np.stack(
+                    [a for _, a in pad_to_slots(chunk, self.B)]).astype(
+                        np.int64)).to(self.device)
             plen = toks.shape[1]
-            logits, cache = self.api.prefill(
-                self.params, cfg, {"tokens": toks}, cache_len=plen + gen_tokens)
-            cur = torch.argmax(mask_pad_logits(cfg, logits[:, -1]),
-                               dim=-1)[:, None]
+            with tracing.span("serve.prefill"):
+                logits, cache = self.api.prefill(
+                    self.params, cfg, {"tokens": toks},
+                    cache_len=plen + gen_tokens)
+            with tracing.span("serve.sample"):
+                cur = torch.argmax(mask_pad_logits(cfg, logits[:, -1]),
+                                   dim=-1)[:, None]
             gen = [cur]
             for g in range(gen_tokens - 1):
-                logits, cache = self.decode(self.params, cache, cur, plen + g)
-                lg = mask_pad_logits(
-                    cfg, logits[:, -1] if logits.dim() == 3 else logits)
-                cur = torch.argmax(lg, dim=-1).reshape(-1, 1)
+                with tracing.span("serve.decode"):
+                    logits, cache = self.decode(self.params, cache, cur,
+                                                plen + g)
+                    lg = mask_pad_logits(
+                        cfg, logits[:, -1] if logits.dim() == 3 else logits)
+                    cur = torch.argmax(lg, dim=-1).reshape(-1, 1)
                 gen.append(cur)
-            seqs = torch.cat(gen, dim=1).to(torch.int32).cpu().numpy()
+            with tracing.span("serve.readback"):
+                seqs = torch.cat(gen, dim=1).to(torch.int32).cpu().numpy()
             for j, (i, _) in enumerate(chunk):
                 out[i] = seqs[j]
-            started = True
+            started, slots = True, slots + self.B
+        tracing.add("requests", len(prompts))
+        tracing.add("rejected", len(prompts) - len(valid))
+        tracing.add("slots", slots)
         for i, p in enumerate(prompts):
             if out[i] is None:
                 out[i] = RequestError(

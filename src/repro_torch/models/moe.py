@@ -31,6 +31,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import sharding as SH
 from repro_torch.models.layers import lowp_matmul_f32
@@ -65,7 +66,9 @@ class Routing(NamedTuple):
     token order; ``slot``: (b, s·k) its row ``e·cap + rank`` in the
     expert buffers, ``e·cap`` (the sentinel) when dropped; ``cap``: rows
     per expert; ``dropped``: the number of pairs beyond capacity, a 0-d
-    tensor on x's device (reading it waits for the card)."""
+    tensor on x's device, which `moe_ffn` counts as ``dropped_pairs`` on
+    its `tracing` span ``moe.route``: read once, when a recording
+    closes."""
     probs: torch.Tensor
     top_p: torch.Tensor
     top_e: torch.Tensor
@@ -113,48 +116,58 @@ def moe_ffn(p, cfg: ModelConfig, x):
     mo = cfg.moe
     b, s, d = x.shape
     k, e = mo.top_k, mo.n_experts
-    r = route(p, cfg, x)
+    with tracing.span("moe.route"):
+        r = route(p, cfg, x)
+        tracing.add("dropped_pairs", r.dropped)
+        tracing.add("pairs", b * s * k)
     cap, slot = r.cap, r.slot
     el = p["we_gate"].shape[0]          # the rank's experts, e0 … e0+el-1
     lo = SH.col_block(e).start * cap    # their first buffer row
     hi = lo + el * cap
-    gi = torch.arange(b, device=x.device)[:, None]
 
-    # dispatch: slot -> source token within the row (sentinel -> zero row).
-    # Dropped pairs all write the sentinel column; it is sliced off below.
-    tok = (torch.arange(s * k, device=x.device) // k).expand(b, s * k)
-    src = torch.full((b, e * cap + 1), s, dtype=torch.int64, device=x.device)
-    src.scatter_(1, slot, tok)
-    src = src[:, lo:hi].reshape(b, el, cap).transpose(0, 1).contiguous()
-    x_pad = torch.cat([x, x.new_zeros(b, 1, d)], dim=1)
-    # gathered expert-major, so "gecd,edf->gecf" is one batched matmul
-    xe = constrain(x_pad[gi[None], src].view(el, b * cap, d),
-                   ("model", "dp", None))
-    h = F.silu(torch.bmm(xe, p["we_gate"])) * torch.bmm(xe, p["we_up"])
-    del xe
-    eo = constrain(torch.bmm(h, p["we_down"]),              # (el, b·cap, d)
-                   ("model", "dp", None))
-    del h
+    with tracing.span("moe.dispatch"):
+        gi = torch.arange(b, device=x.device)[:, None]
+        # slot -> source token within the row (sentinel -> zero row).
+        # Dropped pairs all write the sentinel column; it is sliced off.
+        tok = (torch.arange(s * k, device=x.device) // k).expand(b, s * k)
+        src = torch.full((b, e * cap + 1), s, dtype=torch.int64,
+                         device=x.device)
+        src.scatter_(1, slot, tok)
+        src = src[:, lo:hi].reshape(b, el, cap).transpose(0, 1).contiguous()
+        x_pad = torch.cat([x, x.new_zeros(b, 1, d)], dim=1)
+        # gathered expert-major, so "gecd,edf->gecf" is one batched matmul
+        xe = constrain(x_pad[gi[None], src].view(el, b * cap, d),
+                       ("model", "dp", None))
+    with tracing.span("moe.experts"):
+        h = F.silu(torch.bmm(xe, p["we_gate"])) * torch.bmm(xe, p["we_up"])
+        del xe
+        eo = constrain(torch.bmm(h, p["we_down"]),          # (el, b·cap, d)
+                       ("model", "dp", None))
+        del h
 
-    # combine: each (token, k) reads its row of eo, expert-major; dropped
-    # pairs, and pairs of another rank's experts, read the zero row
-    eo_pad = torch.cat([eo.view(el * b * cap, d), eo.new_zeros(1, d)])
-    del eo
-    mine, rel = ((slot < hi, slot) if lo == 0
-                 else ((slot >= lo) & (slot < hi), slot - lo))
-    row = torch.where(mine, rel // cap * (b * cap) + gi * cap + slot % cap,
-                      el * b * cap)
-    gathered = eo_pad[row].view(b, s, k, d)
-    routed = (gathered * r.top_p.to(gathered.dtype)[..., None]).sum(dim=2)
+    with tracing.span("moe.combine"):
+        # each (token, k) reads its row of eo, expert-major; dropped
+        # pairs, and pairs of another rank's experts, read the zero row
+        eo_pad = torch.cat([eo.view(el * b * cap, d), eo.new_zeros(1, d)])
+        del eo
+        mine, rel = ((slot < hi, slot) if lo == 0
+                     else ((slot >= lo) & (slot < hi), slot - lo))
+        row = torch.where(mine,
+                          rel // cap * (b * cap) + gi * cap + slot % cap,
+                          el * b * cap)
+        gathered = eo_pad[row].view(b, s, k, d)
+        routed = (gathered * r.top_p.to(gathered.dtype)[..., None]).sum(dim=2)
     parts = [(routed, SH.split(e))]
     if mo.n_shared:
-        ds = mo.d_shared or mo.d_expert
-        hs = F.silu(x @ p["ws_gate"]) * (x @ p["ws_up"])
-        parts.append(SH.row_partial(hs, p["ws_down"], ds,
-                                    SH.col_block(ds).start))
+        with tracing.span("moe.shared"):
+            ds = mo.d_shared or mo.d_expert
+            hs = F.silu(x @ p["ws_gate"]) * (x @ p["ws_up"])
+            parts.append(SH.row_partial(hs, p["ws_down"], ds,
+                                        SH.col_block(ds).start))
     out = _add_parts(parts)
-    aux = _load_balance_loss(r.probs.reshape(b * s, e),
-                             r.top_e.reshape(b * s, k), e)
+    with tracing.span("moe.aux"):
+        aux = _load_balance_loss(r.probs.reshape(b * s, e),
+                                 r.top_e.reshape(b * s, k), e)
     return out, aux
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import sharding as SH
 from repro_torch.models.layers import rms_norm
@@ -191,7 +192,8 @@ def mamba2_full(p, cfg: ModelConfig, x, conv_state=None, h0=None):
     hp = cfg.ssm.head_dim
     z, xs, B, C, dt, A, conv_state = _project(p, cfg, x, conv_state)
     first, xh, dt, A, B, C = _heads(cfg, xs, dt, A, B, C)
-    y, h_last = ssd_chunked(xh, dt, A, B, C, cfg.ssm.chunk, h0=h0)
+    with tracing.span("ssm.scan"):
+        y, h_last = ssd_chunked(xh, dt, A, B, C, cfg.ssm.chunk, h0=h0)
     D = _block(p["D"], first, xh.shape[2])
     y = y + D[None, None, :, None] * xh.float()
     out = _out(p, cfg, y.reshape(b, s, -1), z, x.dtype, first * hp)

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import resolve_device
 from repro_torch.launch.mesh import mesh_sizes
@@ -273,11 +274,13 @@ def _ffn(p, cfg: ModelConfig, h2):
 
 def attn_block_full(p, cfg: ModelConfig, x, positions):
     full = A.mla_full if cfg.mla is not None else A.gqa_full
-    h, cache = full(p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps),
-                    positions)
-    x = constrain(x + h, ("dp", None, None))
-    f, aux = _ffn(p, cfg, rms_norm(x, p["ln2"], cfg.norm_eps))
-    return constrain(x + f, ("dp", None, None)), cache, aux
+    with tracing.span("layer.attn"):
+        h, cache = full(p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps),
+                        positions)
+        x = constrain(x + h, ("dp", None, None))
+    with tracing.span("layer.ffn"):
+        f, aux = _ffn(p, cfg, rms_norm(x, p["ln2"], cfg.norm_eps))
+        return constrain(x + f, ("dp", None, None)), cache, aux
 
 
 def attn_block_decode(p, cfg: ModelConfig, x, cache, pos):
@@ -297,10 +300,11 @@ def attn_block_decode(p, cfg: ModelConfig, x, cache, pos):
 
 
 def ssm_block_full(p, cfg: ModelConfig, x, conv_state=None, h0=None):
-    h, cache = SSM.mamba2_full(p["mamba"], cfg,
-                               rms_norm(x, p["ln"], cfg.norm_eps),
-                               conv_state, h0)
-    return constrain(x + h, ("dp", None, None)), cache
+    with tracing.span("layer.ssm"):
+        h, cache = SSM.mamba2_full(p["mamba"], cfg,
+                                   rms_norm(x, p["ln"], cfg.norm_eps),
+                                   conv_state, h0)
+        return constrain(x + h, ("dp", None, None)), cache
 
 
 def ssm_block_decode(p, cfg: ModelConfig, x, cache):
@@ -545,14 +549,17 @@ def prefill(params, cfg: ModelConfig, tokens, embeds=None,
     (`fit`); the Mamba2 caches are copied whole. Under a mesh context
     the cache is the rank's blocks (`sharding.cache_pspecs`) and the
     logits the rank's rows, every vocabulary column."""
-    x, _, caches = forward(params, cfg, tokens, embeds=embeds,
-                           return_caches=True, return_hidden=True)
-    logits = _logits(params, cfg, x[:, -1:])
-    batch = global_batch(tokens.shape[0])
-    shapes = cache_shapes(cfg, batch, cache_len or x.shape[1])
-    specs = cache_specs(cfg, shapes, batch)
-    out = zero_cache(shapes, specs, DTYPES[cfg.dtype], x.device)
-    return logits, fill_cache(out, caches, specs)
+    with tracing.span("prefill.forward"):
+        x, _, caches = forward(params, cfg, tokens, embeds=embeds,
+                               return_caches=True, return_hidden=True)
+    with tracing.span("prefill.logits"):
+        logits = _logits(params, cfg, x[:, -1:])
+    with tracing.span("prefill.cache_fill"):
+        batch = global_batch(tokens.shape[0])
+        shapes = cache_shapes(cfg, batch, cache_len or x.shape[1])
+        specs = cache_specs(cfg, shapes, batch)
+        out = zero_cache(shapes, specs, DTYPES[cfg.dtype], x.device)
+        return logits, fill_cache(out, caches, specs)
 
 
 def decode_step(params, cfg: ModelConfig, cache, token, pos):

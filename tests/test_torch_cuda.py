@@ -1534,3 +1534,45 @@ def test_cuda_quickstart_example(capsys):
     assert on_card == printed()
     assert np.array_equal(card.parent, cpu.parent)
     assert np.array_equal(card.edges, cpu.edges)
+
+
+@pytest.mark.cuda
+def test_cuda_tracing_times_spans_on_the_card():
+    """`repro_torch.tracing` on the card: the smoke MLA-MoE served with
+    the tracer on gives the tokens it gives off; every span has device
+    seconds from its CUDA events, each parent at least its children's sum
+    (its self seconds that difference), the dropped pairs read back once,
+    and the flash kernel's launches as its own counter moved."""
+    from repro_torch import tracing
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import BatchServer
+    from repro_torch.models import transformer as T
+
+    _need_card()
+    cfg = get_config("deepseek-v2-lite-16b", smoke=True)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    server = BatchServer(cfg, params, batch_slots=4, max_len=66,
+                         device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, 64) for _ in range(4)]
+    off = server.run(prompts, gen_tokens=2)
+    launches = flash_kernel.LAUNCHES
+    with tracing.recording() as rec:
+        on = server.run(prompts, gen_tokens=2)
+    assert rec.cuda
+    assert all(np.array_equal(a, b) for a, b in zip(off, on))
+    assert rec.launches.get("flash_attn.LAUNCHES", 0) \
+        == flash_kernel.LAUNCHES - launches
+    children = {}
+    for s in rec.spans:
+        assert s.device_s is not None and s.device_s >= 0, s.name
+        if s.parent is not None:
+            children[s.parent] = children.get(s.parent, 0.0) + s.device_s
+    for s in rec.spans:
+        kids = children.get(s.id, 0.0)
+        assert abs(s.self_s - (s.device_s - kids)) < 1e-9
+        assert s.device_s >= kids - 1e-4, s.name
+    drops = rec.sums_within("serve.prefill", "moe.route", "dropped_pairs")
+    assert len(drops) == 1 and 0 <= drops[0] \
+        <= cfg.n_layers * 4 * 64 * cfg.moe.top_k

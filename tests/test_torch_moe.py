@@ -286,30 +286,41 @@ def test_flash_bound_takes_the_v_width():
         S, S, True, 0) * B * H
 
 
-def test_drop_recorder_counts_each_prefill():
-    """`chip_smoke.DropRecorder` sums each prefill's dropped pairs over the
-    layers (decode steps, one token a row, are not kept), equal to the
-    routing's own counts, and leaves `moe.route` as it found it."""
+def test_prefill_drops_equal_each_prefills_routing():
+    """`chip_smoke.prefill_drops` reads each prefill's dropped pairs from
+    the `moe.route` spans under its `serve.prefill` (the decode step's
+    routing apart): equal to the routing's own counts over that prefill's
+    layers, and `moe.route` left as it was."""
+    from repro_torch.launch.serve import BatchServer, pad_to_slots
+
     CS = _chip_smoke()
     _, pc = _configs("deepseek-v2-lite-16b", capacity=0.5)
     params = PT.init_params(pc, torch.Generator().manual_seed(0),
                             device="cpu")
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, pc.vocab, (2, 16)))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, pc.vocab, 16) for _ in range(6)]
+    server = BatchServer(pc, params, batch_slots=4, device="cpu")
     route = PM.route
-    recorder = CS.DropRecorder()
-    try:
-        _, cache = PT.prefill(params, pc, toks, cache_len=18)
-        PT.decode_step(params, pc, cache, toks[:, :1], 16)
-        PT.prefill(params, pc, toks[:, :8])
-    finally:
-        recorder.close()
+    got = CS.prefill_drops(server, prompts, pc.n_layers)
     assert PM.route is route
-    assert len(recorder.counts) == 2 * pc.n_layers
-    per = recorder.per_prefill(pc.n_layers)
-    assert len(per) == 2 and per[0] > 0
-    assert per == [sum(int(c) for c in recorder.counts[:pc.n_layers]),
-                   sum(int(c) for c in recorder.counts[pc.n_layers:])]
+    want = []
+    for c0 in (0, 4):
+        counts = []
+
+        def counted(p, cfg, x):
+            r = route(p, cfg, x)
+            counts.append(int(r.dropped))
+            return r
+
+        PM.route = counted
+        try:
+            PT.prefill(params, pc, torch.from_numpy(np.stack(
+                pad_to_slots(prompts[c0:c0 + 4], 4))))
+        finally:
+            PM.route = route
+        assert len(counts) == pc.n_layers
+        want.append(sum(counts))
+    assert got == want and got[0] > 0
 
 
 def test_first_layers_cuts_and_casts():
